@@ -10,19 +10,32 @@
    plain PyTorch version on the same inputs, at the slice's shapes (B 32 and,
    for the eval forward, B 256; L 80, H 8, D 32, fp32, causal), a ragged
    non-causal case (L 50) and the TransformerLM bench shape (B 8, L 1024,
-   H 16, D 64) in bf16 and fp32, with the tolerances below.  Kernel, plain
-   version and F.scaled_dot_product_attention (a yardstick only; the port
-   never calls it) are timed on the device with CUDA events around a queue
-   of calls, median of trials (``time_ms``).
+   H 16, D 64) in bf16 and fp32, with the tolerances below.  Then ring
+   attention's shard fold (K4) against its plain twin at the sequence-
+   parallel slice's fold (B 8, Lq = Lk 256, H 16, D 64): the three kinds of
+   fold a causal ring makes (keys before the rows, the diagonal, keys after
+   the rows) in bf16 and fp32, and a ragged non-causal fold with padded keys.
+   Kernel, plain version and, where one PyTorch call computes the same
+   function, that call (F.scaled_dot_product_attention and its efficient-
+   attention backward: yardsticks only, the port never calls them) are timed
+   on the device with CUDA events around a queue of calls, median of trials
+   (``time_ms``).
 3. Reference: one FedAvg round of a small TransformerLM on the card
-   (kernels) and on the CPU (plain versions) from the same seed must agree.
-4. Slice: FedAvg of the full-width hub TransformerLM on shakespeare
+   (kernels) and on the CPU (plain versions) from the same seed must agree;
+   so must one SGD step of a small sequence-parallel TransformerLM (sp 4).
+4. Slice 1: FedAvg of the full-width hub TransformerLM on shakespeare
    (100 clients, 10 per round, 3 rounds) through fedml_tpu_torch.init ->
    data.load -> models.hub.create -> FedMLRunner(...).run(), with every
    kernel's launch count read just after the run.
 5. Profile: torch.profiler over one client's local training, after the
    main path's counts were read: device-busy share and the top kernels.
-6. The kernels line, the card line, and the last line
+6. Slice 2: the sequence-parallel TransformerLM at bench.py's TransformerLM
+   width (d_model 1024, 8 layers, 16 heads x 64, d_ff 4096, vocab 32000,
+   B 8 x L 1024, sp 4) through create_mesh -> sp_init -> sp_apply ->
+   sp_loss_fn with make_optimizer's SGD: fp32 logits held to the single-card
+   model's (flash attention, K1), then one warm and 3 timed bf16 SGD steps,
+   with the launch counts read just after.
+7. The kernels line, the card line, and the last line
    {"ok": true, "device": {...}}.
 
 Any failure raises and the script exits non-zero with no result line.  It
@@ -52,9 +65,21 @@ PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}  # fp32 outside tensor cores; 
 # bf16: outputs are rounded to bf16 (2^-8 relative), and the kernel rounds P
 # against its running max where the plain version uses the row max, so one
 # bf16 step either way on the larger entries.
+# The shard fold (K4) keeps fp32 state on both sides, so m and l take the
+# fp32 row-statistic tolerances in both types; its o is unnormalised, so its
+# rounding error grows with the row's denominator l, and its atol is scaled
+# by max(l, 1).  In bf16 the fold's o has a tolerance of its own, tighter than
+# O's: the kernel and its plain twin round P to bf16 against maxima that
+# differ only where a row spans several key tiles, so o / l differs far less
+# than a bf16 output does.  On an H100 the largest |o - plain| / max(l, 1)
+# read 2.8e-4 on the past fold and 1.1e-3 on the diagonal one, where a row
+# of a few keys can see one P one bf16 step apart (o / l then moves by up to
+# 2^-8 |v|): atol 3e-3 leaves room over that reading.
 TOLERANCE = {
-    "float32": {"o": (2e-5, 1e-5), "lse": (1e-5, 1e-6), "grad": (1e-4, 1e-4)},
-    "bfloat16": {"o": (1e-2, 2e-2), "lse": (1e-4, 1e-5), "grad": (2e-2, 3e-2)},
+    "float32": {"o": (2e-5, 1e-5), "lse": (1e-5, 1e-6), "grad": (1e-4, 1e-4),
+                "m": (1e-5, 1e-6), "l": (1e-5, 1e-5), "fold_o": (2e-5, 1e-5)},
+    "bfloat16": {"o": (1e-2, 2e-2), "lse": (1e-4, 1e-5), "grad": (2e-2, 3e-2),
+                 "m": (1e-5, 1e-6), "l": (1e-5, 1e-5), "fold_o": (3e-3, 1e-2)},
 }
 KERNEL_SOURCES = {
     "flash_fwd": ("fedml_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -63,7 +88,10 @@ KERNEL_SOURCES = {
                      "fedml_tpu/ops/flash_attention.py:211 _flash_bwd_dq_kernel"),
     "flash_bwd_dkv": ("fedml_tpu_torch/ops/csrc/flash_bwd.cu",
                       "fedml_tpu/ops/flash_attention.py:245 _flash_bwd_dkv_kernel"),
+    "flash_shard_update": ("fedml_tpu_torch/ops/csrc/flash_update.cu",
+                           "fedml_tpu/ops/flash_attention.py:427 _flash_update_kernel"),
 }
+SLICE1_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # (name, B, L, H, D, dtype, causal, kernels to check)
 CASES = [
     ("slice_train", 32, 80, 8, 32, "float32", True, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
@@ -72,6 +100,26 @@ CASES = [
     ("bench_bf16", 8, 1024, 16, 64, "bfloat16", True, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
     ("bench_fp32", 8, 1024, 16, 64, "float32", True, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
 ]
+# K4 at the sp slice's fold: (name, B, Lq, Lk, H, D, dtype, causal, q shard,
+# k shard, padded key tail).  With shards of Lq keys, q shard 1 folds shard 0
+# (all keys before the rows), itself (the diagonal) and shard 2 (all after:
+# dead when causal); past and dead folds carry the diagonal fold's state.
+FOLD_CASES = [
+    ("fold_past_bf16", 8, 256, 256, 16, 64, "bfloat16", True, 1, 0, 0),
+    ("fold_diagonal_bf16", 8, 256, 256, 16, 64, "bfloat16", True, 1, 1, 0),
+    ("fold_dead_bf16", 8, 256, 256, 16, 64, "bfloat16", True, 1, 2, 0),
+    ("fold_past_fp32", 8, 256, 256, 16, 64, "float32", True, 1, 0, 0),
+    ("fold_diagonal_fp32", 8, 256, 256, 16, 64, "float32", True, 1, 1, 0),
+    ("fold_dead_fp32", 8, 256, 256, 16, 64, "float32", True, 1, 2, 0),
+    ("fold_ragged_full", 4, 200, 130, 8, 32, "float32", False, 1, 0, 17),
+]
+FOLD_OF_RECORD = "fold_past_bf16"  # the kernels line's K4 row: a full fold of the bf16 run
+# slice 2: bench.py's TransformerLM leg (bench.py:1465-1502), sequence-parallel
+SP_CONFIG = dict(vocab_size=32000, d_model=1024, n_heads=16, n_layers=8, d_ff=4096)
+SP_BATCH, SP_LEN, SP_SHARDS, SP_LR = 8, 1024, 4, 1e-3
+# sp logits (ring, K4) against single-card logits (K1), fp32 with TF32 off:
+# the two sum each row's keys in another order, through 8 layers
+SP_PARITY_ATOL = 1e-3
 SLICE_CONFIG = {
     "common_args": {"training_type": "simulation", "random_seed": 0},
     "data_args": {"dataset": "shakespeare", "partition_method": "hetero", "partition_alpha": 0.5},
@@ -143,6 +191,12 @@ def time_ms(fn, reps: int = 20, warmup: int = 3, trials: int = 5) -> float:
     return statistics.median(per_call)
 
 
+def _roofline(nbytes: float, ops: float, dtype: str):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def bound(kernel: str, B: int, L: int, H: int, D: int, dtype: str, causal: bool):
     """(bound_ms, bound_by): the larger of the bytes the function must move
     (each input read once, each output written once) over HBM bandwidth and
@@ -157,9 +211,22 @@ def bound(kernel: str, B: int, L: int, H: int, D: int, dtype: str, causal: bool)
         nbytes, ops = 5 * tensor + 2 * row, pairs * 6 * D
     else:  # q, k, v, dO, lse, delta -> dk, dv; q.k, dO.v, P^T.dO, dS^T.q
         nbytes, ops = 6 * tensor + 2 * row, pairs * 8 * D
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return _roofline(nbytes, ops, dtype)
+
+
+def bound_fold(B: int, H: int, D: int, dtype: str, live):
+    """K4's (bound_ms, bound_by), counted from this fold's [Lq, Lk] mask of
+    live (query, key) pairs: the rows of q with a live key and the rows of k
+    and v live for some query, read once in their type; the two int32
+    position arrays; m and l in and out and o in and out in fp32 (every row
+    of the state passes through); 4 D operations (q.k and p.v) per live
+    pair."""
+    Lq, Lk = live.shape
+    elt = 2 if dtype == "bfloat16" else 4
+    q_rows, kv_rows = int(live.any(1).sum().item()), int(live.any(0).sum().item())
+    nbytes = (B * q_rows + 2 * B * kv_rows) * H * D * elt + 4 * (Lq + Lk) \
+        + 4 * B * H * Lq * 4 + 2 * B * Lq * H * D * 4
+    return _roofline(nbytes, B * H * int(live.sum().item()) * 4 * D, dtype)
 
 
 def poison(*like) -> None:
@@ -172,15 +239,21 @@ def poison(*like) -> None:
     del blocks
 
 
-def check_close(name: str, got, want, tol) -> float:
+def check_close(name: str, got, want, tol, scale=None) -> float:
+    """|got - want| <= atol * scale + rtol * |want| elementwise (scale 1 by
+    default); a value that is not finite passes only where it equals want's
+    (a row with no live key keeps m = -inf), so a NaN never does."""
     atol, rtol = tol
-    err = (got.float() - want.float()).abs()
-    limit = atol + rtol * want.float().abs()
-    if not bool(got.float().isfinite().all()):
+    got, want = got.float(), want.float()
+    same = got == want
+    if not bool((got.isfinite() | same).all()):
         raise AssertionError(f"{name}: non-finite values")
+    err = (got - want).abs().masked_fill(same, 0.0)
+    limit = atol * (1.0 if scale is None else scale) + rtol * want.abs()
     if bool((err > limit).any()):
         raise AssertionError(f"{name}: max |err| {err.max().item():.3e} exceeds "
-                             f"atol {atol} + rtol {rtol}")
+                             f"atol {atol}{' x max(l, 1)' if scale is not None else ''}"
+                             f" + rtol {rtol}")
     return float(err.max().item())
 
 
@@ -250,7 +323,71 @@ def kernel_phase(fa):
             ms = time_ms(sdpa_fwd_bwd, 10 if L >= 1024 else 30)
             rows.append({"case": case, "kernel": "sdpa_fwd_bwd", "library_ms": ms})
             log(f"  {case:12s} sdpa fwd+bwd (yardstick) {ms:.4f} ms")
+            # the backward alone: SDPA's efficient-attention backward, which
+            # computes dQ, dK and dV in one call, over a retained graph
+            from torch.nn.attention import SDPBackend, sdpa_kernel
+
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+            ms = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True),
+                         10 if L >= 1024 else 30)
+            rows.append({"case": case, "kernel": "sdpa_bwd", "library_ms": ms})
+            log(f"  {case:12s} sdpa efficient-attention backward alone (yardstick) {ms:.4f} ms")
+            del out
         del qkv, q, k, v, do, o_ref, lse_ref, delta
+        torch.cuda.empty_cache()
+    return rows
+
+
+def fold_phase(fa):
+    """K4 against its plain twin at every fold case; returns per-case rows."""
+    import torch
+
+    rows = []
+    for case, B, Lq, Lk, H, D, dtype_name, causal, q_shard, k_shard, tail in FOLD_CASES:
+        dtype = getattr(torch, dtype_name)
+        tol = TOLERANCE[dtype_name]
+        gen = torch.Generator(device="cuda").manual_seed(4321)
+        # q and the rows' own k, v as views of one fused projection, as the model gives them
+        qkv = (torch.randn(B, Lq, 3, H, D, generator=gen, device="cuda") * 0.5).to(dtype)
+        q, k_own, v_own = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        kv = (torch.randn(B, Lk, 2, H, D, generator=gen, device="cuda") * 0.5).to(dtype)
+        k, v = kv[:, :, 0], kv[:, :, 1]
+        q_pos = q_shard * Lq + torch.arange(Lq, dtype=torch.int32, device="cuda")
+        k_pos = k_shard * Lk + torch.arange(Lk, dtype=torch.int32, device="cuda")
+        if tail:
+            k_pos[-tail:] = -1
+        m = torch.full((B, H, Lq), float("-inf"), device="cuda")
+        l = torch.zeros((B, H, Lq), device="cuda")
+        o = torch.zeros((B, Lq, H, D), device="cuda")
+        if causal and k_shard != q_shard:  # the ring folds the diagonal first
+            m, l, o = fa.flash_shard_update_plain(q, k_own, v_own, q_pos, q_pos, m, l, o, True)
+        args = (q, k, v, q_pos, k_pos, m, l, o, causal)
+        poison(m, l, o)
+        got = fa.flash_shard_update_cuda(*args)
+        torch.cuda.synchronize()
+        want = fa.flash_shard_update_plain(*args)
+        scale = want[1].clamp_min(1.0).permute(0, 2, 1)[..., None]
+        err = max(check_close(f"{case} m", got[0], want[0], tol["m"]),
+                  check_close(f"{case} l", got[1], want[1], tol["l"]),
+                  check_close(f"{case} o", got[2], want[2], tol["fold_o"], scale))
+        o_err_over_l = float(((got[2] - want[2]).abs() / scale).max().item())
+        live = (k_pos >= 0)[None, :] & ((q_pos[:, None] >= k_pos[None, :]) | (not causal))
+        live_pairs = int(live.sum().item())
+        b_ms, b_by = bound_fold(B, H, D, dtype_name, live)
+        row = {"case": case, "kernel": "flash_shard_update", "shape": [B, Lq, Lk, H, D],
+               "dtype": dtype_name, "causal": causal, "shards": [q_shard, k_shard],
+               "live_pairs_per_bh": live_pairs, "max_abs_err": err,
+               "o_err_over_l": o_err_over_l,
+               "ms": time_ms(lambda: fa.flash_shard_update_cuda(*args), 30),
+               # about 30 launches a call: 10 calls stay inside the card's launch queue
+               "plain_ms": time_ms(lambda: fa.flash_shard_update_plain(*args), 10),
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        rows.append(row)
+        log(f"  {case:18s} {dtype_name:8s} live pairs {live_pairs:6d} err {err:.3e} "
+            f"(o over max(l, 1) {o_err_over_l:.3e})  kernel "
+            f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
+        del qkv, kv, got, want, args
         torch.cuda.empty_cache()
     return rows
 
@@ -296,6 +433,45 @@ def reference_phase(ft):
     return worst
 
 
+def sp_reference_phase():
+    """One SGD step of a small sequence-parallel TransformerLM (sp 4, 2 heads
+    x 32) on the card (K4) and on the CPU (its plain twin) from the same
+    weights and tokens, fp32 with TF32 off: the parameters must agree."""
+    import types
+
+    import torch
+    from fedml_tpu_torch.ml.engine.train import make_optimizer
+    from fedml_tpu_torch.models.transformer import TransformerConfig
+    from fedml_tpu_torch.parallel import create_mesh
+    from fedml_tpu_torch.parallel.seq_parallel import sp_init, sp_loss_fn
+
+    cfg = TransformerConfig(vocab_size=96, d_model=64, n_heads=2, n_layers=2, d_ff=128)
+    init = sp_init(cfg, seed=3, device=torch.device("cpu"))
+    seq = torch.randint(0, cfg.vocab_size, (2, 65), generator=torch.Generator().manual_seed(4))
+    finals, losses = {}, {}
+    for dev in (torch.device("cuda", torch.cuda.current_device()), torch.device("cpu")):
+        mesh = create_mesh((4,), ("sp",), dev)
+        params = {n: p.to(dev).clone().requires_grad_() for n, p in init.items()}
+        opt = make_optimizer(types.SimpleNamespace(client_optimizer="sgd", learning_rate=0.1))(
+            list(params.values()))
+        loss = sp_loss_fn(cfg, mesh)(params, seq[:, :-1].to(dev), seq[:, 1:].to(dev))
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        finals[dev.type] = {n: p.detach().cpu() for n, p in params.items()}
+        losses[dev.type] = float(loss.detach())
+    worst = 0.0
+    for name, g in finals["cuda"].items():
+        c = finals["cpu"][name]
+        if not torch.allclose(g, c, atol=1e-4, rtol=1e-4):
+            raise AssertionError(f"sp reference: {name} differs card vs CPU by "
+                                 f"{(g - c).abs().max().item():.3e}")
+        worst = max(worst, (g - c).abs().max().item())
+    log(f"  sp step card vs CPU: loss {losses['cuda']:.6f} vs {losses['cpu']:.6f}; "
+        f"max |param diff| {worst:.3e} (atol 1e-4 + rtol 1e-4)")
+    return {"max_param_diff": worst, "loss_card": losses["cuda"], "loss_cpu": losses["cpu"]}
+
+
 def slice_phase(ft, fa):
     import copy
 
@@ -318,9 +494,11 @@ def slice_phase(ft, fa):
     eval_batches = -(-dataset[1] // 256)
     eval_fwd = n_eval_rounds * eval_batches * cfg.n_layers
     log(f"  launches {launches}; eval forwards expected {eval_fwd}")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in SLICE1_KERNELS:
+        if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the main path")
+    if launches["flash_shard_update"] != 0:
+        raise AssertionError("the ring's fold launched on slice 1's path")
     if launches["flash_bwd_dq"] != launches["flash_bwd_dkv"]:
         raise AssertionError("dQ and dK/dV launch counts differ")
     if launches["flash_fwd"] - launches["flash_bwd_dq"] != eval_fwd:
@@ -377,6 +555,112 @@ def profile_phase(ft, fa):
     return {"wall_ms": wall_ms, "device_ms": device_ms, "steps": steps, "top": table}
 
 
+def sp_slice_phase(fa):
+    """Slice 2 at full width: fp32 parity of sp logits with single-card
+    logits, then one warm and 3 timed bf16 SGD steps; the counts are set to
+    0 just before the sp forward and read after the last step.  One more step
+    runs under torch.profiler after that."""
+    import dataclasses
+    import types
+
+    import torch
+    from torch.func import functional_call
+    from torch.profiler import ProfilerActivity, profile
+    from fedml_tpu_torch.ml.engine.train import make_optimizer
+    from fedml_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+    from fedml_tpu_torch.parallel import create_mesh
+    from fedml_tpu_torch.parallel.seq_parallel import sp_apply, sp_init, sp_loss_fn
+
+    cfg = TransformerConfig(max_seq_len=SP_LEN, **SP_CONFIG)  # fp32 compute
+    mesh = create_mesh((SP_SHARDS,), ("sp",))  # the card
+    t0 = time.perf_counter()
+    params = sp_init(cfg, seed=0)
+    n_params = sum(p.numel() for p in params.values())
+    seq = torch.randint(0, cfg.vocab_size, (SP_BATCH, SP_LEN + 1),
+                        generator=torch.Generator().manual_seed(7)).to(mesh.device)
+    tokens, targets = seq[:, :-1], seq[:, 1:]
+    torch.cuda.synchronize()
+    log(f"  {n_params / 1e6:.1f} M parameters on {mesh.device} in {time.perf_counter() - t0:.1f} s"
+        f"; tokens {tuple(tokens.shape)}, mesh {mesh.shape}")
+    with torch.no_grad():
+        single = functional_call(TransformerLM(cfg, device="meta"), params, (tokens,))
+        torch.cuda.synchronize()
+        fa.reset_launches()  # slice 2's main path from here
+        logits = sp_apply(cfg, params, tokens, mesh)
+        torch.cuda.synchronize()
+    fwd_launches = dict(fa.LAUNCHES)
+    if tuple(logits.shape) != (SP_BATCH, SP_LEN, cfg.vocab_size):
+        raise AssertionError(f"sp logits shape {tuple(logits.shape)}")
+    parity = check_close("sp logits vs single-card", logits, single, (SP_PARITY_ATOL, 0.0))
+    log(f"  fp32 sp logits (ring, K4) vs single-card logits (K1): max |diff| {parity:.3e} "
+        f"(atol {SP_PARITY_ATOL}); |logits| max {single.abs().max().item():.3f}")
+    del single, logits
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    for p in params.values():
+        p.requires_grad_()
+    opt = make_optimizer(types.SimpleNamespace(client_optimizer="sgd", learning_rate=SP_LR))(
+        list(params.values()))
+    loss_fn = sp_loss_fn(dataclasses.replace(cfg, dtype=torch.bfloat16), mesh)
+
+    def step():
+        loss = loss_fn(params, tokens, targets)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        return float(loss.detach())  # waits for the step
+
+    losses, step_s = [], []
+    for _ in range(4):  # one warm step, then 3 timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step())
+        step_s.append(time.perf_counter() - t0)
+    launches = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    per_forward = cfg.n_layers * SP_SHARDS ** 2
+    log(f"  launches after the fp32 forward {fwd_launches}; after 4 bf16 steps {launches}; "
+        f"{per_forward} K4 folds per forward expected")
+    for counts, forwards in ((fwd_launches, 1), (launches, 5)):
+        if counts["flash_shard_update"] != forwards * per_forward:
+            raise AssertionError(f"K4 launched {counts['flash_shard_update']} times in "
+                                 f"{forwards} forwards")
+        if any(counts[name] for name in SLICE1_KERNELS):
+            raise AssertionError(f"K1-K3 launched on the sp path: {counts}")
+    if not all(math.isfinite(x) for x in losses) or abs(losses[0] - math.log(cfg.vocab_size)) > 1.0:
+        raise AssertionError(f"bf16 losses {losses} (ln V = {math.log(cfg.vocab_size):.3f})")
+    timed = statistics.median(step_s[1:])
+    tokens_per_s = SP_BATCH * SP_LEN / timed
+    log(f"  bf16 SGD steps: losses {[round(x, 4) for x in losses]}; step seconds "
+        f"{[round(t, 4) for t in step_s]}; median of the 3 timed {timed:.4f} s, "
+        f"{tokens_per_s:,.0f} tokens/s; peak memory {peak / 2**30:.2f} GiB")
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:12]
+    log(f"  one bf16 step under the profiler: wall {wall_ms:.1f} ms, device busy {device_ms:.1f} "
+        f"ms ({100 * device_ms / wall_ms:.1f} %)")
+    table = []
+    for e in top:
+        table.append({"name": e.key, "device_ms": e.self_device_time_total / 1e3,
+                      "calls": e.count})
+        log(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
+    return launches, {"params": n_params, "parity_max_abs_diff": parity,
+                      "forward_launches": fwd_launches, "launches": launches, "losses": losses,
+                      "step_seconds": step_s, "median_step_s": timed,
+                      "tokens_per_s": tokens_per_s, "peak_memory_bytes": peak,
+                      "profile": {"wall_ms": wall_ms, "device_ms": device_ms, "top": table}}
+
+
 def main() -> int:
     import torch
 
@@ -410,29 +694,40 @@ def main() -> int:
 
     log("== phase 2: kernels against their plain versions")
     rows = kernel_phase(fa)
+    fold_rows = fold_phase(fa)
 
-    log("== phase 3: reference (one round, card vs CPU)")
+    log("== phase 3: reference (card vs CPU: one FedAvg round; one sp SGD step)")
     ref_err = reference_phase(ft)
+    sp_ref = sp_reference_phase()
 
-    log("== phase 4: slice (FedAvg, hub transformer, shakespeare, 3 rounds)")
+    log("== phase 4: slice 1 (FedAvg, hub transformer, shakespeare, 3 rounds)")
     launches, final, tp, round_times, losses = slice_phase(ft, fa)
 
     log("== phase 5: profile of one client's local training")
     prof = profile_phase(ft, fa)
 
+    log("== phase 6: slice 2 (sequence-parallel TransformerLM, bench width, sp 4)")
+    sp_launches, sp_slice = sp_slice_phase(fa)
+
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
-        r = next(r for r in rows if r["case"] == "slice_train" and r["kernel"] == name)
+        if name in SLICE1_KERNELS:
+            r = next(r for r in rows if r["case"] == "slice_train" and r["kernel"] == name)
+            n = launches[name]
+        else:
+            r = next(r for r in fold_rows if r["case"] == FOLD_OF_RECORD)
+            n = sp_launches[name]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": launches[name], "max_abs_err": r["max_abs_err"],
+                        "launches": n, "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     with open(os.path.join(OUT_DIR, "results.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-                   "cases": rows, "reference_max_param_diff": ref_err, "launches": launches,
+                   "cases": rows, "folds": fold_rows, "reference_max_param_diff": ref_err,
+                   "sp_reference": sp_ref, "launches": launches,
                    "final_eval": final, "throughput": tp, "round_times": round_times,
                    "round_losses": losses, "kernels": kernels, "profile": prof,
-                   "seconds": time.perf_counter() - t_start}, f, indent=1)
+                   "sp_slice": sp_slice, "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

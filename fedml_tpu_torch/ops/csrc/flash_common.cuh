@@ -1,4 +1,5 @@
-// Shared device code of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu).
+// Shared device code of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu,
+// flash_update.cu).
 //
 // Everything that decides WHICH scores live and HOW P and dS are rebuilt lives
 // here once, so the forward and both backward kernels cannot drift apart: the
@@ -57,6 +58,13 @@ __device__ __forceinline__ bool is_finite(float x) { return fabsf(x) < CUDART_IN
 // causal, not after the row.
 __device__ __forceinline__ bool key_live(int q_pos, int k_pos, int L, int causal) {
   return k_pos < L && (!causal || q_pos >= k_pos);
+}
+
+// The same test on positions carried as data (ring attention's shard fold):
+// a key is live iff it is not padding (k_pos >= 0) and, when causal, not after
+// the row.  Positions need not be sorted or contiguous.
+__device__ __forceinline__ bool key_live_at(int q_pos, int k_pos, int causal) {
+  return k_pos >= 0 && (!causal || q_pos >= k_pos);
 }
 
 // Online-softmax rescale: fold a chunk whose largest live score is cmax into

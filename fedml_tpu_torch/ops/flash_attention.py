@@ -1,17 +1,23 @@
 """Flash attention of the port: hand-written CUDA kernels and their plain twins.
 
-Counterpart of ``fedml_tpu/ops/flash_attention.py``.  The three Pallas
-kernels on the training path each have a CUDA kernel for Hopper
-(``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``) and, beside it here, a plain
+Counterpart of ``fedml_tpu/ops/flash_attention.py``.  Each of the four Pallas
+kernels has a CUDA kernel for Hopper (``csrc/flash_fwd.cu``,
+``csrc/flash_bwd.cu``, ``csrc/flash_update.cu``) and, beside it here, a plain
 PyTorch version of the same function that materialises the scores:
 
-=========================  ===============================  ============================
-JAX package (Pallas)       CUDA wrapper                     plain version
-=========================  ===============================  ============================
-``_flash_kernel``          :func:`flash_forward_cuda`       :func:`flash_forward_plain`
-``_flash_bwd_dq_kernel``   :func:`flash_bwd_dq_cuda`        :func:`flash_bwd_dq_plain`
-``_flash_bwd_dkv_kernel``  :func:`flash_bwd_dkv_cuda`       :func:`flash_bwd_dkv_plain`
-=========================  ===============================  ============================
+=========================  =================================  ==================================
+JAX package (Pallas)       CUDA wrapper                       plain version
+=========================  =================================  ==================================
+``_flash_kernel``          :func:`flash_forward_cuda`         :func:`flash_forward_plain`
+``_flash_bwd_dq_kernel``   :func:`flash_bwd_dq_cuda`          :func:`flash_bwd_dq_plain`
+``_flash_bwd_dkv_kernel``  :func:`flash_bwd_dkv_cuda`         :func:`flash_bwd_dkv_plain`
+``_flash_update_kernel``   :func:`flash_shard_update_cuda`    :func:`flash_shard_update_plain`
+=========================  =================================  ==================================
+
+The fourth is ring attention's shard fold: one K/V shard folded into a carried
+online-softmax state (m, l, unnormalised o), with positions given as arrays.
+Its backward, as in the JAX package, is no kernel: it recomputes through
+:func:`shard_update_reference`, the fused form of the same fold.
 
 Dispatch is by the tensor's device: a CUDA tensor launches the kernel (or the
 wrapper raises), a CPU tensor takes the plain version.  Nothing falls back.
@@ -33,7 +39,8 @@ from typing import Dict, Tuple
 import torch
 
 #: launches of each CUDA kernel since the last :func:`reset_launches`
-LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                            "flash_shard_update": 0}
 
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIMS = (32, 64)
@@ -115,6 +122,53 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal: bool = True):
     return dk.to(q.dtype), dv.to(q.dtype)
 
 
+def _live_at(q_pos, k_pos, causal: bool) -> torch.Tensor:
+    """[Lq, Lk] (or [1, Lk]) mask of live pairs from positions carried as data:
+    k_pos < 0 is padding and, when causal, a key after the row is dead."""
+    live = (k_pos >= 0)[None, :]
+    if causal:
+        live = live & (q_pos[:, None] >= k_pos[None, :])
+    return live
+
+
+def _fold(s, live, v, m, l, o, p_dtype: torch.dtype):
+    """Fold fp32 scaled scores s [B, H, Lq, Lk], live where ``live``, into the
+    running (m, l, o); P enters P.V rounded to ``p_dtype``."""
+    s = s.masked_fill(~live, float("-inf"))
+    new_m = torch.maximum(m, s.amax(dim=-1))
+    # a row with no live key so far keeps m = -inf: shift by 0, not by -inf
+    safe_m = torch.where(torch.isfinite(new_m), new_m, torch.zeros_like(new_m))
+    p = torch.exp(s - safe_m[..., None]).masked_fill(~live, 0.0)
+    correction = torch.where(torch.isfinite(m), torch.exp(m - safe_m), torch.zeros_like(m))
+    new_l = l * correction + p.sum(dim=-1)
+    pv = torch.einsum("bhlm,bmhd->blhd", p.to(p_dtype).float(), v.float())
+    new_o = o * correction.permute(0, 2, 1)[..., None] + pv
+    return new_m, new_l, new_o
+
+
+def shard_update_reference(q, k, v, q_pos, k_pos, causal: bool, m, l, o):
+    """The fused form of ring attention's shard fold (``shard_update_reference``
+    of the JAX package): ring attention's plain block function and the
+    recompute behind :class:`FlashShardUpdate`'s backward.
+
+    q [B, Lq, H, D]; k, v [B, Lk, H, D]; q_pos [Lq] and k_pos [Lk] global
+    positions, int32 (the kernel takes no other type); (m [B, H, Lq], l [B, H, Lq], o [B, Lq, H, D]) the running max,
+    denominator and unnormalised output, fp32.  As in the JAX reference the
+    scores come from a product in the input dtype (rounded to bf16 in bf16)
+    and P enters P.V unrounded in fp32."""
+    scores = torch.einsum("blhd,bmhd->bhlm", q, k).float() / math.sqrt(q.shape[-1])
+    return _fold(scores, _live_at(q_pos, k_pos, causal), v, m, l, o, torch.float32)
+
+
+def flash_shard_update_plain(q, k, v, q_pos, k_pos, m, l, o, causal: bool = True):
+    """K4's function with the scores materialised: (m, l, o) after folding the
+    shard (k, v) into the carried state, all fp32.  Unlike
+    :func:`shard_update_reference` it follows the kernel in bf16: the scores
+    are fp32 products of the widened inputs and P is rounded to V's type
+    before P.V.  In fp32 the two are the same function."""
+    return _fold(_scores(q, k), _live_at(q_pos, k_pos, causal), v, m, l, o, v.dtype)
+
+
 # ---------------------------------------------------------------------------
 # CUDA wrappers: check, allocate, launch on the current stream, count
 # ---------------------------------------------------------------------------
@@ -130,13 +184,17 @@ def _check(name: str, *tensors: torch.Tensor) -> Tuple[int, int, int, int]:
             raise ValueError(f"{name}: q, k, v (and dO) must share shape, dtype and device")
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: the head dim must be contiguous (stride {t.stride()})")
-    if q.dtype not in KERNEL_DTYPES:
-        raise ValueError(f"{name}: dtype {q.dtype} not supported (float32, bfloat16)")
+    _check_limits(name, q.dtype, B, H, D)
+    return B, L, H, D
+
+
+def _check_limits(name: str, dtype: torch.dtype, B: int, H: int, D: int) -> None:
+    if dtype not in KERNEL_DTYPES:
+        raise ValueError(f"{name}: dtype {dtype} not supported (float32, bfloat16)")
     if D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"{name}: head dim {D} not supported {KERNEL_HEAD_DIMS}")
     if B * H > _MAX_GRID_Y:
         raise ValueError(f"{name}: B*H = {B * H} exceeds the grid limit {_MAX_GRID_Y}")
-    return B, L, H, D
 
 
 def _check_rows(name: str, q: torch.Tensor, *rows: torch.Tensor) -> None:
@@ -144,8 +202,38 @@ def _check_rows(name: str, q: torch.Tensor, *rows: torch.Tensor) -> None:
     for r in rows:
         if (r.shape != (B, H, L) or r.dtype != torch.float32 or r.device != q.device
                 or not r.is_contiguous()):
-            raise ValueError(f"{name}: lse/delta must be contiguous fp32 [B, H, L] on "
-                             f"{q.device}, got {tuple(r.shape)} {r.dtype} {r.device}")
+            raise ValueError(f"{name}: row statistics (lse, delta, m, l) must be contiguous "
+                             f"fp32 [B, H, L] on {q.device}, got {tuple(r.shape)} {r.dtype} "
+                             f"{r.device}")
+
+
+def _check_update(name: str, q, k, v, q_pos, k_pos, m, l, o) -> Tuple[int, int, int, int, int]:
+    """Shapes, types and devices of a shard fold: (B, Lq, H, D, Lk)."""
+    for t in (q, k, v, q_pos, k_pos, m, l, o):
+        if not t.is_cuda:
+            raise RuntimeError(f"{name}: the CUDA kernel takes CUDA tensors, got {t.device}")
+        if t.device != q.device:
+            raise ValueError(f"{name}: every input must lie on {q.device}, got {t.device}")
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"{name}: expected [B, L, H, D] q, k, v, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}")
+    B, Lq, H, D = q.shape
+    Lk = k.shape[1]
+    if k.shape != (B, Lk, H, D) or v.shape != k.shape or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"{name}: k and v must be [B, Lk, H, D] in q's dtype, got "
+                         f"{tuple(k.shape)} {k.dtype}, {tuple(v.shape)} {v.dtype}")
+    if o.shape != (B, Lq, H, D) or o.dtype != torch.float32:
+        raise ValueError(f"{name}: o must be fp32 [B, Lq, H, D], got {tuple(o.shape)} {o.dtype}")
+    for t in (q, k, v, o):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: the head dim must be contiguous (stride {t.stride()})")
+    for pos, n in ((q_pos, Lq), (k_pos, Lk)):
+        if pos.shape != (n,) or pos.dtype != torch.int32 or not pos.is_contiguous():
+            raise ValueError(f"{name}: positions must be contiguous int32 [{n}], got "
+                             f"{tuple(pos.shape)} {pos.dtype}")
+    _check_rows(name, q, m, l)
+    _check_limits(name, q.dtype, B, H, D)
+    return B, Lq, H, D, Lk
 
 
 def _strides(*tensors: torch.Tensor):
@@ -217,6 +305,25 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool = True):
     return dk, dv
 
 
+def flash_shard_update_cuda(q, k, v, q_pos, k_pos, m, l, o, causal: bool = True):
+    """K4 on the card: (m, l, o) as :func:`flash_shard_update_plain`."""
+    from .build import load
+
+    B, Lq, H, D, Lk = _check_update("flash_shard_update", q, k, v, q_pos, k_pos, m, l, o)
+    lib = load()
+    m_out = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
+    l_out = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
+    o_out = torch.empty((B, Lq, H, D), dtype=torch.float32, device=q.device)
+    st = _strides(q, k, v, o, o_out)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    _launch("flash_shard_update", lib.flash_update, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            q_pos.data_ptr(), k_pos.data_ptr(), m.data_ptr(), l.data_ptr(), o.data_ptr(),
+            m_out.data_ptr(), l_out.data_ptr(), o_out.data_ptr(), B, H, Lq, Lk, D,
+            KERNEL_DTYPES[q.dtype], int(causal), _scale(D), ctypes.cast(st, ctypes.c_void_p),
+            stream)
+    return m_out, l_out, o_out
+
+
 # ---------------------------------------------------------------------------
 # dispatch by device, and the autograd Function over it
 # ---------------------------------------------------------------------------
@@ -266,6 +373,36 @@ class FlashAttention(torch.autograd.Function):
 def flash_attention(q, k, v, causal: bool = True):
     """Differentiable flash attention, q/k/v [B, L, H, D] -> [B, L, H, D]."""
     return FlashAttention.apply(q, k, v, causal)
+
+
+class FlashShardUpdate(torch.autograd.Function):
+    """The ``flash_shard_update`` custom_vjp of the JAX package: the forward
+    folds the shard through K4 (its plain twin on the CPU); the backward
+    recomputes the fold through :func:`shard_update_reference` and takes its
+    gradients, as the JAX package's vjp does.  Positions get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, k_pos, m, l, o, causal: bool = True):
+        out = _route(q, flash_shard_update_cuda, flash_shard_update_plain)(
+            q, k, v, q_pos, k_pos, m, l, o, causal)
+        ctx.save_for_backward(q, k, v, q_pos, k_pos, m, l, o)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, gm, gl, go):
+        q, k, v, q_pos, k_pos, m, l, o = ctx.saved_tensors
+        with torch.enable_grad():
+            args = [t.detach().requires_grad_() for t in (q, k, v, m, l, o)]
+            outs = shard_update_reference(*args[:3], q_pos, k_pos, ctx.causal, *args[3:])
+            dq, dk, dv, dm, dl, do = torch.autograd.grad(outs, args, (gm, gl, go))
+        return dq, dk, dv, None, None, dm, dl, do, None
+
+
+def flash_shard_update(q, k, v, q_pos, k_pos, m, l, o, causal: bool = True):
+    """Differentiable shard fold: (m, l, o) after folding (k, v) into the
+    carried state; the layouts of :func:`shard_update_reference`."""
+    return FlashShardUpdate.apply(q, k, v, q_pos, k_pos, m, l, o, causal)
 
 
 def attention(q, k, v, causal: bool = True):

@@ -6,7 +6,12 @@ machine with the card and without JAX, run it without the repo's conftest:
 
 Tolerances as chip_smoke.py states them: fp32 forward atol 2e-5 + rtol 1e-5,
 gradients atol 1e-4 + rtol 1e-4 (sums in another order); bf16 outputs and
-gradients atol 2e-2 + rtol 3e-2 (bf16 rounding of O, P and dS).
+gradients atol 2e-2 + rtol 3e-2 (bf16 rounding of O, P and dS).  The shard
+fold (K4): m atol 1e-5 + rtol 1e-6 and l atol 1e-5 + rtol 1e-5 in both types
+(fp32 on both sides); its unnormalised o, whose rounding error grows with the
+row's denominator l, within atol * max(l, 1) + rtol * |o|, with (atol, rtol)
+(2e-5, 1e-5) in fp32 and (3e-3, 1e-2) in bf16, chip_smoke.py's fold tolerance
+(set there from the errors read on the card).
 """
 
 import pytest
@@ -53,10 +58,105 @@ def test_autograd_function_launches_all_three_kernels(cuda):
     before = dict(fa.LAUNCHES)
     fa.attention(q, k, v).square().sum().backward()
     assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {
-        "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+        "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1, "flash_shard_update": 0}
 
 
 def test_unsupported_head_dim_raises(cuda):
     q = torch.zeros(1, 8, 1, 16, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_forward_cuda(q, q, q, True)
+
+
+# name: (causal, Lq, Lk, q offset, key positions, carried state).  The ring's
+# three fold kinds (keys before the rows, the diagonal, keys after the rows),
+# a ragged non-causal fold with a padded key tail, and unsorted positions.
+FOLDS = {
+    "past": (True, 128, 128, 128, "range", True),
+    "diagonal": (True, 130, 130, 0, "range", False),
+    "dead": (True, 128, 128, 0, "after", True),
+    "ragged_full": (False, 70, 45, 0, "padded", True),
+    "shuffled_causal": (True, 96, 100, 40, "shuffled", True),
+}
+FOLD_TOL = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (3e-3, 1e-2)}
+
+
+def _key_positions(kind, Lk, gen, device):
+    idx = torch.arange(Lk, dtype=torch.int32, device=device)
+    if kind == "range":
+        return idx
+    if kind == "after":
+        return 10_000 + idx
+    if kind == "padded":
+        return torch.where(idx < Lk - 9, idx, -1)
+    pos = torch.randperm(Lk, generator=gen, dtype=torch.int32, device=device)
+    return torch.where(idx % 7 == 3, -1, pos)
+
+
+def _fold_case(cuda, dtype, D, name):
+    causal, Lq, Lk, q_off, keys, carried = FOLDS[name]
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q = (torch.randn(2, Lq, 3, D, generator=gen, device=cuda) * 0.5).to(dtype)
+    k, v = ((torch.randn(2, Lk, 3, D, generator=gen, device=cuda) * 0.5).to(dtype)
+            for _ in range(2))
+    q_pos = q_off + torch.arange(Lq, dtype=torch.int32, device=cuda)
+    k_pos = _key_positions(keys, Lk, gen, cuda)
+    m = torch.full((2, 3, Lq), float("-inf"), device=cuda)
+    l = torch.zeros(2, 3, Lq, device=cuda)
+    o = torch.zeros(2, Lq, 3, D, device=cuda)
+    if carried:  # the state after folding the rows' own shard
+        m, l, o = fa.flash_shard_update_plain(q, q, q, q_pos, q_pos, m, l, o, True)
+    return (q, k, v, q_pos, k_pos, m, l, o), causal
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 32), (torch.float32, 64),
+                                     (torch.bfloat16, 32), (torch.bfloat16, 64)])
+@pytest.mark.parametrize("name", sorted(FOLDS))
+def test_shard_update_kernel_matches_plain(cuda, dtype, D, name):
+    args, causal = _fold_case(cuda, dtype, D, name)
+    before = fa.LAUNCHES["flash_shard_update"]
+    got = fa.flash_shard_update_cuda(*args, causal)
+    assert fa.LAUNCHES["flash_shard_update"] == before + 1
+    m_r, l_r, o_r = fa.flash_shard_update_plain(*args, causal)
+    m, l, o = got
+    assert {t.dtype for t in got} == {torch.float32}
+    torch.testing.assert_close(m, m_r, atol=1e-5, rtol=1e-6)  # equal infinities pass
+    torch.testing.assert_close(l, l_r, atol=1e-5, rtol=1e-5)
+    atol, rtol = FOLD_TOL[dtype]
+    scale = l_r.clamp_min(1.0).permute(0, 2, 1)[..., None]
+    err = (o - o_r).abs()
+    assert bool((err <= atol * scale + rtol * o_r.abs()).all()), \
+        f"o differs by {err.max().item():.3e} ({(err / scale).max().item():.3e} over max(l, 1))"
+    if name == "dead":  # nothing live: the carried state passes through
+        assert torch.equal(m, args[5]) and torch.equal(l, args[6]) and torch.equal(o, args[7])
+
+
+def test_ring_launches_the_fold_n_squared_times_and_matches_flash(cuda):
+    from fedml_tpu_torch.parallel import create_mesh, ring_attention
+
+    mesh = create_mesh((4,), ("sp",), cuda)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v = (torch.randn(2, 256, 2, 64, generator=gen, device=cuda) for _ in range(3))
+    q.requires_grad_()
+    before = dict(fa.LAUNCHES)
+    out = ring_attention(q, k, v, mesh)
+    assert fa.LAUNCHES["flash_shard_update"] - before["flash_shard_update"] == 16
+    torch.testing.assert_close(out, fa.flash_forward_plain(q.detach(), k, v, True)[0],
+                               atol=2e-5, rtol=1e-5)
+    out.square().sum().backward()  # the backward recomputes in torch: no launch
+    assert fa.LAUNCHES["flash_shard_update"] - before["flash_shard_update"] == 16
+    assert bool(q.grad.isfinite().all())
+
+
+def test_shard_update_takes_only_int32_positions(cuda):
+    args, causal = _fold_case(cuda, torch.float32, 32, "past")
+    q, k, v, q_pos, k_pos, m, l, o = args
+    with pytest.raises(ValueError, match="int32"):
+        fa.flash_shard_update_cuda(q, k, v, q_pos.long(), k_pos, m, l, o, causal)
+
+
+def test_shard_update_unsupported_head_dim_raises(cuda):
+    q = torch.zeros(1, 8, 1, 16, device=cuda)
+    pos = torch.arange(8, dtype=torch.int32, device=cuda)
+    m, l = torch.zeros(1, 1, 8, device=cuda), torch.zeros(1, 1, 8, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_shard_update_cuda(q, q, q, pos, pos, m, l, q, True)

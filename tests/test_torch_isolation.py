@@ -41,6 +41,10 @@ SLICE_MODULES = [
     "fedml_tpu_torch.models.convert",
     "fedml_tpu_torch.ops.build",
     "fedml_tpu_torch.ops.flash_attention",
+    "fedml_tpu_torch.parallel",
+    "fedml_tpu_torch.parallel.mesh",
+    "fedml_tpu_torch.parallel.ring_attention",
+    "fedml_tpu_torch.parallel.seq_parallel",
     "fedml_tpu_torch.simulation.simulator",
     "fedml_tpu_torch.simulation.xla.algorithms",
     "fedml_tpu_torch.simulation.xla.fed_sim",
@@ -75,14 +79,17 @@ def test_get_device_gives_the_cpu_only_when_asked(monkeypatch):
             port_device.get_device(args)
 
 
-@pytest.mark.parametrize("entry", ["fwd", "dq", "dkv"])
+@pytest.mark.parametrize("entry", ["fwd", "dq", "dkv", "shard_update"])
 def test_cuda_entry_refuses_cpu_tensors(entry):
     q, k, v, do = (torch.zeros(1, 8, 1, 32) for _ in range(4))
     lse = delta = torch.zeros(1, 1, 8)
+    pos = torch.arange(8, dtype=torch.int32)
     calls = {
         "fwd": lambda: fa.flash_forward_cuda(q, k, v, True),
         "dq": lambda: fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, True),
         "dkv": lambda: fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, True),
+        "shard_update": lambda: fa.flash_shard_update_cuda(q, k, v, pos, pos, lse, delta, do,
+                                                           True),
     }
     before = dict(fa.LAUNCHES)
     with pytest.raises(RuntimeError, match="CUDA tensors"):

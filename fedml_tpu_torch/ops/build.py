@@ -1,9 +1,10 @@
 """Build the port's CUDA kernels with ``nvcc`` and bind them with ``ctypes``.
 
 Each ``csrc/*.cu`` file compiles on its own into a shared library with a
-plain ``extern "C"`` interface (no PyTorch headers, so a build takes seconds),
-all sources in parallel, into ``build/kernels/`` under the checkout (listed in
-``.gitignore``).  A library's file name carries a hash of its sources and
+plain ``extern "C"`` interface (no PyTorch headers and no CUTLASS, so a build
+takes seconds; the bf16 kernels reach the CUDA driver's tensor-map encoder
+through the runtime, so nothing links ``-lcuda``), all sources in parallel,
+into ``build/kernels/`` under the checkout (listed in ``.gitignore``).  A library's file name carries a hash of its sources and
 flags, so an edited source is rebuilt and an unchanged one is reused.  Nothing
 is built when a module is imported: the first CUDA launch builds.
 """
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -24,7 +26,8 @@ BUILD_DIR = os.path.join(
     "build", "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "flash_update.cu")
+SOURCES = ("flash_fwd.cu", "flash_fwd_sm90.cu", "flash_bwd.cu", "flash_dkv_sm90.cu",
+           "flash_update.cu")
 
 
 def find_nvcc() -> str:
@@ -51,16 +54,19 @@ def library_path(source: str) -> str:
 
 def build(sources: Sequence[str] = SOURCES) -> Dict[str, dict]:
     """Compile every source that has no up-to-date library, one ``nvcc`` each,
-    all started together.  Returns {source: {path, seconds, log}}; raises with
-    the compiler's output when a build fails."""
+    all started together.  Returns {source: {path, seconds, log}}, the log
+    being the compiler's ptxas report (kept beside the library, so a cached
+    build reports it too); raises with the compiler's output when a build
+    fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = None
     procs = {}
     out: Dict[str, dict] = {}
     for src in sources:
         path = library_path(src)
-        if os.path.exists(path):
-            out[src] = {"path": path, "seconds": 0.0, "log": "(cached)"}
+        if os.path.exists(path) and os.path.exists(f"{path}.log"):
+            with open(f"{path}.log") as f:  # the compiler's report, kept beside the library
+                out[src] = {"path": path, "seconds": 0.0, "log": f.read()}
             continue
         nvcc = nvcc or find_nvcc()
         tmp = f"{path}.{os.getpid()}.tmp"
@@ -74,11 +80,48 @@ def build(sources: Sequence[str] = SOURCES) -> Dict[str, dict]:
         if proc.returncode != 0:
             failed.append(f"nvcc {src} exited {proc.returncode}:\n{log}")
             continue
+        with open(f"{tmp}.log", "w") as f:
+            f.write(log)
+        os.replace(f"{tmp}.log", f"{path}.log")  # the log first: a library implies its log
         os.replace(tmp, path)  # atomic: a concurrent loader never sees half a file
         out[src] = {"path": path, "seconds": seconds, "log": log}
     if failed:
         raise RuntimeError("\n".join(failed))
     return out
+
+
+def ptxas_usage(log: str) -> Dict[str, dict]:
+    """Per kernel of an ``nvcc -Xptxas -v`` log: {mangled name: {registers,
+    stack, spill_stores, spill_loads}} (bytes for the last three)."""
+    usage: Dict[str, dict] = {}
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            usage[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            usage[name].update(stack=int(m[1]), spill_stores=int(m[2]), spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage[name]["registers"] = int(m[1])
+    return usage
+
+
+def kernel_label(mangled: str) -> str:
+    """A readable name for a mangled kernel: ``flash_fwd_sm90_kernel<bf16, 64>``."""
+    m = re.search(r"\d+(flash_\w+?_kernel)I(.*)E", mangled)
+    if not m:
+        return mangled
+    name, args = m.groups()
+    d = re.search(r"Li(\d+)E", args)
+    dtype = "bf16" if ("bfloat16" in args or "sm90" in name) else "fp32"
+    return f"{name}<{dtype}, {d.group(1) if d else '?'}>"
 
 
 _PTR = ctypes.c_void_p
@@ -87,9 +130,11 @@ _FLOAT = ctypes.c_float
 # argtypes of each extern "C" entry point (csrc/*.cu); pointers and the
 # stream travel as c_void_p, never as a 32-bit int
 _SIGNATURES = {
-    "flash_fwd": ("flash_fwd.cu", [_PTR] * 5 + [_INT] * 6 + [_FLOAT, _PTR, _PTR]),
+    "flash_fwd": ("flash_fwd.cu", [_PTR] * 5 + [_INT] * 5 + [_FLOAT, _PTR, _PTR]),
+    "flash_fwd_sm90": ("flash_fwd_sm90.cu", [_PTR] * 5 + [_INT] * 5 + [_FLOAT, _PTR, _PTR]),
     "flash_bwd_dq": ("flash_bwd.cu", [_PTR] * 7 + [_INT] * 6 + [_FLOAT, _PTR, _PTR]),
-    "flash_bwd_dkv": ("flash_bwd.cu", [_PTR] * 8 + [_INT] * 6 + [_FLOAT, _PTR, _PTR]),
+    "flash_bwd_dkv": ("flash_bwd.cu", [_PTR] * 8 + [_INT] * 5 + [_FLOAT, _PTR, _PTR]),
+    "flash_dkv_sm90": ("flash_dkv_sm90.cu", [_PTR] * 8 + [_INT] * 5 + [_FLOAT, _PTR, _PTR]),
     "flash_update": ("flash_update.cu", [_PTR] * 11 + [_INT] * 7 + [_FLOAT, _PTR, _PTR]),
 }
 

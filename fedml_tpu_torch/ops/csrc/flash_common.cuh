@@ -1,5 +1,6 @@
 // Shared device code of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu,
-// flash_update.cu).
+// flash_update.cu, and the bf16 tensor-core kernels flash_fwd_sm90.cu and
+// flash_dkv_sm90.cu).
 //
 // Everything that decides WHICH scores live and HOW P and dS are rebuilt lives
 // here once, so the forward and both backward kernels cannot drift apart: the
@@ -9,8 +10,9 @@
 //
 // Layout: q, k, v, o, dO, dq, dk, dv are [B, L, H, D] tensors read through
 // element strides (the last dim must be contiguous); lse and delta are
-// contiguous [B, H, L] fp32.  Arithmetic is fp32 FMA throughout (never TF32);
-// bf16 inputs are widened exactly, and the values the JAX kernel casts to the
+// contiguous [B, H, L] fp32.  Arithmetic is fp32 throughout (never TF32);
+// bf16 inputs are widened exactly (or multiplied exactly on the tensor cores
+// with fp32 sums), and the values the JAX kernel casts to the
 // input type before a product (P before P.V and P^T.dO, dS before dS.K and
 // dS^T.Q) are rounded to bf16 the same way here.
 #pragma once

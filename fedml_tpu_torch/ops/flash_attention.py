@@ -2,8 +2,10 @@
 
 Counterpart of ``fedml_tpu/ops/flash_attention.py``.  Each of the four Pallas
 kernels has a CUDA kernel for Hopper (``csrc/flash_fwd.cu``,
-``csrc/flash_bwd.cu``, ``csrc/flash_update.cu``) and, beside it here, a plain
-PyTorch version of the same function that materialises the scores:
+``csrc/flash_bwd.cu``, ``csrc/flash_update.cu``; in bf16 the forward and dK/dV
+run on the tensor cores, ``csrc/flash_fwd_sm90.cu`` and
+``csrc/flash_dkv_sm90.cu``) and, beside it here, a plain PyTorch version of
+the same function that materialises the scores:
 
 =========================  =================================  ==================================
 JAX package (Pallas)       CUDA wrapper                       plain version
@@ -21,7 +23,11 @@ Its backward, as in the JAX package, is no kernel: it recomputes through
 
 Dispatch is by the tensor's device: a CUDA tensor launches the kernel (or the
 wrapper raises), a CPU tensor takes the plain version.  Nothing falls back.
-Each CUDA wrapper adds one to ``LAUNCHES[name]`` where it launches.
+Each CUDA wrapper adds one to ``LAUNCHES[kernel]`` for the kernel it launches:
+``flash_fwd_sm90`` and ``flash_dkv_sm90`` count the bf16 tensor-core kernels,
+``flash_fwd`` and ``flash_bwd_dkv`` the fp32 ones.  The bf16 kernels load
+tiles with TMA, which takes a tensor only if its base is 16-byte aligned and
+its (b, l, h) strides are multiples of 8 elements; anything else raises.
 
 Conventions shared by both routes (those of the JAX kernels): q, k, v, o are
 [B, L, H, D]; scores are scaled by 1/sqrt(D); keys past L and, when causal,
@@ -39,12 +45,16 @@ from typing import Dict, Tuple
 import torch
 
 #: launches of each CUDA kernel since the last :func:`reset_launches`
-LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-                            "flash_shard_update": 0}
+LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_fwd_sm90": 0, "flash_bwd_dq": 0,
+                            "flash_bwd_dkv": 0, "flash_dkv_sm90": 0, "flash_shard_update": 0}
 
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIMS = (32, 64)
 _MAX_GRID_Y = 65535
+_TMA_ALIGN_BYTES = 16
+# negative status codes of the tensor-map (TMA) entry points, csrc/flash_sm90.cuh
+_TMA_ERRORS = {-1: "the CUDA driver has no cuTensorMapEncodeTiled",
+               -2: "the CUDA driver refused a tensor map for these strides"}
 
 
 def reset_launches() -> None:
@@ -236,15 +246,41 @@ def _check_update(name: str, q, k, v, q_pos, k_pos, m, l, o) -> Tuple[int, int, 
     return B, Lq, H, D, Lk
 
 
+def tma_strides(t: torch.Tensor) -> Tuple[int, int, int]:
+    """(b, l, h) element strides of a [B, L, H, D] tensor as the kernels take
+    them: the stride of a dim of size 1 is never stepped, so it is replaced
+    by the dense one, which a TMA tensor map can take whatever torch reports
+    for that dim."""
+    B, L, H, D = t.shape
+    sh = t.stride(2) if H > 1 else D
+    sl = t.stride(1) if L > 1 else H * sh
+    sb = t.stride(0) if B > 1 else L * sl
+    return sb, sl, sh
+
+
+def _check_tma(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless TMA can load every tensor: base 16-byte aligned, (b, l, h)
+    strides multiples of 16 bytes (the D stride is 1, checked by _check)."""
+    for t in tensors:
+        elt = t.element_size()
+        if t.data_ptr() % _TMA_ALIGN_BYTES or any(
+                (s * elt) % _TMA_ALIGN_BYTES for s in tma_strides(t)):
+            raise ValueError(f"{name}: the bf16 kernel loads tiles with TMA, which needs a "
+                             f"16-byte aligned base and (b, l, h) strides of whole 16 bytes; got "
+                             f"base {t.data_ptr():#x} and strides {t.stride()}")
+
+
 def _strides(*tensors: torch.Tensor):
     vals = []
     for t in tensors:
-        vals += [t.stride(0), t.stride(1), t.stride(2)]
+        vals += tma_strides(t)
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
 def _launch(name: str, fn, *args) -> None:
     err = fn(*args)
+    if err in _TMA_ERRORS:
+        raise RuntimeError(f"{name}: {_TMA_ERRORS[err]}")
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError_t {err}")
     LAUNCHES[name] += 1
@@ -255,18 +291,23 @@ def _scale(D: int) -> float:
 
 
 def flash_forward_cuda(q, k, v, causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1 on the card: (O, LSE) as :func:`flash_forward_plain`."""
+    """K1 on the card: (O, LSE) as :func:`flash_forward_plain`; bf16 on the
+    tensor cores (``flash_fwd_sm90.cu``), fp32 on scalar FMAs."""
     from .build import load
 
     B, L, H, D = _check("flash_fwd", q, k, v)
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        _check_tma("flash_fwd", q, k, v)
     lib = load()
     o = torch.empty((B, L, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
     st = _strides(q, k, v, o)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    _launch("flash_fwd", lib.flash_fwd, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), B, H, L, D, KERNEL_DTYPES[q.dtype], int(causal), _scale(D),
-            ctypes.cast(st, ctypes.c_void_p), stream)
+    kernel = "flash_fwd_sm90" if bf16 else "flash_fwd"
+    _launch(kernel, getattr(lib, kernel), q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), B, H, L, D, int(causal),
+            _scale(D), ctypes.cast(st, ctypes.c_void_p), stream)
     return o, lse
 
 
@@ -288,19 +329,24 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool = True) -> torch.Ten
 
 
 def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool = True):
-    """K3 on the card: (dK, dV) as :func:`flash_bwd_dkv_plain`."""
+    """K3 on the card: (dK, dV) as :func:`flash_bwd_dkv_plain`; bf16 on the
+    tensor cores (``flash_dkv_sm90.cu``), fp32 on scalar FMAs."""
     from .build import load
 
     B, L, H, D = _check("flash_bwd_dkv", q, k, v, do)
     _check_rows("flash_bwd_dkv", q, lse, delta)
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        _check_tma("flash_bwd_dkv", q, k, v, do)
     lib = load()
     dk = torch.empty((B, L, H, D), dtype=q.dtype, device=q.device)
     dv = torch.empty((B, L, H, D), dtype=q.dtype, device=q.device)
     st = _strides(q, k, v, do, dk, dv)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    _launch("flash_bwd_dkv", lib.flash_bwd_dkv, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            B, H, L, D, KERNEL_DTYPES[q.dtype], int(causal), _scale(D),
+    kernel = "flash_dkv_sm90" if bf16 else "flash_bwd_dkv"
+    _launch(kernel, getattr(lib, kernel), q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, H, L, D, int(causal), _scale(D),
             ctypes.cast(st, ctypes.c_void_p), stream)
     return dk, dv
 

@@ -4,9 +4,13 @@ machine with the card and without JAX, run it without the repo's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_flash_cuda.py
 
+In bf16 the forward and dK/dV are the tensor-core (wgmma, TMA) kernels; the
+edge cases of test_kernels_match_plain cover their 64-row tiles.
 Tolerances as chip_smoke.py states them: fp32 forward atol 2e-5 + rtol 1e-5,
-gradients atol 1e-4 + rtol 1e-4 (sums in another order); bf16 outputs and
-gradients atol 2e-2 + rtol 3e-2 (bf16 rounding of O, P and dS).  The shard
+gradients atol 1e-4 + rtol 1e-4 (sums in another order); bf16 O atol 1e-3 +
+rtol 2e-2 and gradients atol 1e-3 + rtol 3e-2 (bf16 rounding of O, P and dS;
+the atol small against typical values, so that an error confined to some
+tiles fails, as a planted one must below).  The shard
 fold (K4): m atol 1e-5 + rtol 1e-6 and l atol 1e-5 + rtol 1e-5 in both types
 (fp32 on both sides); its unnormalised o, whose rounding error grows with the
 row's denominator l, within atol * max(l, 1) + rtol * |o|, with (atol, rtol)
@@ -14,12 +18,17 @@ row's denominator l, within atol * max(l, 1) + rtol * |o|, with (atol, rtol)
 (set there from the errors read on the card).
 """
 
+import shutil
+import subprocess
+
 import pytest
 import torch
 
 from fedml_tpu_torch.ops import flash_attention as fa
 
 pytestmark = pytest.mark.cuda
+
+BF16_TOL = {"o": (1e-3, 2e-2), "grad": (1e-3, 3e-2)}
 
 
 @pytest.fixture
@@ -29,17 +38,21 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("dtype,D,causal,L", [
-    (torch.float32, 32, True, 80), (torch.float32, 32, False, 50),
-    (torch.bfloat16, 64, True, 200), (torch.float32, 64, True, 130),
-])
+@pytest.mark.parametrize("L", [1, 63, 64, 65, 127, 129, 1000])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernels_match_plain(cuda, dtype, D, causal, L):
+    """K1-K3 against their plain versions over the tile edges (one row, a tile
+    short of, at, and past 64 and 128 rows, a ragged long run), with q, k and
+    v as views of one fused qkv, as the model gives them."""
     fwd_tol, grad_tol = ((2e-5, 1e-5), (1e-4, 1e-4)) if dtype == torch.float32 else \
-        ((2e-2, 3e-2), (2e-2, 3e-2))
+        (BF16_TOL["o"], BF16_TOL["grad"])
     gen = torch.Generator(device=cuda).manual_seed(0)
     qkv = (torch.randn(3, L, 3, 4, D, generator=gen, device=cuda) * 0.5).to(dtype)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     do = (torch.randn(3, L, 4, D, generator=gen, device=cuda) * 0.5).to(dtype)
+    before = dict(fa.LAUNCHES)
     o, lse = fa.flash_forward_cuda(q, k, v, causal)
     o_ref, lse_ref = fa.flash_forward_plain(q, k, v, causal)
     torch.testing.assert_close(o.float(), o_ref.float(), atol=fwd_tol[0], rtol=fwd_tol[1])
@@ -47,10 +60,90 @@ def test_kernels_match_plain(cuda, dtype, D, causal, L):
     delta = (do.float() * o_ref.float()).sum(-1).permute(0, 2, 1).contiguous()
     dq = fa.flash_bwd_dq_cuda(q, k, v, do, lse_ref, delta, causal)
     dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, do, lse_ref, delta, causal)
+    kernels = ({"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"} if dtype == torch.float32 else
+               {"flash_fwd_sm90", "flash_bwd_dq", "flash_dkv_sm90"})
+    assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {
+        n: int(n in kernels) for n in before}
     dq_r = fa.flash_bwd_dq_plain(q, k, v, do, lse_ref, delta, causal)
     dk_r, dv_r = fa.flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta, causal)
     for got, want in ((dq, dq_r), (dk, dk_r), (dv, dv_r)):
+        assert got.dtype == dtype
         torch.testing.assert_close(got.float(), want.float(), atol=grad_tol[0], rtol=grad_tol[1])
+
+
+def test_bf16_kernels_reject_what_tma_cannot_load(cuda):
+    """The bf16 forward and dK/dV load tiles with TMA: a head stride that is
+    not a whole 16 bytes, or a base off a 16-byte boundary, raises, and no
+    kernel launches (nothing falls back to another kernel)."""
+    shape = (2, 70, 2, 64)
+    good = torch.randn(shape, device=cuda).to(torch.bfloat16)
+    odd_stride = torch.zeros(2, 70, 2, 65, dtype=torch.bfloat16, device=cuda)[..., :64]
+    odd_base = torch.zeros(good.numel() + 1, dtype=torch.bfloat16, device=cuda)[1:].view(shape)
+    lse = torch.zeros(2, 2, 70, device=cuda)
+    before = dict(fa.LAUNCHES)
+    for bad in (odd_stride, odd_base):
+        with pytest.raises(ValueError, match="TMA"):
+            fa.flash_forward_cuda(bad, good, good, True)
+        with pytest.raises(ValueError, match="TMA"):
+            fa.flash_bwd_dkv_cuda(good, good, good, bad, lse, lse, True)
+    assert fa.LAUNCHES == before
+
+
+def _least_atol(got, want, rtol):
+    """The least atol with which |got - want| <= atol + rtol * |want| holds."""
+    err = (got.float() - want.float()).abs() - rtol * want.float().abs()
+    return err.clamp_min(0.0).max().item()
+
+
+# a planted fault in the bf16 dK/dV kernel: past the first key tile and the
+# first q tile of its loop, dK's product reads Q from the ring's other stage
+SOUND_DK = "wgmma_rs<D>(dk_acc, df[kk], k_step_mnmajor<D>(desc_mnmajor<D>(q_addr), kk));"
+FAULT_DK = ("wgmma_rs<D>(dk_acc, df[kk], k_step_mnmajor<D>(desc_mnmajor<D>(\n"
+            "    kt >= 1 && it >= 1 ? base_u + S::Q + (stage ^ 1) * S::TILE : q_addr), kk));")
+
+
+def test_bf16_dkv_tolerance_fails_a_planted_fault(cuda, tmp_path, monkeypatch):
+    """At the TransformerLM bench shape (B 8, L 1024, H 16, D 64, causal; the
+    inputs of chip_smoke.py's bench_bf16 case) the bf16 gradient tolerance
+    passes the dK/dV kernel and fails a copy of it whose dK is wrong only in
+    key tiles past the first, and there only off the diagonal q tile.  Prints
+    the least atol each needs."""
+    from fedml_tpu_torch.ops import build
+
+    B, L, H, D = 8, 1024, 16, 64
+    gen = torch.Generator(device=cuda).manual_seed(1234)
+    qkv = (torch.randn(B, L, 3, H, D, generator=gen, device=cuda) * 0.5).to(torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    do = (torch.randn(B, L, H, D, generator=gen, device=cuda) * 0.5).to(torch.bfloat16)
+    o, lse = fa.flash_forward_plain(q, k, v, True)
+    delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
+    dk_r, dv_r = fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, True)
+    atol, rtol = BF16_TOL["grad"]
+    dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, True)
+    sound = (_least_atol(dk, dk_r, rtol), _least_atol(dv, dv_r, rtol))
+
+    src = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, src)
+    text = (src / "flash_dkv_sm90.cu").read_text()
+    assert text.count(SOUND_DK) == 1, "the planted fault no longer matches the kernel's source"
+    (src / "flash_dkv_sm90.cu").write_text(text.replace(SOUND_DK, FAULT_DK))
+    lib = tmp_path / "libflash_dkv_sm90_fault.so"
+    subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
+                    str(src / "flash_dkv_sm90.cu")], check=True, capture_output=True)
+    builds = dict(build.load().builds, **{"flash_dkv_sm90.cu": {"path": str(lib)}})
+    monkeypatch.setattr(build, "_LIBRARY", [build.KernelLibrary(builds)])
+    dk_f, dv_f = fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, True)
+    torch.cuda.synchronize()
+    fault = _least_atol(dk_f, dk_r, rtol)
+    rms = dk_r.float().square().mean().sqrt().item()
+    print(f"\nbf16 dK/dV at B {B}, L {L}, H {H}, D {D}: rms |dK| {rms:.3e}; least atol "
+          f"at rtol {rtol}: sound dK {sound[0]:.3e}, dV {sound[1]:.3e}; planted fault dK "
+          f"{fault:.3e}, max |err| {(dk_f.float() - dk_r.float()).abs().max().item():.3e}")
+    assert max(sound) <= atol
+    assert fault > atol
+    # the fault is where it was planted: key tile 0, and dV, are untouched
+    assert _least_atol(dk_f[:, :64], dk_r[:, :64], rtol) <= atol
+    assert torch.equal(dv_f, dv)
 
 
 def test_autograd_function_launches_all_three_kernels(cuda):
@@ -58,7 +151,8 @@ def test_autograd_function_launches_all_three_kernels(cuda):
     before = dict(fa.LAUNCHES)
     fa.attention(q, k, v).square().sum().backward()
     assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {
-        "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1, "flash_shard_update": 0}
+        "flash_fwd": 1, "flash_fwd_sm90": 0, "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
+        "flash_dkv_sm90": 0, "flash_shard_update": 0}
 
 
 def test_unsupported_head_dim_raises(cuda):

@@ -6,24 +6,26 @@
 1. Device and build: the card's name and power limit, torch/CUDA versions,
    the TF32 flags; then the CUDA kernels are built with nvcc from
    fedml_tpu_torch/ops/csrc (one nvcc per source, in parallel), and ptxas's
-   registers and spills of every K1 and K3 instantiation are logged: any
-   spill fails the phase.
+   registers and spills of every kernel instantiation are logged: a spill in
+   a kernel of NO_SPILL fails the phase.
 2. Kernels: each flash-attention kernel (forward, dQ, dK/dV; in bf16 the
-   forward and dK/dV are the tensor-core kernels) against its
-   plain PyTorch version on the same inputs, at the slice's shapes (B 32 and,
-   for the eval forward, B 256; L 80, H 8, D 32, fp32, causal), a ragged
-   non-causal case (L 50) and the TransformerLM bench shape (B 8, L 1024,
-   H 16, D 64) in bf16 and fp32, with the tolerances below.  Then ring
+   tensor-core kernels) against its plain PyTorch version on the same
+   inputs, at the slice's shapes (B 32 and, for the eval forward, B 256;
+   L 80, H 8, D 32, fp32, causal), a ragged non-causal case (L 50) and the
+   TransformerLM bench shape (B 8, L 1024, H 16, D 64) in bf16 and fp32,
+   with the tolerances below.  Then ring
    attention's shard fold (K4) against its plain twin at the sequence-
    parallel slice's fold (B 8, Lq = Lk 256, H 16, D 64): the three kinds of
    fold a causal ring makes (keys before the rows, the diagonal, keys after
-   the rows) in bf16 and fp32, and a ragged non-causal fold with padded keys.
+   the rows) in bf16 and fp32, ragged non-causal folds with padded keys in
+   fp32 and (D 32) bf16, and a bf16 diagonal fold whose key positions are a
+   seeded permutation.
    Kernel, plain version and, where one PyTorch call computes the same
    function, that call (F.scaled_dot_product_attention, its efficient-
    attention backward and, in bf16, its flash-attention backward: yardsticks
    only, the port never calls them) are timed on the device with CUDA events
    around a queue of calls, median of trials (``time_ms``).  The bench_bf16
-   rows of K1 and K3 and their yardsticks are printed on a line of their own.
+   rows of K1-K3 and their yardsticks are printed on a line of their own.
 3. Reference: one FedAvg round of a small TransformerLM on the card
    (kernels) and on the CPU (plain versions) from the same seed must agree;
    so must one SGD step of a small sequence-parallel TransformerLM (sp 4).
@@ -38,13 +40,14 @@
    B 8 x L 1024, sp 4) through create_mesh -> sp_init -> sp_apply ->
    sp_loss_fn with make_optimizer's SGD: fp32 logits held to the single-card
    model's (flash attention, K1), then one warm and 3 timed bf16 SGD steps,
-   with the launch counts read just after.
+   with the launch counts read just after: the fp32 forward launches the fp32
+   K4 128 times, each bf16 forward the bf16 K4 128 times, and nothing else.
 7. Single card: bench.py's TransformerLM leg (_measure_transformer,
    bench.py:1465-1502) on one card: the same width and B 8 x L 1024, bf16
    compute over fp32 params, SGD lr 1e-3, the TransformerLM with its default
    flash attention, through the engine's loss (build_loss_fn) and
    make_optimizer: one warm and 3 timed steps, each launching exactly 8 K1,
-   8 K2 and 8 K3 (the bf16 tensor-core K1 and K3) and no K4, then one step
+   8 K2 and 8 K3 (the bf16 tensor-core kernels) and no K4, then one step
    under torch.profiler.
 8. The kernels line, the card line, and the last line
    {"ok": true, "device": {...}}.
@@ -92,7 +95,8 @@ PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}  # fp32 outside tensor cores; 
 # fp32, unrounded.  On an H100 the largest |o - plain| / max(l, 1)
 # read 2.8e-4 on the past fold and 1.1e-3 on the diagonal one, where a row
 # of a few keys can see one P one bf16 step apart (o / l then moves by up to
-# 2^-8 |v|): atol 3e-3 leaves room over that reading.
+# 2^-8 |v|): atol 3e-3 leaves room over that reading.  The tensor-core fold
+# reads up to 2.0e-3 on a diagonal fold with permuted key positions.
 TOLERANCE = {
     "float32": {"o": (2e-5, 1e-5), "lse": (1e-5, 1e-6), "grad": (1e-4, 1e-4),
                 "m": (1e-5, 1e-6), "l": (1e-5, 1e-5), "fold_o": (2e-5, 1e-5)},
@@ -109,16 +113,21 @@ KERNELS = [
      "bench_bf16"),
     ("flash_bwd_dq", "fedml_tpu_torch/ops/csrc/flash_bwd.cu",
      f"{_TPU}:211 _flash_bwd_dq_kernel", "slice_train"),
+    ("flash_dq_sm90", "fedml_tpu_torch/ops/csrc/flash_dq_sm90.cu",
+     f"{_TPU}:211 _flash_bwd_dq_kernel", "bench_bf16"),
     ("flash_bwd_dkv", "fedml_tpu_torch/ops/csrc/flash_bwd.cu",
      f"{_TPU}:245 _flash_bwd_dkv_kernel", "slice_train"),
     ("flash_dkv_sm90", "fedml_tpu_torch/ops/csrc/flash_dkv_sm90.cu",
      f"{_TPU}:245 _flash_bwd_dkv_kernel", "bench_bf16"),
     ("flash_shard_update", "fedml_tpu_torch/ops/csrc/flash_update.cu",
+     f"{_TPU}:427 _flash_update_kernel", "fold_past_fp32"),
+    ("flash_update_sm90", "fedml_tpu_torch/ops/csrc/flash_update_sm90.cu",
      f"{_TPU}:427 _flash_update_kernel", "fold_past_bf16"),
 ]
-# the kernels (ptxas entry names) of K1 and K3 that must not spill
-NO_SPILL = ("flash_fwd_kernel", "flash_fwd_sm90_kernel", "flash_bwd_dkv_kernel",
-            "flash_dkv_sm90_kernel")
+# the kernels (ptxas entry names) that must not spill
+NO_SPILL = ("flash_fwd_kernel", "flash_fwd_sm90_kernel", "flash_bwd_dq_kernel",
+            "flash_dq_sm90_kernel", "flash_bwd_dkv_kernel", "flash_dkv_sm90_kernel",
+            "flash_update_kernel", "flash_update_sm90_kernel")
 SLICE1_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # (name, B, L, H, D, dtype, causal, functions to check: each runs the kernel
 # of its dtype, named in the row by the counter that its launch moved)
@@ -130,17 +139,21 @@ CASES = [
     ("bench_fp32", 8, 1024, 16, 64, "float32", True, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
 ]
 # K4 at the sp slice's fold: (name, B, Lq, Lk, H, D, dtype, causal, q shard,
-# k shard, padded key tail).  With shards of Lq keys, q shard 1 folds shard 0
-# (all keys before the rows), itself (the diagonal) and shard 2 (all after:
-# dead when causal); past and dead folds carry the diagonal fold's state.
+# k shard, padded key tail, key positions permuted).  With shards of Lq keys,
+# q shard 1 folds shard 0 (all keys before the rows), itself (the diagonal)
+# and shard 2 (all after: dead when causal); past and dead folds carry the
+# diagonal fold's state.  The permuted fold takes the diagonal shard's
+# positions in a seeded order, which the dead-tile skip must survive.
 FOLD_CASES = [
-    ("fold_past_bf16", 8, 256, 256, 16, 64, "bfloat16", True, 1, 0, 0),
-    ("fold_diagonal_bf16", 8, 256, 256, 16, 64, "bfloat16", True, 1, 1, 0),
-    ("fold_dead_bf16", 8, 256, 256, 16, 64, "bfloat16", True, 1, 2, 0),
-    ("fold_past_fp32", 8, 256, 256, 16, 64, "float32", True, 1, 0, 0),
-    ("fold_diagonal_fp32", 8, 256, 256, 16, 64, "float32", True, 1, 1, 0),
-    ("fold_dead_fp32", 8, 256, 256, 16, 64, "float32", True, 1, 2, 0),
-    ("fold_ragged_full", 4, 200, 130, 8, 32, "float32", False, 1, 0, 17),
+    ("fold_past_bf16", 8, 256, 256, 16, 64, "bfloat16", True, 1, 0, 0, False),
+    ("fold_diagonal_bf16", 8, 256, 256, 16, 64, "bfloat16", True, 1, 1, 0, False),
+    ("fold_dead_bf16", 8, 256, 256, 16, 64, "bfloat16", True, 1, 2, 0, False),
+    ("fold_permuted_bf16", 8, 256, 256, 16, 64, "bfloat16", True, 1, 1, 0, True),
+    ("fold_ragged_bf16", 4, 200, 130, 8, 32, "bfloat16", False, 1, 0, 17, False),
+    ("fold_past_fp32", 8, 256, 256, 16, 64, "float32", True, 1, 0, 0, False),
+    ("fold_diagonal_fp32", 8, 256, 256, 16, 64, "float32", True, 1, 1, 0, False),
+    ("fold_dead_fp32", 8, 256, 256, 16, 64, "float32", True, 1, 2, 0, False),
+    ("fold_ragged_full", 4, 200, 130, 8, 32, "float32", False, 1, 0, 17, False),
 ]
 # slice 2: bench.py's TransformerLM leg (bench.py:1465-1502), sequence-parallel
 SP_CONFIG = dict(vocab_size=32000, d_model=1024, n_heads=16, n_layers=8, d_ff=4096)
@@ -391,7 +404,7 @@ def fold_phase(fa):
     import torch
 
     rows = []
-    for case, B, Lq, Lk, H, D, dtype_name, causal, q_shard, k_shard, tail in FOLD_CASES:
+    for case, B, Lq, Lk, H, D, dtype_name, causal, q_shard, k_shard, tail, perm in FOLD_CASES:
         dtype = getattr(torch, dtype_name)
         tol = TOLERANCE[dtype_name]
         gen = torch.Generator(device="cuda").manual_seed(4321)
@@ -402,6 +415,9 @@ def fold_phase(fa):
         k, v = kv[:, :, 0], kv[:, :, 1]
         q_pos = q_shard * Lq + torch.arange(Lq, dtype=torch.int32, device="cuda")
         k_pos = k_shard * Lk + torch.arange(Lk, dtype=torch.int32, device="cuda")
+        if perm:
+            order = torch.randperm(Lk, generator=torch.Generator().manual_seed(5))
+            k_pos = k_pos[order.to("cuda")]
         if tail:
             k_pos[-tail:] = -1
         m = torch.full((B, H, Lq), float("-inf"), device="cuda")
@@ -411,8 +427,12 @@ def fold_phase(fa):
             m, l, o = fa.flash_shard_update_plain(q, k_own, v_own, q_pos, q_pos, m, l, o, True)
         args = (q, k, v, q_pos, k_pos, m, l, o, causal)
         poison(m, l, o)
+        before = dict(fa.LAUNCHES)
         got = fa.flash_shard_update_cuda(*args)
         torch.cuda.synchronize()
+        moved = [n for n in fa.LAUNCHES if fa.LAUNCHES[n] != before[n]]
+        if len(moved) != 1:
+            raise AssertionError(f"{case}: launch counters moved {moved}")
         want = fa.flash_shard_update_plain(*args)
         scale = want[1].clamp_min(1.0).permute(0, 2, 1)[..., None]
         err, _ = worst(check_close(f"{case} m", got[0], want[0], tol["m"]),
@@ -422,7 +442,7 @@ def fold_phase(fa):
         live = (k_pos >= 0)[None, :] & ((q_pos[:, None] >= k_pos[None, :]) | (not causal))
         live_pairs = int(live.sum().item())
         b_ms, b_by = bound_fold(B, H, D, dtype_name, live)
-        row = {"case": case, "kernel": "flash_shard_update", "shape": [B, Lq, Lk, H, D],
+        row = {"case": case, "kernel": moved[0], "shape": [B, Lq, Lk, H, D],
                "dtype": dtype_name, "causal": causal, "shards": [q_shard, k_shard],
                "live_pairs_per_bh": live_pairs, "max_abs_err": err,
                "o_err_over_l": o_err_over_l,
@@ -431,7 +451,7 @@ def fold_phase(fa):
                "plain_ms": time_ms(lambda: fa.flash_shard_update_plain(*args), 10),
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
         rows.append(row)
-        log(f"  {case:18s} {dtype_name:8s} live pairs {live_pairs:6d} err {err:.3e} "
+        log(f"  {case:18s} {moved[0]:18s} {dtype_name:8s} live pairs {live_pairs:6d} err {err:.3e} "
             f"(o over max(l, 1) {o_err_over_l:.3e})  kernel "
             f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
         del qkv, kv, got, want, args
@@ -670,12 +690,14 @@ def sp_slice_phase(fa):
     per_forward = cfg.n_layers * SP_SHARDS ** 2
     log(f"  launches after the fp32 forward {fwd_launches}; after 4 bf16 steps {launches}; "
         f"{per_forward} K4 folds per forward expected")
-    for counts, forwards in ((fwd_launches, 1), (launches, 5)):
-        if counts["flash_shard_update"] != forwards * per_forward:
-            raise AssertionError(f"K4 launched {counts['flash_shard_update']} times in "
-                                 f"{forwards} forwards")
-        if any(counts[name] for name in counts if name != "flash_shard_update"):
-            raise AssertionError(f"K1-K3 launched on the sp path: {counts}")
+    step_launches = {n: launches[n] - fwd_launches[n] for n in launches}
+    # the fp32 forward runs the fp32 K4, the 4 bf16 steps the bf16 one, nothing else
+    for counts, kernel, forwards in ((fwd_launches, "flash_shard_update", 1),
+                                     (step_launches, "flash_update_sm90", 4)):
+        want = dict.fromkeys(counts, 0)
+        want[kernel] = forwards * per_forward
+        if counts != want:
+            raise AssertionError(f"{forwards} forwards must launch {want}, got {counts}")
     if not all(math.isfinite(x) for x in losses) or abs(losses[0] - math.log(cfg.vocab_size)) > 1.0:
         raise AssertionError(f"bf16 losses {losses} (ln V = {math.log(cfg.vocab_size):.3f})")
     timed = statistics.median(step_s[1:])
@@ -695,8 +717,11 @@ def sp_slice_phase(fa):
               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:12]
+    fold = [e for e in events if "flash_update_sm90_kernel" in e.key]
+    fold_ms = sum(e.self_device_time_total for e in fold) / 1e3
     log(f"  one bf16 step under the profiler: wall {wall_ms:.1f} ms, device busy {device_ms:.1f} "
-        f"ms ({100 * device_ms / wall_ms:.1f} %)")
+        f"ms ({100 * device_ms / wall_ms:.1f} %); K4 {fold_ms:.3f} ms in "
+        f"{sum(e.count for e in fold)} launches")
     table = []
     for e in top:
         table.append({"name": e.key, "device_ms": e.self_device_time_total / 1e3,
@@ -706,12 +731,13 @@ def sp_slice_phase(fa):
                       "forward_launches": fwd_launches, "launches": launches, "losses": losses,
                       "step_seconds": step_s, "median_step_s": timed,
                       "tokens_per_s": tokens_per_s, "peak_memory_bytes": peak,
-                      "profile": {"wall_ms": wall_ms, "device_ms": device_ms, "top": table}}
+                      "profile": {"wall_ms": wall_ms, "device_ms": device_ms, "fold_ms": fold_ms,
+                                  "top": table}}
 
 
 def ptxas_check(build, builds) -> dict:
     """Registers and spills of every kernel instantiation from ptxas's log;
-    raises if a K1 or K3 instantiation spills."""
+    raises if an instantiation of a kernel of NO_SPILL spills."""
     usage = {}
     for src, b in builds.items():
         for name, u in build.ptxas_usage(b["log"]).items():
@@ -725,18 +751,19 @@ def ptxas_check(build, builds) -> dict:
     spills = {label: u for label, u in usage.items()
               if label.split("<")[0] in NO_SPILL and (u.get("spill_stores") or u.get("spill_loads"))}
     if spills:
-        raise AssertionError(f"K1/K3 instantiations spill: {spills}")
+        raise AssertionError(f"kernel instantiations spill: {spills}")
     return usage
 
 
 def bench_bf16_summary(rows) -> dict:
-    """The bench_bf16 rows of K1 and K3 with their yardsticks."""
+    """The bench_bf16 rows of K1-K3 with their yardsticks."""
     keys = ("ms", "bound_ms", "bound_by", "plain_ms", "max_abs_err", "least_atol", "library",
             "library_ms")
     return {r["kernel"]: dict({k: r[k] for k in keys}, over_library=r["ms"] / r["library_ms"],
                               sdpa_flash_bwd_ms=r.get("sdpa_flash_bwd_ms"))
             for r in rows
-            if r["case"] == "bench_bf16" and r["kernel"] in ("flash_fwd_sm90", "flash_dkv_sm90")}
+            if r["case"] == "bench_bf16"
+            and r["kernel"] in ("flash_fwd_sm90", "flash_dq_sm90", "flash_dkv_sm90")}
 
 
 def kernels_line(rows, path_launches) -> list:
@@ -806,7 +833,7 @@ def single_card_phase(ft, fa):
     launches = dict(fa.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     want = dict.fromkeys(fa.LAUNCHES, 0)
-    want.update(flash_fwd_sm90=cfg.n_layers, flash_bwd_dq=cfg.n_layers,
+    want.update(flash_fwd_sm90=cfg.n_layers, flash_dq_sm90=cfg.n_layers,
                 flash_dkv_sm90=cfg.n_layers)
     log(f"  launches per step {per_step}; after 4 steps {launches}")
     if any(counts != want for counts in per_step):
@@ -837,7 +864,7 @@ def single_card_phase(ft, fa):
                       "calls": e.count})
         log(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
     flash_ms = {name: sum(e.self_device_time_total for e in events if name in e.key) / 1e3
-                for name in ("flash_fwd_sm90_kernel", "flash_bwd_dq_kernel",
+                for name in ("flash_fwd_sm90_kernel", "flash_dq_sm90_kernel",
                              "flash_dkv_sm90_kernel")}
     log(f"  attention kernels in the profiled step: {json.dumps(flash_ms)}")
     return launches, {"params": n_params, "per_step_launches": per_step, "launches": launches,

@@ -26,8 +26,8 @@ BUILD_DIR = os.path.join(
     "build", "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("flash_fwd.cu", "flash_fwd_sm90.cu", "flash_bwd.cu", "flash_dkv_sm90.cu",
-           "flash_update.cu")
+SOURCES = ("flash_fwd.cu", "flash_fwd_sm90.cu", "flash_bwd.cu", "flash_dq_sm90.cu",
+           "flash_dkv_sm90.cu", "flash_update.cu", "flash_update_sm90.cu")
 
 
 def find_nvcc() -> str:
@@ -132,10 +132,12 @@ _FLOAT = ctypes.c_float
 _SIGNATURES = {
     "flash_fwd": ("flash_fwd.cu", [_PTR] * 5 + [_INT] * 5 + [_FLOAT, _PTR, _PTR]),
     "flash_fwd_sm90": ("flash_fwd_sm90.cu", [_PTR] * 5 + [_INT] * 5 + [_FLOAT, _PTR, _PTR]),
-    "flash_bwd_dq": ("flash_bwd.cu", [_PTR] * 7 + [_INT] * 6 + [_FLOAT, _PTR, _PTR]),
+    "flash_bwd_dq": ("flash_bwd.cu", [_PTR] * 7 + [_INT] * 5 + [_FLOAT, _PTR, _PTR]),
+    "flash_dq_sm90": ("flash_dq_sm90.cu", [_PTR] * 7 + [_INT] * 5 + [_FLOAT, _PTR, _PTR]),
     "flash_bwd_dkv": ("flash_bwd.cu", [_PTR] * 8 + [_INT] * 5 + [_FLOAT, _PTR, _PTR]),
     "flash_dkv_sm90": ("flash_dkv_sm90.cu", [_PTR] * 8 + [_INT] * 5 + [_FLOAT, _PTR, _PTR]),
-    "flash_update": ("flash_update.cu", [_PTR] * 11 + [_INT] * 7 + [_FLOAT, _PTR, _PTR]),
+    "flash_update": ("flash_update.cu", [_PTR] * 11 + [_INT] * 6 + [_FLOAT, _PTR, _PTR]),
+    "flash_update_sm90": ("flash_update_sm90.cu", [_PTR] * 11 + [_INT] * 6 + [_FLOAT, _PTR, _PTR]),
 }
 
 

@@ -1,20 +1,20 @@
-// Shared device code of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu,
-// flash_update.cu, and the bf16 tensor-core kernels flash_fwd_sm90.cu and
-// flash_dkv_sm90.cu).
+// Shared device code of the flash-attention kernels: the fp32 kernels
+// (flash_fwd.cu, flash_bwd.cu, flash_update.cu) and the bf16 tensor-core
+// kernels (flash_fwd_sm90.cu, flash_dq_sm90.cu, flash_dkv_sm90.cu,
+// flash_update_sm90.cu).
 //
 // Everything that decides WHICH scores live and HOW P and dS are rebuilt lives
-// here once, so the forward and both backward kernels cannot drift apart: the
-// masks, the online-softmax rescale, the log-sum-exp convention and
-// block_grads (the counterpart of _block_grads in
+// here once, so the forward, both backward kernels and the shard fold cannot
+// drift apart: the masks, the online-softmax rescale, the log-sum-exp
+// convention and block_grads (the counterpart of _block_grads in
 // fedml_tpu/ops/flash_attention.py).
 //
 // Layout: q, k, v, o, dO, dq, dk, dv are [B, L, H, D] tensors read through
 // element strides (the last dim must be contiguous); lse and delta are
-// contiguous [B, H, L] fp32.  Arithmetic is fp32 throughout (never TF32);
-// bf16 inputs are widened exactly (or multiplied exactly on the tensor cores
-// with fp32 sums), and the values the JAX kernel casts to the
-// input type before a product (P before P.V and P^T.dO, dS before dS.K and
-// dS^T.Q) are rounded to bf16 the same way here.
+// contiguous [B, H, L] fp32.  Arithmetic is fp32 throughout (never TF32); the
+// bf16 kernels multiply bf16 exactly on the tensor cores with fp32 sums and
+// round to bf16 the values the JAX kernel casts to the input type before a
+// product (P before P.V and P^T.dO, dS before dS.K and dS^T.Q).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -30,28 +30,6 @@ struct Strides {
 
 inline Strides strides_at(const long long* s, int i) {
   return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]};
-}
-
-template <typename T>
-struct Cvt;
-
-template <>
-struct Cvt<float> {
-  static __device__ __forceinline__ float to_f(float x) { return x; }
-  static __device__ __forceinline__ float from_f(float x) { return x; }
-};
-
-template <>
-struct Cvt<__nv_bfloat16> {
-  static __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-  static __device__ __forceinline__ __nv_bfloat16 from_f(float x) { return __float2bfloat16(x); }
-};
-
-// x rounded to the input type and widened back: the cast the JAX kernel makes
-// before a product in the input dtype (identity for fp32).
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return Cvt<T>::to_f(Cvt<T>::from_f(x));
 }
 
 __device__ __forceinline__ bool is_finite(float x) { return fabsf(x) < CUDART_INF_F; }
@@ -94,11 +72,11 @@ __device__ __forceinline__ void block_grads(float s, float dp, float lse, float 
   ds = p * (dp - delta) * scale;
 }
 
-// Stage rows [row0, row0 + ROWS) of one (b, h) slice into shared memory as
-// fp32, ld floats apart.  Rows at or past L are zero.  Neighbouring threads
-// read neighbouring elements of a row.
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void load_rows(float* dst, int ld, const T* __restrict__ src,
+// Stage rows [row0, row0 + ROWS) of one fp32 (b, h) slice into shared memory,
+// ld floats apart.  Rows at or past L are zero.  Neighbouring threads read
+// neighbouring elements of a row.
+template <int D, int ROWS>
+__device__ __forceinline__ void load_rows(float* dst, int ld, const float* __restrict__ src,
                                           Strides s, int b, int h, int row0, int L, int tid,
                                           int nthreads) {
   for (int e = tid; e < ROWS * D; e += nthreads) {
@@ -107,7 +85,7 @@ __device__ __forceinline__ void load_rows(float* dst, int ld, const T* __restric
     const int pos = row0 + r;
     float val = 0.f;
     if (pos < L) {
-      val = Cvt<T>::to_f(src[(long long)b * s.b + (long long)pos * s.l + (long long)h * s.h + c]);
+      val = src[(long long)b * s.b + (long long)pos * s.l + (long long)h * s.h + c];
     }
     dst[r * ld + c] = val;
   }
@@ -115,8 +93,8 @@ __device__ __forceinline__ void load_rows(float* dst, int ld, const T* __restric
 
 // Write rows [row0, row0 + ROWS) from shared memory back to one (b, h) slice,
 // skipping rows at or past L.
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void store_rows(T* __restrict__ dst, Strides s, const float* src,
+template <int D, int ROWS>
+__device__ __forceinline__ void store_rows(float* __restrict__ dst, Strides s, const float* src,
                                            int ld, int b, int h, int row0, int L, int tid,
                                            int nthreads) {
   for (int e = tid; e < ROWS * D; e += nthreads) {
@@ -124,8 +102,7 @@ __device__ __forceinline__ void store_rows(T* __restrict__ dst, Strides s, const
     const int c = e - r * D;
     const int pos = row0 + r;
     if (pos < L) {
-      dst[(long long)b * s.b + (long long)pos * s.l + (long long)h * s.h + c] =
-          Cvt<T>::from_f(src[r * ld + c]);
+      dst[(long long)b * s.b + (long long)pos * s.l + (long long)h * s.h + c] = src[r * ld + c];
     }
   }
 }

@@ -49,7 +49,7 @@ __global__ void __launch_bounds__(FWD_BQ)
   const int h = bh - b * H;
   const int q_pos = q0 + tid;
 
-  load_rows<float, D, FWD_BQ>(&qs[0][0], D + 1, q, sq, b, h, q0, L, tid, FWD_BQ);
+  load_rows<D, FWD_BQ>(&qs[0][0], D + 1, q, sq, b, h, q0, L, tid, FWD_BQ);
   __syncthreads();
   float qr[D];
   float acc[D];
@@ -65,8 +65,8 @@ __global__ void __launch_bounds__(FWD_BQ)
   const int k_end = causal ? min(L, q0 + FWD_BQ) : L;
   for (int k0 = 0; k0 < k_end; k0 += FWD_BK) {
     __syncthreads();  // the previous tile is consumed
-    load_rows<float, D, FWD_BK>(&ks[0][0], D, k, sk, b, h, k0, L, tid, FWD_BQ);
-    load_rows<float, D, FWD_BK>(&vs[0][0], D, v, sv, b, h, k0, L, tid, FWD_BQ);
+    load_rows<D, FWD_BK>(&ks[0][0], D, k, sk, b, h, k0, L, tid, FWD_BQ);
+    load_rows<D, FWD_BK>(&vs[0][0], D, v, sv, b, h, k0, L, tid, FWD_BQ);
     __syncthreads();
 #pragma unroll 1
     for (int c = 0; c < FWD_BK; c += FWD_KC) {
@@ -106,7 +106,7 @@ __global__ void __launch_bounds__(FWD_BQ)
   for (int i = 0; i < D; ++i) qs[tid][i] = acc[i] / denom;
   if (q_pos < L) lse[(long long)bh * L + q_pos] = row_lse(m, l);
   __syncthreads();
-  store_rows<float, D, FWD_BQ>(o, so, &qs[0][0], D + 1, b, h, q0, L, tid, FWD_BQ);
+  store_rows<D, FWD_BQ>(o, so, &qs[0][0], D + 1, b, h, q0, L, tid, FWD_BQ);
 }
 
 template <int D>

@@ -1,5 +1,5 @@
 // Hopper building blocks of the bf16 flash-attention kernels (flash_fwd_sm90.cu,
-// flash_dkv_sm90.cu): TMA tile loads into shared memory guarded by mbarriers,
+// flash_dq_sm90.cu, flash_dkv_sm90.cu, flash_update_sm90.cu): TMA tile loads into shared memory guarded by mbarriers,
 // wgmma matrix descriptors for the swizzled tiles TMA writes, the wgmma
 // instructions the kernels issue, and the host-side tensor maps.
 //

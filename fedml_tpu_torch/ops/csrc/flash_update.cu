@@ -1,23 +1,22 @@
-// Ring attention's shard fold for Hopper (sm_90a): one K/V shard folded into a
-// carried online-softmax state (m, l, unnormalised o).
+// Ring attention's shard fold for Hopper (sm_90a) in fp32: one K/V shard
+// folded into a carried online-softmax state (m, l, unnormalised o).
 //
 // Replaces: fedml_tpu/ops/flash_attention.py:_flash_update_kernel (the Pallas
-// TPU kernel launched by _flash_shard_update_impl).  Same function: scores =
-// q.k^T / sqrt(D) in fp32; a key is live iff k_pos >= 0 and, when causal,
+// TPU kernel launched by _flash_shard_update_impl) for fp32 q, k, v; bf16
+// inputs take the tensor-core kernel of flash_update_sm90.cu.  Same function:
+// scores = q.k^T / sqrt(D); a key is live iff k_pos >= 0 and, when causal,
 // q_pos >= k_pos, with positions read from the q_pos/k_pos arrays (global
 // offsets in the ring, not indices); the state seeded from (m_in, l_in, o_in)
-// takes each live key by the online-softmax rescale; P is rounded to V's type
-// before P.V; m, l and o come out in fp32 and are always written, also when
-// no key was live (then the state passes through unchanged).
+// takes each live key by the online-softmax rescale; m, l and o are always
+// written, also when no key was live (then the state passes through
+// unchanged).
 //
 // What bounds it on an H100 (3.35 TB/s, 67 TFLOP/s fp32 outside the tensor
-// cores, 989 TFLOP/s bf16 dense), at the sequence-parallel TransformerLM's fold
-// (B 8, Lq = Lk 256, H 16, D 64): each fold moves q, k and v once in their
-// type, the positions, m and l in and out and o in and out in fp32: 29.9 MB in
-// bf16 (9 us) and 42.5 MB in fp32 (13 us).  A fold whose keys all lie before
-// the rows does 2.15 GFLOP (4 D per live pair): 32 us at the fp32 rate, so
-// operations; 2 us at the bf16 tensor-core peak, so bytes.  The diagonal fold
-// has half the live pairs and a dead fold none.
+// cores), at the sequence-parallel TransformerLM's fold (B 8, Lq = Lk 256, H
+// 16, D 64): each fold moves q, k and v once, the positions, m and l in and
+// out and o in and out, 42.5 MB (13 us).  A fold whose keys all lie before the
+// rows does 2.15 GFLOP (4 D per live pair): 32 us at the fp32 rate, so
+// operations.  The diagonal fold has half the live pairs and a dead fold none.
 //
 // Design: as flash_fwd.cu, one block per (64-row query tile, b*h) and one
 // thread per query row, which seeds its fp32 accumulator, running max and
@@ -28,8 +27,7 @@
 // positions themselves since they need not be sorted) is skipped before its
 // K and V are read, which stands in for the TPU kernel's dead-block skip.  A
 // live tile's K and V are staged in shared memory and folded 16 keys at a
-// time with scalar fp32 FMAs (exact for bf16 inputs; no tensor cores yet).
-// The ragged edges of q and k are masked here, so nothing is padded outside.
+// time with scalar fp32 FMAs (never TF32).  The ragged edges of q and k are masked here, so nothing is padded outside.
 
 #include <climits>
 
@@ -41,10 +39,10 @@ constexpr int UPD_BQ = 64;  // query rows per block, one thread each
 constexpr int UPD_BK = 32;  // keys staged in shared memory per step
 constexpr int UPD_KC = 16;  // keys folded into the online softmax at once
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(UPD_BQ)
-    flash_update_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const int* __restrict__ q_pos,
+    flash_update_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const int* __restrict__ q_pos,
                         const int* __restrict__ k_pos, const float* __restrict__ m_in,
                         const float* __restrict__ l_in, const float* __restrict__ o_in,
                         float* __restrict__ m_out, float* __restrict__ l_out,
@@ -67,14 +65,14 @@ __global__ void __launch_bounds__(UPD_BQ)
   const int qp = in_range ? q_pos[row] : INT_MIN;  // a row past Lq sees no key when causal
 
   if (tid == 0) q_last = INT_MIN;
-  load_rows<T, D, UPD_BQ>(&qs[0][0], D + 1, q, sq, b, h, q0, Lq, tid, UPD_BQ);
+  load_rows<D, UPD_BQ>(&qs[0][0], D + 1, q, sq, b, h, q0, Lq, tid, UPD_BQ);
   __syncthreads();
   atomicMax(&q_last, qp);
   float qr[D];
 #pragma unroll
   for (int i = 0; i < D; ++i) qr[i] = qs[tid][i];
   __syncthreads();  // q is in registers: stage the carried accumulator
-  load_rows<float, D, UPD_BQ>(&qs[0][0], D + 1, o_in, soi, b, h, q0, Lq, tid, UPD_BQ);
+  load_rows<D, UPD_BQ>(&qs[0][0], D + 1, o_in, soi, b, h, q0, Lq, tid, UPD_BQ);
   __syncthreads();
   float acc[D];
 #pragma unroll
@@ -95,8 +93,8 @@ __global__ void __launch_bounds__(UPD_BQ)
       if (kps[j] >= 0) first_live = min(first_live, kps[j]);
     }
     if (first_live == INT_MAX || (causal && tile_last < first_live)) continue;
-    load_rows<T, D, UPD_BK>(&ks[0][0], D, k, sk, b, h, k0, Lk, tid, UPD_BQ);
-    load_rows<T, D, UPD_BK>(&vs[0][0], D, v, sv, b, h, k0, Lk, tid, UPD_BQ);
+    load_rows<D, UPD_BK>(&ks[0][0], D, k, sk, b, h, k0, Lk, tid, UPD_BQ);
+    load_rows<D, UPD_BK>(&vs[0][0], D, v, sv, b, h, k0, Lk, tid, UPD_BQ);
     __syncthreads();
 #pragma unroll 1
     for (int c = 0; c < UPD_BK; c += UPD_KC) {
@@ -115,9 +113,8 @@ __global__ void __launch_bounds__(UPD_BQ)
       float psum = 0.f;
 #pragma unroll
       for (int j = 0; j < UPD_KC; ++j) {
-        const float p = is_finite(s[j]) ? expf(s[j] - safe_m) : 0.f;
-        psum += p;
-        s[j] = round_to<T>(p);  // P enters P.V in V's type
+        s[j] = is_finite(s[j]) ? expf(s[j] - safe_m) : 0.f;  // P
+        psum += s[j];
       }
       l = l * corr + psum;
 #pragma unroll
@@ -139,18 +136,18 @@ __global__ void __launch_bounds__(UPD_BQ)
     l_out[state] = l;
   }
   __syncthreads();
-  store_rows<float, D, UPD_BQ>(o_out, soo, &qs[0][0], D + 1, b, h, q0, Lq, tid, UPD_BQ);
+  store_rows<D, UPD_BQ>(o_out, soo, &qs[0][0], D + 1, b, h, q0, Lq, tid, UPD_BQ);
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_update(const void* q, const void* k, const void* v, const void* q_pos,
                           const void* k_pos, const void* m_in, const void* l_in,
                           const void* o_in, void* m_out, void* l_out, void* o_out, int B, int H,
                           int Lq, int Lk, const long long* st, int causal, float scale,
                           cudaStream_t stream) {
   const dim3 grid((Lq + UPD_BQ - 1) / UPD_BQ, B * H);
-  flash_update_kernel<T, D><<<grid, UPD_BQ, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+  flash_update_kernel<D><<<grid, UPD_BQ, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const int*>(q_pos), static_cast<const int*>(k_pos),
       static_cast<const float*>(m_in), static_cast<const float*>(l_in),
       static_cast<const float*>(o_in), static_cast<float*>(m_out), static_cast<float*>(l_out),
@@ -161,32 +158,24 @@ cudaError_t launch_update(const void* q, const void* k, const void* v, const voi
 
 }  // namespace flash
 
-// dtype: 0 = fp32, 1 = bf16 (q, k, v); D: 32 or 64.  q_pos [Lq] and k_pos [Lk]
-// are int32; m_in, l_in, m_out, l_out contiguous fp32 [B, H, Lq]; o_in, o_out
-// fp32 [B, Lq, H, D].  strides: 15 int64, the (b, l, h) element strides of q,
-// k, v, o_in and o_out.  Returns the launch's cudaError_t.
+// fp32 only; D: 32 or 64.  q_pos [Lq] and k_pos [Lk] are int32; m_in, l_in,
+// m_out, l_out contiguous fp32 [B, H, Lq]; o_in, o_out fp32 [B, Lq, H, D].
+// strides: 15 int64, the (b, l, h) element strides of q, k, v, o_in and
+// o_out.  Returns the launch's cudaError_t.
 extern "C" int flash_update(const void* q, const void* k, const void* v, const void* q_pos,
                             const void* k_pos, const void* m_in, const void* l_in,
                             const void* o_in, void* m_out, void* l_out, void* o_out, int B,
-                            int H, int Lq, int Lk, int D, int dtype, int causal, float scale,
+                            int H, int Lq, int Lk, int D, int causal, float scale,
                             const void* strides, void* stream) {
   const long long* st = static_cast<const long long*>(strides);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0 && D == 32) {
-    err = flash::launch_update<float, 32>(q, k, v, q_pos, k_pos, m_in, l_in, o_in, m_out,
-                                          l_out, o_out, B, H, Lq, Lk, st, causal, scale, s);
-  } else if (dtype == 0 && D == 64) {
-    err = flash::launch_update<float, 64>(q, k, v, q_pos, k_pos, m_in, l_in, o_in, m_out,
-                                          l_out, o_out, B, H, Lq, Lk, st, causal, scale, s);
-  } else if (dtype == 1 && D == 32) {
-    err = flash::launch_update<__nv_bfloat16, 32>(q, k, v, q_pos, k_pos, m_in, l_in, o_in,
-                                                  m_out, l_out, o_out, B, H, Lq, Lk, st,
-                                                  causal, scale, s);
-  } else if (dtype == 1 && D == 64) {
-    err = flash::launch_update<__nv_bfloat16, 64>(q, k, v, q_pos, k_pos, m_in, l_in, o_in,
-                                                  m_out, l_out, o_out, B, H, Lq, Lk, st,
-                                                  causal, scale, s);
+  if (D == 32) {
+    err = flash::launch_update<32>(q, k, v, q_pos, k_pos, m_in, l_in, o_in, m_out, l_out, o_out,
+                                   B, H, Lq, Lk, st, causal, scale, s);
+  } else if (D == 64) {
+    err = flash::launch_update<64>(q, k, v, q_pos, k_pos, m_in, l_in, o_in, m_out, l_out, o_out,
+                                   B, H, Lq, Lk, st, causal, scale, s);
   }
   return static_cast<int>(err);
 }

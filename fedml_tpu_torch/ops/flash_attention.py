@@ -1,11 +1,11 @@
 """Flash attention of the port: hand-written CUDA kernels and their plain twins.
 
 Counterpart of ``fedml_tpu/ops/flash_attention.py``.  Each of the four Pallas
-kernels has a CUDA kernel for Hopper (``csrc/flash_fwd.cu``,
-``csrc/flash_bwd.cu``, ``csrc/flash_update.cu``; in bf16 the forward and dK/dV
-run on the tensor cores, ``csrc/flash_fwd_sm90.cu`` and
-``csrc/flash_dkv_sm90.cu``) and, beside it here, a plain PyTorch version of
-the same function that materialises the scores:
+kernels has two CUDA kernels for Hopper, one per input type: in fp32 scalar
+FMAs (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``, ``csrc/flash_update.cu``),
+in bf16 the tensor cores (``csrc/flash_fwd_sm90.cu``, ``csrc/flash_dq_sm90.cu``,
+``csrc/flash_dkv_sm90.cu``, ``csrc/flash_update_sm90.cu``).  Beside them here
+is a plain PyTorch version of the same function that materialises the scores:
 
 =========================  =================================  ==================================
 JAX package (Pallas)       CUDA wrapper                       plain version
@@ -24,10 +24,12 @@ Its backward, as in the JAX package, is no kernel: it recomputes through
 Dispatch is by the tensor's device: a CUDA tensor launches the kernel (or the
 wrapper raises), a CPU tensor takes the plain version.  Nothing falls back.
 Each CUDA wrapper adds one to ``LAUNCHES[kernel]`` for the kernel it launches:
-``flash_fwd_sm90`` and ``flash_dkv_sm90`` count the bf16 tensor-core kernels,
-``flash_fwd`` and ``flash_bwd_dkv`` the fp32 ones.  The bf16 kernels load
-tiles with TMA, which takes a tensor only if its base is 16-byte aligned and
-its (b, l, h) strides are multiples of 8 elements; anything else raises.
+``flash_fwd_sm90``, ``flash_dq_sm90``, ``flash_dkv_sm90`` and
+``flash_update_sm90`` count the bf16 tensor-core kernels, ``flash_fwd``,
+``flash_bwd_dq``, ``flash_bwd_dkv`` and ``flash_shard_update`` the fp32 ones.
+The bf16 kernels load tiles with TMA, which takes a tensor only if its base is
+16-byte aligned and its (b, l, h) strides are multiples of 8 elements;
+anything else raises.
 
 Conventions shared by both routes (those of the JAX kernels): q, k, v, o are
 [B, L, H, D]; scores are scaled by 1/sqrt(D); keys past L and, when causal,
@@ -46,9 +48,10 @@ import torch
 
 #: launches of each CUDA kernel since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_fwd_sm90": 0, "flash_bwd_dq": 0,
-                            "flash_bwd_dkv": 0, "flash_dkv_sm90": 0, "flash_shard_update": 0}
+                            "flash_dq_sm90": 0, "flash_bwd_dkv": 0, "flash_dkv_sm90": 0,
+                            "flash_shard_update": 0, "flash_update_sm90": 0}
 
-KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 KERNEL_HEAD_DIMS = (32, 64)
 _MAX_GRID_Y = 65535
 _TMA_ALIGN_BYTES = 16
@@ -270,6 +273,15 @@ def _check_tma(name: str, *tensors: torch.Tensor) -> None:
                              f"base {t.data_ptr():#x} and strides {t.stride()}")
 
 
+def _check_pairs(name: str, t: torch.Tensor) -> None:
+    """Raise unless the bf16 fold can move the fp32 state two floats at a
+    time: an 8-byte aligned base and even (b, l, h) strides."""
+    if t.data_ptr() % 8 or any(s % 2 for s in tma_strides(t)):
+        raise ValueError(f"{name}: the bf16 fold moves o two floats at a time, which needs an "
+                         f"8-byte aligned base and even strides; got base {t.data_ptr():#x} "
+                         f"and strides {t.stride()}")
+
+
 def _strides(*tensors: torch.Tensor):
     vals = []
     for t in tensors:
@@ -312,19 +324,23 @@ def flash_forward_cuda(q, k, v, causal: bool = True) -> Tuple[torch.Tensor, torc
 
 
 def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool = True) -> torch.Tensor:
-    """K2 on the card: dQ as :func:`flash_bwd_dq_plain`."""
+    """K2 on the card: dQ as :func:`flash_bwd_dq_plain`; bf16 on the tensor
+    cores (``flash_dq_sm90.cu``), fp32 on scalar FMAs."""
     from .build import load
 
     B, L, H, D = _check("flash_bwd_dq", q, k, v, do)
     _check_rows("flash_bwd_dq", q, lse, delta)
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        _check_tma("flash_bwd_dq", q, k, v, do)
     lib = load()
     dq = torch.empty((B, L, H, D), dtype=q.dtype, device=q.device)
     st = _strides(q, k, v, do, dq)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    _launch("flash_bwd_dq", lib.flash_bwd_dq, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    kernel = "flash_dq_sm90" if bf16 else "flash_bwd_dq"
+    _launch(kernel, getattr(lib, kernel), q.data_ptr(), k.data_ptr(), v.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, H, L, D,
-            KERNEL_DTYPES[q.dtype], int(causal), _scale(D), ctypes.cast(st, ctypes.c_void_p),
-            stream)
+            int(causal), _scale(D), ctypes.cast(st, ctypes.c_void_p), stream)
     return dq
 
 
@@ -352,21 +368,27 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool = True):
 
 
 def flash_shard_update_cuda(q, k, v, q_pos, k_pos, m, l, o, causal: bool = True):
-    """K4 on the card: (m, l, o) as :func:`flash_shard_update_plain`."""
+    """K4 on the card: (m, l, o) as :func:`flash_shard_update_plain`; bf16 q,
+    k, v on the tensor cores (``flash_update_sm90.cu``), fp32 on scalar FMAs."""
     from .build import load
 
     B, Lq, H, D, Lk = _check_update("flash_shard_update", q, k, v, q_pos, k_pos, m, l, o)
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        _check_tma("flash_shard_update", q, k, v)
+        _check_pairs("flash_shard_update", o)
     lib = load()
     m_out = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
     l_out = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
     o_out = torch.empty((B, Lq, H, D), dtype=torch.float32, device=q.device)
     st = _strides(q, k, v, o, o_out)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    _launch("flash_shard_update", lib.flash_update, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    kernel, fn = ("flash_update_sm90", lib.flash_update_sm90) if bf16 else \
+        ("flash_shard_update", lib.flash_update)
+    _launch(kernel, fn, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             q_pos.data_ptr(), k_pos.data_ptr(), m.data_ptr(), l.data_ptr(), o.data_ptr(),
             m_out.data_ptr(), l_out.data_ptr(), o_out.data_ptr(), B, H, Lq, Lk, D,
-            KERNEL_DTYPES[q.dtype], int(causal), _scale(D), ctypes.cast(st, ctypes.c_void_p),
-            stream)
+            int(causal), _scale(D), ctypes.cast(st, ctypes.c_void_p), stream)
     return m_out, l_out, o_out
 
 

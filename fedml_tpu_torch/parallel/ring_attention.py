@@ -13,7 +13,8 @@ one.  What is kept is the computation, fold for fold: at ring step r, shard
 ``my`` folds the K/V shard that the ring would have brought it, the one that
 started on shard ``src = (my - r) mod n``.  The ``ppermute`` by +1 a step
 becomes that index, so no shard is copied.  A call makes n * n folds, each one
-launch of K4 (``ops/csrc/flash_update.cu``) on the card.
+launch of K4 on the card (``ops/csrc/flash_update.cu``; in bf16
+``ops/csrc/flash_update_sm90.cu``).
 """
 
 from __future__ import annotations

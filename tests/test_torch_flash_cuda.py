@@ -4,8 +4,9 @@ machine with the card and without JAX, run it without the repo's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_flash_cuda.py
 
-In bf16 the forward and dK/dV are the tensor-core (wgmma, TMA) kernels; the
-edge cases of test_kernels_match_plain cover their 64-row tiles.
+In bf16 every kernel is a tensor-core (wgmma, TMA) kernel; the edge cases of
+test_kernels_match_plain and test_shard_update_kernel_matches_plain cover
+their 64-row tiles.
 Tolerances as chip_smoke.py states them: fp32 forward atol 2e-5 + rtol 1e-5,
 gradients atol 1e-4 + rtol 1e-4 (sums in another order); bf16 O atol 1e-3 +
 rtol 2e-2 and gradients atol 1e-3 + rtol 3e-2 (bf16 rounding of O, P and dS;
@@ -29,6 +30,9 @@ from fedml_tpu_torch.ops import flash_attention as fa
 pytestmark = pytest.mark.cuda
 
 BF16_TOL = {"o": (1e-3, 2e-2), "grad": (1e-3, 3e-2)}
+# the launch counters of K1-K3 by input type
+KERNELS = {torch.float32: {"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"},
+           torch.bfloat16: {"flash_fwd_sm90", "flash_dq_sm90", "flash_dkv_sm90"}}
 
 
 @pytest.fixture
@@ -60,8 +64,7 @@ def test_kernels_match_plain(cuda, dtype, D, causal, L):
     delta = (do.float() * o_ref.float()).sum(-1).permute(0, 2, 1).contiguous()
     dq = fa.flash_bwd_dq_cuda(q, k, v, do, lse_ref, delta, causal)
     dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, do, lse_ref, delta, causal)
-    kernels = ({"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"} if dtype == torch.float32 else
-               {"flash_fwd_sm90", "flash_bwd_dq", "flash_dkv_sm90"})
+    kernels = KERNELS[dtype]
     assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {
         n: int(n in kernels) for n in before}
     dq_r = fa.flash_bwd_dq_plain(q, k, v, do, lse_ref, delta, causal)
@@ -72,20 +75,26 @@ def test_kernels_match_plain(cuda, dtype, D, causal, L):
 
 
 def test_bf16_kernels_reject_what_tma_cannot_load(cuda):
-    """The bf16 forward and dK/dV load tiles with TMA: a head stride that is
-    not a whole 16 bytes, or a base off a 16-byte boundary, raises, and no
-    kernel launches (nothing falls back to another kernel)."""
+    """The bf16 kernels load tiles with TMA: a head stride that is not a whole
+    16 bytes, or a base off a 16-byte boundary, raises, and no kernel
+    launches (nothing falls back to another kernel)."""
     shape = (2, 70, 2, 64)
     good = torch.randn(shape, device=cuda).to(torch.bfloat16)
     odd_stride = torch.zeros(2, 70, 2, 65, dtype=torch.bfloat16, device=cuda)[..., :64]
     odd_base = torch.zeros(good.numel() + 1, dtype=torch.bfloat16, device=cuda)[1:].view(shape)
     lse = torch.zeros(2, 2, 70, device=cuda)
+    pos = torch.arange(70, dtype=torch.int32, device=cuda)
+    o = torch.zeros(shape, device=cuda)
     before = dict(fa.LAUNCHES)
     for bad in (odd_stride, odd_base):
         with pytest.raises(ValueError, match="TMA"):
             fa.flash_forward_cuda(bad, good, good, True)
         with pytest.raises(ValueError, match="TMA"):
+            fa.flash_bwd_dq_cuda(good, good, good, bad, lse, lse, True)
+        with pytest.raises(ValueError, match="TMA"):
             fa.flash_bwd_dkv_cuda(good, good, good, bad, lse, lse, True)
+        with pytest.raises(ValueError, match="TMA"):
+            fa.flash_shard_update_cuda(good, bad, good, pos, pos, lse, lse, o, True)
     assert fa.LAUNCHES == before
 
 
@@ -100,6 +109,42 @@ def _least_atol(got, want, rtol):
 SOUND_DK = "wgmma_rs<D>(dk_acc, df[kk], k_step_mnmajor<D>(desc_mnmajor<D>(q_addr), kk));"
 FAULT_DK = ("wgmma_rs<D>(dk_acc, df[kk], k_step_mnmajor<D>(desc_mnmajor<D>(\n"
             "    kt >= 1 && it >= 1 ? base_u + S::Q + (stage ^ 1) * S::TILE : q_addr), kk));")
+# and in the bf16 dQ kernel: past the first key tile, dS.K reads K from the
+# ring's other stage
+SOUND_DQ = "wgmma_rs<D>(dq_acc, df[kk], k_step_mnmajor<D>(desc_mnmajor<D>(k_addr), kk));"
+FAULT_DQ = ("wgmma_rs<D>(dq_acc, df[kk], k_step_mnmajor<D>(desc_mnmajor<D>(\n"
+            "    kt >= 1 ? base_u + S::K + (stage ^ 1) * S::TILE : k_addr), kk));")
+
+
+def _bench_bf16_inputs(cuda):
+    """chip_smoke.py's bench_bf16 case (B 8, L 1024, H 16, D 64, causal):
+    q, k, v as views of one fused qkv, dO, and the plain forward's LSE and
+    delta."""
+    B, L, H, D = 8, 1024, 16, 64
+    gen = torch.Generator(device=cuda).manual_seed(1234)
+    qkv = (torch.randn(B, L, 3, H, D, generator=gen, device=cuda) * 0.5).to(torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    do = (torch.randn(B, L, H, D, generator=gen, device=cuda) * 0.5).to(torch.bfloat16)
+    o, lse = fa.flash_forward_plain(q, k, v, True)
+    delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
+    return q, k, v, do, lse, delta
+
+
+def _plant_fault(monkeypatch, tmp_path, source, sound, fault):
+    """Build a copy of ``source`` with ``sound`` replaced by ``fault`` and bind
+    it in place of the sound library for the rest of the test."""
+    from fedml_tpu_torch.ops import build
+
+    src = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, src)
+    text = (src / source).read_text()
+    assert text.count(sound) == 1, "the planted fault no longer matches the kernel's source"
+    (src / source).write_text(text.replace(sound, fault))
+    lib = tmp_path / f"lib{source}_fault.so"
+    subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o", str(lib), str(src / source)],
+                   check=True, capture_output=True)
+    builds = dict(build.load().builds, **{source: {"path": str(lib)}})
+    monkeypatch.setattr(build, "_LIBRARY", [build.KernelLibrary(builds)])
 
 
 def test_bf16_dkv_tolerance_fails_a_planted_fault(cuda, tmp_path, monkeypatch):
@@ -108,35 +153,18 @@ def test_bf16_dkv_tolerance_fails_a_planted_fault(cuda, tmp_path, monkeypatch):
     passes the dK/dV kernel and fails a copy of it whose dK is wrong only in
     key tiles past the first, and there only off the diagonal q tile.  Prints
     the least atol each needs."""
-    from fedml_tpu_torch.ops import build
-
-    B, L, H, D = 8, 1024, 16, 64
-    gen = torch.Generator(device=cuda).manual_seed(1234)
-    qkv = (torch.randn(B, L, 3, H, D, generator=gen, device=cuda) * 0.5).to(torch.bfloat16)
-    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-    do = (torch.randn(B, L, H, D, generator=gen, device=cuda) * 0.5).to(torch.bfloat16)
-    o, lse = fa.flash_forward_plain(q, k, v, True)
-    delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
+    q, k, v, do, lse, delta = _bench_bf16_inputs(cuda)
     dk_r, dv_r = fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, True)
     atol, rtol = BF16_TOL["grad"]
     dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, True)
     sound = (_least_atol(dk, dk_r, rtol), _least_atol(dv, dv_r, rtol))
 
-    src = tmp_path / "csrc"
-    shutil.copytree(build.CSRC, src)
-    text = (src / "flash_dkv_sm90.cu").read_text()
-    assert text.count(SOUND_DK) == 1, "the planted fault no longer matches the kernel's source"
-    (src / "flash_dkv_sm90.cu").write_text(text.replace(SOUND_DK, FAULT_DK))
-    lib = tmp_path / "libflash_dkv_sm90_fault.so"
-    subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
-                    str(src / "flash_dkv_sm90.cu")], check=True, capture_output=True)
-    builds = dict(build.load().builds, **{"flash_dkv_sm90.cu": {"path": str(lib)}})
-    monkeypatch.setattr(build, "_LIBRARY", [build.KernelLibrary(builds)])
+    _plant_fault(monkeypatch, tmp_path, "flash_dkv_sm90.cu", SOUND_DK, FAULT_DK)
     dk_f, dv_f = fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, True)
     torch.cuda.synchronize()
     fault = _least_atol(dk_f, dk_r, rtol)
     rms = dk_r.float().square().mean().sqrt().item()
-    print(f"\nbf16 dK/dV at B {B}, L {L}, H {H}, D {D}: rms |dK| {rms:.3e}; least atol "
+    print(f"\nbf16 dK/dV at the bench shape: rms |dK| {rms:.3e}; least atol "
           f"at rtol {rtol}: sound dK {sound[0]:.3e}, dV {sound[1]:.3e}; planted fault dK "
           f"{fault:.3e}, max |err| {(dk_f.float() - dk_r.float()).abs().max().item():.3e}")
     assert max(sound) <= atol
@@ -146,13 +174,38 @@ def test_bf16_dkv_tolerance_fails_a_planted_fault(cuda, tmp_path, monkeypatch):
     assert torch.equal(dv_f, dv)
 
 
-def test_autograd_function_launches_all_three_kernels(cuda):
-    q, k, v = (torch.randn(2, 40, 2, 32, device=cuda, requires_grad=True) for _ in range(3))
+def test_bf16_dq_tolerance_fails_a_planted_fault(cuda, tmp_path, monkeypatch):
+    """At the bench shape the bf16 gradient tolerance passes the dQ kernel
+    and fails a copy of it whose dS.K reads K from the ring's other stage
+    past the first key tile, which leaves q tile 0 (it sees key tile 0 only)
+    exactly as it was.  Prints the least atol each needs."""
+    q, k, v, do, lse, delta = _bench_bf16_inputs(cuda)
+    dq_r = fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, True)
+    atol, rtol = BF16_TOL["grad"]
+    dq = fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, True)
+    sound = _least_atol(dq, dq_r, rtol)
+
+    _plant_fault(monkeypatch, tmp_path, "flash_dq_sm90.cu", SOUND_DQ, FAULT_DQ)
+    dq_f = fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, True)
+    torch.cuda.synchronize()
+    fault = _least_atol(dq_f, dq_r, rtol)
+    rms = dq_r.float().square().mean().sqrt().item()
+    print(f"\nbf16 dQ at the bench shape: rms |dQ| {rms:.3e}; least atol at rtol {rtol}: "
+          f"sound {sound:.3e}; planted fault {fault:.3e}, max |err| "
+          f"{(dq_f.float() - dq_r.float()).abs().max().item():.3e}")
+    assert sound <= atol
+    assert fault > atol
+    assert torch.equal(dq_f[:, :64], dq[:, :64])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_autograd_function_launches_all_three_kernels(cuda, dtype):
+    q, k, v = (torch.randn(2, 40, 2, 32, device=cuda).to(dtype).requires_grad_()
+               for _ in range(3))
     before = dict(fa.LAUNCHES)
-    fa.attention(q, k, v).square().sum().backward()
+    fa.attention(q, k, v).float().square().sum().backward()
     assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {
-        "flash_fwd": 1, "flash_fwd_sm90": 0, "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
-        "flash_dkv_sm90": 0, "flash_shard_update": 0}
+        n: int(n in KERNELS[dtype]) for n in before}
 
 
 def test_unsupported_head_dim_raises(cuda):
@@ -163,15 +216,20 @@ def test_unsupported_head_dim_raises(cuda):
 
 # name: (causal, Lq, Lk, q offset, key positions, carried state).  The ring's
 # three fold kinds (keys before the rows, the diagonal, keys after the rows),
-# a ragged non-causal fold with a padded key tail, and unsorted positions.
+# ragged folds with a padded key tail, non-causal and causal, and unsorted
+# positions: shuffled, and descending, which leaves the first key tiles dead
+# for the first q tile only (the dead-tile skip on positions out of order).
 FOLDS = {
     "past": (True, 128, 128, 128, "range", True),
     "diagonal": (True, 130, 130, 0, "range", False),
     "dead": (True, 128, 128, 0, "after", True),
     "ragged_full": (False, 70, 45, 0, "padded", True),
+    "ragged_causal": (True, 200, 150, 60, "padded", True),
     "shuffled_causal": (True, 96, 100, 40, "shuffled", True),
+    "reversed_causal": (True, 130, 256, 100, "reversed", True),
 }
 FOLD_TOL = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (3e-3, 1e-2)}
+FOLD_KERNELS = {torch.float32: "flash_shard_update", torch.bfloat16: "flash_update_sm90"}
 
 
 def _key_positions(kind, Lk, gen, device):
@@ -182,6 +240,8 @@ def _key_positions(kind, Lk, gen, device):
         return 10_000 + idx
     if kind == "padded":
         return torch.where(idx < Lk - 9, idx, -1)
+    if kind == "reversed":
+        return Lk - 1 - idx
     pos = torch.randperm(Lk, generator=gen, dtype=torch.int32, device=device)
     return torch.where(idx % 7 == 3, -1, pos)
 
@@ -207,9 +267,11 @@ def _fold_case(cuda, dtype, D, name):
 @pytest.mark.parametrize("name", sorted(FOLDS))
 def test_shard_update_kernel_matches_plain(cuda, dtype, D, name):
     args, causal = _fold_case(cuda, dtype, D, name)
-    before = fa.LAUNCHES["flash_shard_update"]
+    kernel = FOLD_KERNELS[dtype]
+    before = dict(fa.LAUNCHES)
     got = fa.flash_shard_update_cuda(*args, causal)
-    assert fa.LAUNCHES["flash_shard_update"] == before + 1
+    assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {
+        n: int(n == kernel) for n in before}
     m_r, l_r, o_r = fa.flash_shard_update_plain(*args, causal)
     m, l, o = got
     assert {t.dtype for t in got} == {torch.float32}
@@ -224,20 +286,50 @@ def test_shard_update_kernel_matches_plain(cuda, dtype, D, name):
         assert torch.equal(m, args[5]) and torch.equal(l, args[6]) and torch.equal(o, args[7])
 
 
-def test_ring_launches_the_fold_n_squared_times_and_matches_flash(cuda):
+@pytest.mark.parametrize("D", [32, 64])
+def test_bf16_dead_fold_passes_the_state_through_bit_for_bit(cuda, D):
+    """A bf16 fold with no live key (every key after the rows, or padding)
+    writes the carried state back bit for bit, every row of it: ragged Lq and
+    Lk, rows still at m = -inf, outputs allocated over NaN."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    Lq, Lk = 100, 70
+    q = torch.randn(2, Lq, 3, D, generator=gen, device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn(2, Lk, 3, D, generator=gen, device=cuda).to(torch.bfloat16)
+            for _ in range(2))
+    q_pos = torch.arange(Lq, dtype=torch.int32, device=cuda)
+    idx = torch.arange(Lk, dtype=torch.int32, device=cuda)
+    k_pos = torch.where(idx % 2 == 0, 1000 + idx, -1)
+    m = torch.randn(2, 3, Lq, generator=gen, device=cuda)
+    l = torch.rand(2, 3, Lq, generator=gen, device=cuda) * 30
+    o = torch.randn(2, Lq, 3, D, generator=gen, device=cuda)
+    m[:, :, ::5], l[:, :, ::5], o[:, ::5] = float("-inf"), 0.0, 0.0  # rows that saw no key
+    blocks = [torch.full_like(t, float("nan")) for t in (m, l, o)]
+    del blocks  # the outputs come from these NaN blocks
+    before = fa.LAUNCHES["flash_update_sm90"]
+    m2, l2, o2 = fa.flash_shard_update_cuda(q, k, v, q_pos, k_pos, m, l, o, True)
+    assert fa.LAUNCHES["flash_update_sm90"] == before + 1
+    assert torch.equal(m2, m) and torch.equal(l2, l) and torch.equal(o2, o)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_launches_the_fold_n_squared_times_and_matches_flash(cuda, dtype):
     from fedml_tpu_torch.parallel import create_mesh, ring_attention
 
     mesh = create_mesh((4,), ("sp",), cuda)
     gen = torch.Generator(device=cuda).manual_seed(2)
-    q, k, v = (torch.randn(2, 256, 2, 64, generator=gen, device=cuda) for _ in range(3))
+    q, k, v = (torch.randn(2, 256, 2, 64, generator=gen, device=cuda).to(dtype)
+               for _ in range(3))
     q.requires_grad_()
+    kernel = FOLD_KERNELS[dtype]
+    tol = (2e-5, 1e-5) if dtype == torch.float32 else BF16_TOL["o"]
     before = dict(fa.LAUNCHES)
     out = ring_attention(q, k, v, mesh)
-    assert fa.LAUNCHES["flash_shard_update"] - before["flash_shard_update"] == 16
-    torch.testing.assert_close(out, fa.flash_forward_plain(q.detach(), k, v, True)[0],
-                               atol=2e-5, rtol=1e-5)
-    out.square().sum().backward()  # the backward recomputes in torch: no launch
-    assert fa.LAUNCHES["flash_shard_update"] - before["flash_shard_update"] == 16
+    assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {
+        n: 16 * (n == kernel) for n in before}
+    torch.testing.assert_close(out.float(), fa.flash_forward_plain(q.detach(), k, v, True)[0]
+                               .float(), atol=tol[0], rtol=tol[1])
+    out.float().square().sum().backward()  # the backward recomputes in torch: no launch
+    assert fa.LAUNCHES[kernel] - before[kernel] == 16
     assert bool(q.grad.isfinite().all())
 
 

@@ -40,13 +40,32 @@ def test_tma_check_takes_fused_views_and_refuses_misaligned_ones():
             fa._check_tma("t", odd_base)
 
 
-def test_cuda_wrappers_refuse_cpu_tensors():
-    q = torch.zeros(1, 8, 1, 32, dtype=torch.bfloat16)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("wrapper", ["flash_forward_cuda", "flash_bwd_dq_cuda",
+                                     "flash_bwd_dkv_cuda", "flash_shard_update_cuda"])
+def test_cuda_wrappers_refuse_cpu_tensors(wrapper, dtype):
+    q = torch.zeros(1, 8, 1, 32, dtype=dtype)
     lse = torch.zeros(1, 1, 8)
+    pos = torch.arange(8, dtype=torch.int32)
+    args = {"flash_forward_cuda": (q, q, q), "flash_bwd_dq_cuda": (q, q, q, q, lse, lse),
+            "flash_bwd_dkv_cuda": (q, q, q, q, lse, lse),
+            "flash_shard_update_cuda": (q, q, q, pos, pos, lse, lse, q.float())}[wrapper]
     with pytest.raises(RuntimeError, match="CUDA"):
-        fa.flash_forward_cuda(q, q, q, True)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        fa.flash_bwd_dkv_cuda(q, q, q, q, lse, lse, True)
+        getattr(fa, wrapper)(*args, True)
+
+
+def test_pair_check_refuses_odd_fold_state():
+    """The bf16 fold moves its fp32 state two floats at a time: an odd head
+    stride or a base off an 8-byte boundary raises; fused and size-1 views
+    pass."""
+    fa._check_pairs("t", torch.zeros(2, 9, 4, 32))
+    fa._check_pairs("t", torch.zeros(1, 9, 1, 32))
+    with pytest.raises(ValueError, match="two floats"):
+        fa._check_pairs("t", torch.zeros(2, 9, 4, 33)[..., :32])
+    flat = torch.zeros(2 * 9 * 4 * 32 + 1)
+    if flat.data_ptr() % 8 == 0:  # the allocator's alignment makes flat[1:] 4 bytes off
+        with pytest.raises(ValueError, match="two floats"):
+            fa._check_pairs("t", flat[1:].view(2, 9, 4, 32))
 
 
 PTXAS_LOG = """\

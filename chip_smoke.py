@@ -9,7 +9,8 @@
    registers and spills of every kernel instantiation are logged: a spill in
    a kernel of NO_SPILL fails the phase.
 2. Kernels: each flash-attention kernel (forward, dQ, dK/dV; in bf16 the
-   tensor-core kernels) against its plain PyTorch version on the same
+   tensor-core kernels; the fp32 forward on the tensor cores in split
+   TF32) against its plain PyTorch version on the same
    inputs, at the slice's shapes (B 32 and, for the eval forward, B 256;
    L 80, H 8, D 32, fp32, causal), a ragged non-causal case (L 50) and the
    TransformerLM bench shape (B 8, L 1024, H 16, D 64) in bf16 and fp32,
@@ -73,9 +74,16 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out", "chip_smoke")
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}  # fp32 outside tensor cores; bf16 dense
+# the least time for a product of the input type: bf16 dense on the tensor
+# cores; fp32-exact products as split TF32, three TF32 products for each fp32
+# one on the tensor cores (495 TFLOP/s / 3), the route of the fp32 forward
+# (csrc/flash_fwd.cu) and of PyTorch's fp32 memory-efficient attention; 67
+# TFLOP/s, fp32 outside the tensor cores, would be the scalar route's
+PEAK_OPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
 # tolerance per dtype: |kernel - plain| <= atol + rtol * |plain|, elementwise.
-# fp32: the two sum in another order (fp32 FMA on both sides, no TF32).
+# fp32: the two sum in another order; the forward's products are split TF32
+# (about 21 bits of each operand; tests/test_torch_split_tf32.py), the other
+# kernels' fp32 FMAs, no TF32 on either side.
 # bf16: outputs are rounded to bf16 (2^-8 relative), and the forward rounds P
 # against its running max where the plain version uses the row max, so one
 # bf16 step either way on the larger entries: rtol takes a few such steps.
@@ -386,6 +394,7 @@ def kernel_phase(fa):
                            library_ms=bwd_ms["efficient"],
                            sdpa_flash_bwd_ms=bwd_ms.get("flash"))
             lib_ms = row["library_ms"]
+            row["over_library"] = None if lib_ms is None else row["ms"] / lib_ms
             log(f"  {case:12s} {row['kernel']:14s} {dtype_name:8s} err {row['max_abs_err']:.3e} "
                 f"(least atol {row['least_atol']:.3e})  kernel {row['ms']:.4f} ms  plain "
                 f"{row['plain_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms ({row['bound_by']})  "

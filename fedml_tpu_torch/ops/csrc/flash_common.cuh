@@ -20,6 +20,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+#include <stdint.h>
 
 namespace flash {
 
@@ -33,6 +34,23 @@ inline Strides strides_at(const long long* s, int i) {
 }
 
 __device__ __forceinline__ bool is_finite(float x) { return fabsf(x) < CUDART_INF_F; }
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Max and sum over the 4 threads of a quad, which share a row of an mma
+// fragment.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
 
 // A key contributes to a query row iff it lies inside the sequence and, when
 // causal, not after the row.

@@ -32,15 +32,10 @@ namespace sm90 {
 constexpr int TILE_ROWS = 64;   // rows of every tile: one wgmma M tile
 constexpr int WG_THREADS = 128;  // one warpgroup
 constexpr int OUT_PAD = 8;       // bf16 elements of padding per staged output row
-constexpr float LOG2E = 1.4426950408889634f;
 
 // ---------------------------------------------------------------------------
 // shared memory, mbarriers, TMA
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // The first 1024-byte boundary at or after p (the dynamic allocation carries
 // 1024 bytes of slack for it).
 __device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
@@ -241,16 +236,6 @@ __device__ __forceinline__ int acc_col(int i) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
   return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Max and sum over the 4 threads of a quad, which share a row.
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // Write a 64 x D fp32 accumulator, row r scaled by mul[r] (r = 0: the thread's

@@ -1,9 +1,11 @@
 """Flash attention of the port: hand-written CUDA kernels and their plain twins.
 
 Counterpart of ``fedml_tpu/ops/flash_attention.py``.  Each of the four Pallas
-kernels has two CUDA kernels for Hopper, one per input type: in fp32 scalar
-FMAs (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``, ``csrc/flash_update.cu``),
-in bf16 the tensor cores (``csrc/flash_fwd_sm90.cu``, ``csrc/flash_dq_sm90.cu``,
+kernels has two CUDA kernels for Hopper, one per input type: in fp32
+(``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``, ``csrc/flash_update.cu``) the
+forward on the tensor cores in split TF32 (three TF32 products per fp32
+product) and the others on scalar FMAs; in bf16 the tensor cores
+(``csrc/flash_fwd_sm90.cu``, ``csrc/flash_dq_sm90.cu``,
 ``csrc/flash_dkv_sm90.cu``, ``csrc/flash_update_sm90.cu``).  Beside them here
 is a plain PyTorch version of the same function that materialises the scores:
 
@@ -27,9 +29,10 @@ Each CUDA wrapper adds one to ``LAUNCHES[kernel]`` for the kernel it launches:
 ``flash_fwd_sm90``, ``flash_dq_sm90``, ``flash_dkv_sm90`` and
 ``flash_update_sm90`` count the bf16 tensor-core kernels, ``flash_fwd``,
 ``flash_bwd_dq``, ``flash_bwd_dkv`` and ``flash_shard_update`` the fp32 ones.
-The bf16 kernels load tiles with TMA, which takes a tensor only if its base is
-16-byte aligned and its (b, l, h) strides are multiples of 8 elements;
-anything else raises.
+The bf16 kernels load tiles with TMA and the fp32 forward with 16-byte
+``cp.async`` copies: each takes a tensor only if its base is 16-byte aligned
+and its (b, l, h) strides are whole 16 bytes (8 bf16 or 4 fp32 elements, so
+the model's fused-qkv views load as they are); anything else raises.
 
 Conventions shared by both routes (those of the JAX kernels): q, k, v, o are
 [B, L, H, D]; scores are scaled by 1/sqrt(D); keys past L and, when causal,
@@ -54,7 +57,7 @@ LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_fwd_sm90": 0, "flash_bwd_dq":
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 KERNEL_HEAD_DIMS = (32, 64)
 _MAX_GRID_Y = 65535
-_TMA_ALIGN_BYTES = 16
+_ALIGN_BYTES = 16  # TMA (bf16 kernels) and cp.async (fp32 forward) copies
 # negative status codes of the tensor-map (TMA) entry points, csrc/flash_sm90.cuh
 _TMA_ERRORS = {-1: "the CUDA driver has no cuTensorMapEncodeTiled",
                -2: "the CUDA driver refused a tensor map for these strides"}
@@ -261,16 +264,22 @@ def tma_strides(t: torch.Tensor) -> Tuple[int, int, int]:
     return sb, sl, sh
 
 
-def _check_tma(name: str, *tensors: torch.Tensor) -> None:
-    """Raise unless TMA can load every tensor: base 16-byte aligned, (b, l, h)
-    strides multiples of 16 bytes (the D stride is 1, checked by _check)."""
+def _check_16b(name: str, why: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor can be loaded 16 bytes at a time: base 16-byte
+    aligned, (b, l, h) strides multiples of 16 bytes (the D stride is 1,
+    checked by _check).  ``why`` names the kernel's copies in the message."""
     for t in tensors:
         elt = t.element_size()
-        if t.data_ptr() % _TMA_ALIGN_BYTES or any(
-                (s * elt) % _TMA_ALIGN_BYTES for s in tma_strides(t)):
-            raise ValueError(f"{name}: the bf16 kernel loads tiles with TMA, which needs a "
-                             f"16-byte aligned base and (b, l, h) strides of whole 16 bytes; got "
-                             f"base {t.data_ptr():#x} and strides {t.stride()}")
+        if t.data_ptr() % _ALIGN_BYTES or any(
+                (s * elt) % _ALIGN_BYTES for s in tma_strides(t)):
+            raise ValueError(f"{name}: {why}, which needs a 16-byte aligned base and (b, l, h) "
+                             f"strides of whole 16 bytes; got base {t.data_ptr():#x} and "
+                             f"strides {t.stride()}")
+
+
+def _check_tma(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless TMA can load every tensor (the bf16 kernels)."""
+    _check_16b(name, "the bf16 kernel loads tiles with TMA", *tensors)
 
 
 def _check_pairs(name: str, t: torch.Tensor) -> None:
@@ -303,14 +312,18 @@ def _scale(D: int) -> float:
 
 
 def flash_forward_cuda(q, k, v, causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1 on the card: (O, LSE) as :func:`flash_forward_plain`; bf16 on the
-    tensor cores (``flash_fwd_sm90.cu``), fp32 on scalar FMAs."""
+    """K1 on the card: (O, LSE) as :func:`flash_forward_plain`, on the tensor
+    cores in both types: bf16 by ``wgmma`` (``flash_fwd_sm90.cu``), fp32 in
+    split TF32 by ``mma.sync`` (``flash_fwd.cu``)."""
     from .build import load
 
     B, L, H, D = _check("flash_fwd", q, k, v)
     bf16 = q.dtype == torch.bfloat16
     if bf16:
         _check_tma("flash_fwd", q, k, v)
+    else:
+        _check_16b("flash_fwd", "the fp32 kernel loads tiles with 16-byte cp.async copies",
+                   q, k, v)
     lib = load()
     o = torch.empty((B, L, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, L), dtype=torch.float32, device=q.device)

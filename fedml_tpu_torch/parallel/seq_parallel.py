@@ -13,8 +13,9 @@ Parameters are a variables dict (name -> tensor), as in the engine.  They are
 applied to a module built on the ``meta`` device with
 ``torch.func.functional_call``, so a call copies no weights and gradients
 reach the dict's tensors.  The loss is the mean next-token cross-entropy over
-all tokens, computed in fp32 from the logits (the JAX package's runs in the
-logits' dtype, bf16 in bf16 compute).
+all tokens, taken in the logits' dtype (bf16 in bf16 compute) as the JAX
+package's ``optax.softmax_cross_entropy_with_integer_labels`` and ``jnp.sum``
+take it; only the division by the token count is fp32.
 """
 
 from __future__ import annotations
@@ -23,7 +24,6 @@ from functools import partial
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch.func import functional_call
 
 from ..device import get_device
@@ -81,17 +81,30 @@ def sp_init(cfg: TransformerConfig, seed: int = 0,
     return init_variables(model, device if device is not None else get_device(), seed)
 
 
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-token cross-entropy in the logits' dtype, as
+    ``optax.softmax_cross_entropy_with_integer_labels`` computes it: the log
+    of the summed exponentials of the max-shifted logits, plus the max, minus
+    the label's logit."""
+    amax = logits.detach().amax(dim=-1, keepdim=True)
+    amax = torch.where(amax.isfinite(), amax, torch.zeros_like(amax))
+    lse = torch.log(torch.exp(logits - amax).sum(dim=-1)) + amax.squeeze(-1)
+    return lse - logits.gather(-1, labels.long().unsqueeze(-1)).squeeze(-1)
+
+
 def sp_loss_fn(cfg: TransformerConfig, mesh: Mesh, axis_name: str = "sp"):
     """``loss(params, tokens, targets) -> scalar``: the mean next-token
     cross-entropy over all B * L tokens of the sequence-parallel forward,
-    differentiable in ``params``."""
+    differentiable in ``params``.  Each shard's sum is taken in the logits'
+    dtype, then the shards' sums (the JAX package's ``psum``); the mean is
+    that total over the fp32 token count, as in the JAX package."""
     model = make_sp_model(cfg, mesh, axis_name)
     n = mesh.shape[axis_name]
 
     def loss(params: Variables, tokens: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
         logits = _sharded_logits(model, params, tokens, mesh, axis_name)
-        per = F.cross_entropy(logits.float().flatten(0, 1), _shard(targets, n).flatten().long(),
-                              reduction="none")
-        return per.sum() / per.numel()
+        per = softmax_cross_entropy(logits, _shard(targets, n))  # [n * B, L / n]
+        total = per.unflatten(0, (n, -1)).flatten(1).sum(dim=1).sum()
+        return total.float() / float(per.numel())
 
     return loss

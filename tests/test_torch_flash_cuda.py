@@ -7,6 +7,9 @@ machine with the card and without JAX, run it without the repo's conftest:
 In bf16 every kernel is a tensor-core (wgmma, TMA) kernel; the edge cases of
 test_kernels_match_plain and test_shard_update_kernel_matches_plain cover
 their 64-row tiles.
+The fp32 forward is a split-TF32 kernel (three TF32 products per fp32
+product on the tensor cores); test_fp32_fwd_tolerance_fails_a_planted_fault
+shows that one TF32 product fails its tolerance.
 Tolerances as chip_smoke.py states them: fp32 forward atol 2e-5 + rtol 1e-5,
 gradients atol 1e-4 + rtol 1e-4 (sums in another order); bf16 O atol 1e-3 +
 rtol 2e-2 and gradients atol 1e-3 + rtol 3e-2 (bf16 rounding of O, P and dS;
@@ -42,14 +45,16 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("L", [1, 63, 64, 65, 127, 129, 1000])
+@pytest.mark.parametrize("L", [1, 15, 16, 17, 63, 64, 65, 80, 127, 129, 1000])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("D", [32, 64])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernels_match_plain(cuda, dtype, D, causal, L):
-    """K1-K3 against their plain versions over the tile edges (one row, a tile
-    short of, at, and past 64 and 128 rows, a ragged long run), with q, k and
-    v as views of one fused qkv, as the model gives them."""
+    """K1-K3 against their plain versions over the tile edges (one row; a
+    16-row warp tile and 8-key step of the fp32 forward short of, at and past
+    16; a tile short of, at, and past 64 and 128 rows; the slice's 80; a
+    ragged long run), with q, k and v as views of one fused qkv, as the model
+    gives them."""
     fwd_tol, grad_tol = ((2e-5, 1e-5), (1e-4, 1e-4)) if dtype == torch.float32 else \
         (BF16_TOL["o"], BF16_TOL["grad"])
     gen = torch.Generator(device=cuda).manual_seed(0)
@@ -98,6 +103,26 @@ def test_bf16_kernels_reject_what_tma_cannot_load(cuda):
     assert fa.LAUNCHES == before
 
 
+def test_fp32_forward_rejects_what_cp_async_cannot_load(cuda):
+    """The fp32 forward loads tiles with 16-byte cp.async copies: a head
+    stride that is not a whole 16 bytes, or a base off a 16-byte boundary,
+    raises, and no kernel launches; a fused-qkv view (rows of D * 4 bytes)
+    loads as it is."""
+    shape = (2, 70, 2, 64)
+    good = torch.randn(shape, device=cuda)
+    odd_stride = torch.zeros(2, 70, 2, 65, device=cuda)[..., :64]
+    odd_base = torch.zeros(good.numel() + 1, device=cuda)[1:].view(shape)
+    before = dict(fa.LAUNCHES)
+    for bad in (odd_stride, odd_base):
+        for args in ((bad, good, good), (good, bad, good), (good, good, bad)):
+            with pytest.raises(ValueError, match="cp.async"):
+                fa.flash_forward_cuda(*args, True)
+    assert fa.LAUNCHES == before
+    qkv = torch.randn(2, 70, 3, 2, 64, device=cuda)
+    fa.flash_forward_cuda(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], True)
+    assert fa.LAUNCHES["flash_fwd"] == before["flash_fwd"] + 1
+
+
 def _least_atol(got, want, rtol):
     """The least atol with which |got - want| <= atol + rtol * |want| holds."""
     err = (got.float() - want.float()).abs() - rtol * want.float().abs()
@@ -109,11 +134,41 @@ def _least_atol(got, want, rtol):
 SOUND_DK = "wgmma_rs<D>(dk_acc, df[kk], k_step_mnmajor<D>(desc_mnmajor<D>(q_addr), kk));"
 FAULT_DK = ("wgmma_rs<D>(dk_acc, df[kk], k_step_mnmajor<D>(desc_mnmajor<D>(\n"
             "    kt >= 1 && it >= 1 ? base_u + S::Q + (stage ^ 1) * S::TILE : q_addr), kk));")
+# in the fp32 forward: the two correction products of split TF32 removed,
+# which leaves one TF32 product (big . big) for each fp32 product
+SOUND_FWD = ("  mma_tf32(d, a_small, b_big0, b_big1);\n"
+             "  mma_tf32(d, a_big, b_small0, b_small1);\n")
+FAULT_FWD = ""
 # and in the bf16 dQ kernel: past the first key tile, dS.K reads K from the
 # ring's other stage
 SOUND_DQ = "wgmma_rs<D>(dq_acc, df[kk], k_step_mnmajor<D>(desc_mnmajor<D>(k_addr), kk));"
 FAULT_DQ = ("wgmma_rs<D>(dq_acc, df[kk], k_step_mnmajor<D>(desc_mnmajor<D>(\n"
             "    kt >= 1 ? base_u + S::K + (stage ^ 1) * S::TILE : k_addr), kk));")
+
+
+def test_fp32_fwd_tolerance_fails_a_planted_fault(cuda, tmp_path, monkeypatch):
+    """At the slice's shape (B 32, L 80, H 8, D 32, causal; the inputs of
+    chip_smoke.py's slice_train case) the fp32 O tolerance (atol 2e-5 +
+    rtol 1e-5) passes the split-TF32 forward and fails a copy of it that
+    takes one TF32 product per fp32 product (the two correction products
+    removed).  Prints the least atol each needs."""
+    gen = torch.Generator(device=cuda).manual_seed(1234)
+    qkv = torch.randn(32, 80, 3, 8, 32, generator=gen, device=cuda) * 0.5
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    o_r, lse_r = fa.flash_forward_plain(q, k, v, True)
+    atol, rtol = 2e-5, 1e-5
+    o, lse = fa.flash_forward_cuda(q, k, v, True)
+    sound = _least_atol(o, o_r, rtol)
+
+    _plant_fault(monkeypatch, tmp_path, "flash_fwd.cu", SOUND_FWD, FAULT_FWD)
+    o_f, _ = fa.flash_forward_cuda(q, k, v, True)
+    torch.cuda.synchronize()
+    fault = _least_atol(o_f, o_r, rtol)
+    print(f"\nfp32 forward at the slice shape: least atol at rtol {rtol}: split TF32 "
+          f"{sound:.3e}, one TF32 product {fault:.3e}")
+    assert sound <= atol
+    torch.testing.assert_close(lse, lse_r, atol=1e-5, rtol=1e-6)
+    assert fault > atol
 
 
 def _bench_bf16_inputs(cuda):

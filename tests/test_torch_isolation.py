@@ -41,6 +41,7 @@ SLICE_MODULES = [
     "fedml_tpu_torch.models.convert",
     "fedml_tpu_torch.ops.build",
     "fedml_tpu_torch.ops.flash_attention",
+    "fedml_tpu_torch.ops.variants",
     "fedml_tpu_torch.parallel",
     "fedml_tpu_torch.parallel.mesh",
     "fedml_tpu_torch.parallel.ring_attention",

@@ -209,11 +209,18 @@ CFG = dict(vocab_size=128, d_model=64, n_heads=4, n_layers=2, d_ff=128)
 
 
 @pytest.fixture(scope="module")
-def sp_pair(jax_mesh):
+def sp_variables():
+    """The flax weights of the sp tests (fp32 parameters in either compute
+    dtype)."""
+    return jsp.sp_init(JCfg(max_seq_len=64, **CFG), seed=0)
+
+
+@pytest.fixture(scope="module")
+def sp_pair(jax_mesh, sp_variables):
     """JAX sp logits, loss and parameter gradients for one set of flax
     weights and tokens, and the port's parameters transplanted from them."""
     jcfg = JCfg(max_seq_len=64, **CFG)
-    variables = jsp.sp_init(jcfg, seed=0)
+    variables = sp_variables
     rs = np.random.RandomState(1)
     tokens = rs.randint(0, CFG["vocab_size"], size=(2, 64)).astype(np.int32)
     targets = np.roll(tokens, -1, axis=1)
@@ -245,6 +252,30 @@ def test_sp_loss_and_gradients_match_jax(sp_pair, mesh):
     assert sorted(params) == sorted(grads_j)
     for name, p in params.items():
         np.testing.assert_allclose(p.grad.numpy(), grads_j[name], atol=1e-4, err_msg=name)
+
+
+def test_sp_loss_matches_jax_in_bf16(sp_pair, sp_variables, jax_mesh, mesh):
+    """In bf16 compute the per-token cross-entropy and each shard's sum are
+    bf16, as optax's and jnp.sum's are in the JAX package, and only the mean
+    is fp32.  So the loss times the token count is a bf16 value (a loss
+    taken in fp32 is not), and it is held to the JAX sp_loss_fn on the same
+    weights within one bf16 step of that total over the count (2^-7 of
+    the total's leading power of two): the two forwards round their bf16
+    activations in other places."""
+    cfg, params, tokens, targets, _, _, _ = sp_pair
+    jcfg = JCfg(max_seq_len=64, dtype=jnp.bfloat16, **CFG)
+    loss_j = float(jax.jit(jsp.sp_loss_fn(jcfg, jax_mesh))(
+        sp_variables, jnp.asarray(tokens), jnp.asarray(targets)))
+    bcfg = TransformerConfig(dtype=torch.bfloat16, **CFG)
+    tok, tgt = torch.from_numpy(tokens), torch.from_numpy(targets)
+    with torch.no_grad():
+        per = psp.softmax_cross_entropy(psp.sp_apply(bcfg, params, tok, mesh), tgt)
+        loss = psp.sp_loss_fn(bcfg, mesh)(params, tok, tgt)
+    assert per.dtype == torch.bfloat16 and loss.dtype == torch.float32
+    total = float(loss) * tokens.size
+    assert float(torch.tensor(total).bfloat16()) == total
+    step = 2.0 ** (np.floor(np.log2(total)) - 7)
+    assert abs(float(loss) - loss_j) <= step / tokens.size
 
 
 def test_sp_training_steps_decrease_loss(sp_pair, mesh):

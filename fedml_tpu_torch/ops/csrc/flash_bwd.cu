@@ -1,4 +1,5 @@
-// Flash-attention backward for Hopper (sm_90a) in fp32: dQ, and dK with dV.
+// Flash-attention backward for Hopper (sm_90a) in fp32: dQ, and dK with dV,
+// every product on the tensor cores in split TF32.
 //
 // Replaces: fedml_tpu/ops/flash_attention.py:_flash_bwd_dq_kernel and
 // fedml_tpu/ops/flash_attention.py:_flash_bwd_dkv_kernel (the two Pallas TPU
@@ -10,219 +11,405 @@
 // package.
 //   dQ = sum over keys of dS . K
 //   dV = sum over queries of P^T . dO,  dK = sum over queries of dS^T . Q
+// Two kernels and no atomics, as the JAX package has two pallas_calls: no two
+// blocks write the same row.
 //
-// What bounds them on an H100 (3.35 TB/s, 67 TFLOP/s fp32 outside the tensor
-// cores):
-// - the slice's shape (B 32, L 80, H 8, D 32, causal): dQ moves 13.3 MB for
-//   0.16 GFLOP, dK/dV 15.9 MB for 0.21 GFLOP, so bytes: 4 and 5 us;
-// - L 1024 (B 8, H 16, D 64, causal): dQ does 25.8 GFLOP and dK/dV 34.4
-//   GFLOP, 385 and 513 us at the fp32 rate against 50 and 60 us of bytes, so
-//   operations.
+// Products: split TF32 on mma.sync m16n8k8 (flash_tf32.cuh, the forward's
+// split): three TF32 products per fp32 product, fp32 sums.
 //
-// Design: dQ runs one block per (64-row query tile, b*h) with two threads per
-// query row, each holding half of the row's q, dO and fp32 dQ in registers
-// (columns interleaved in runs of 4, so a thread reads a staged key row 16
-// bytes at a time), and loops over 16-key tiles from key 0 to the tile's
-// causal end.  dK/dV runs one block per (64-key tile, b*h) with two threads
-// per key, each holding half of the key's dK and dV rows (the even or the odd
-// elements), and loops over 16-row query tiles from the first tile a causal
-// key can see to L.  Half rows keep ptxas from spilling at D 64.  A pair
-// splits each dot product (q.k and dO.v) and joins the halves with one
-// shuffle.  Each loop inside a block replaces a
-// sequential grid axis of the TPU kernel, and no two blocks write the same
-// row, so no atomics are needed.  Products are scalar fp32 FMAs, never TF32.
+// What bounds them on an H100 (3.35 TB/s; fp32-exact products at the 3xTF32
+// rate, 495 / 3 = 165 TFLOP/s):
+// - slice_train (B 32, L 80, H 8, D 32, causal): dQ moves 13.3 MB for 0.16
+//   GFLOP, dK/dV 15.9 MB for 0.21 GFLOP, so bytes: 4.0 and 4.7 us;
+// - bench_fp32 (B 8, L 1024, H 16, D 64, causal): dQ does 25.8 GFLOP and
+//   dK/dV 34.4 GFLOP, 156 and 208 us, against 50 and 60 us of bytes, so
+//   operations.  As in the forward, each mma.sync comes with the splits of
+//   its B operand and two shared-memory loads, so a warp issues about as
+//   many instructions as its products take tensor-core clocks.
+//
+// Design, dQ (flash_bwd_dq_kernel), the forward's shape: a warp owns 16
+// query rows and a block 4 warps (64 rows) of one (b, h); blocks run the
+// heaviest causal q tile first.  Q and dO stay in shared memory, read as A
+// fragments and split per 8-deep step (held in registers, they took ptxas to
+// 245 registers at D 64, and K3 to a spill), each row's LSE and delta in
+// registers.  K and V tiles of 32 keys stream through a 2-stage ring of
+// 16-byte cp.async copies (64-key tiles at D 32 made slice_train's dQ 1.35x
+// slower: ops/variants.py, set fp32_bwd).  Per tile a warp forms
+// S = Q.K^T and dP = dO.V^T (16 x 32 accumulators), P and dS in place
+// (block_grads), and dQ += dS.K with dS taken straight from the accumulator
+// as the A operand, the keys in the permuted order (a_from_acc).
+//
+// Design, dK/dV (flash_bwd_dkv_kernel), the transposed products, so that keys
+// are the rows of every accumulator: a warp owns 16 keys and a block 4 warps
+// (64 keys); blocks run the heaviest causal key tile (the first) first.  K
+// and V stay in shared memory, read as dQ reads Q and dO.  Q, dO, LSE and
+// delta tiles of 32 queries stream through the ring, from the block's first
+// key on when causal.  Per tile a warp forms S^T = K.Q^T and dP^T = V.dO^T
+// (16 x 32), P^T and dS^T in place, and dV += P^T.dO, dK += dS^T.Q with P^T
+// and dS^T as the A operands.
+//
+// Both: rows are padded to D + 4 floats, which keeps every fragment load
+// free of bank conflicts both ways a streamed tile is read (along D as the
+// B operand of S, along rows as the B operand of the gradient's product:
+// banks 4g + t and 8t + g).  Only a tile that holds the causal diagonal or
+// the ragged edge tests liveness, per 8-wide column and per element; a warp
+// skips the columns it cannot see, and a warp whose rows all lie past L only
+// feeds the ring.  Gradients are written from the fragments, 8 bytes a
+// thread.  The wrapper raises on views whose base or (b, l, h) strides are
+// not 16-byte aligned.
 
-#include "flash_common.cuh"
+#include "flash_tf32.cuh"
 
 namespace flash {
+namespace tf32 {
 
-constexpr int DQ_BQ = 64;              // query rows per dQ block
-constexpr int DQ_THREADS = 2 * DQ_BQ;  // two threads per row
-constexpr int DQ_BK = 16;              // keys staged per dQ step
-constexpr int DKV_BK = 64;            // keys per dK/dV block
-constexpr int DKV_THREADS = 2 * DKV_BK;  // two threads per key
-constexpr int DKV_BQ = 16;            // query rows staged per dK/dV step
+constexpr int ROWS = 16 * WARPS;  // rows each block owns: queries (dQ) or keys (dK/dV)
 
-// Column of element i of a dQ thread's half row: the pair's halves interleave
-// in runs of 4 (half 0 holds columns 0-3, 8-11, ...; half 1 holds 4-7, 12-15,
-// ...), so each thread reads a key row 16 bytes at a time and the pair's two
-// reads fall in different banks.
-__device__ __forceinline__ int dq_col(int i, int half) {
-  return 8 * (i / 4) + 4 * half + i % 4;
+// Shared memory of both kernels: the block's own rows of two tensors (q and
+// dO, or k and v), then the ring of streamed tiles of N rows of two tensors
+// (k and v, or q and dO) and, for dK/dV, of the streamed rows' lse and delta.
+template <int D>
+struct BwdTile {
+  static constexpr int N = 32;                 // rows a streamed tile
+  static constexpr int LD = D + 4;             // row pitch in floats
+  static constexpr int OWN0 = 0;               // float offsets
+  static constexpr int OWN1 = ROWS * LD;
+  static constexpr int RING0 = 2 * ROWS * LD;        // stage s at RING0 + s * N * LD
+  static constexpr int RING1 = RING0 + STAGES * N * LD;
+  static constexpr int LSE = RING1 + STAGES * N * LD;  // stage s at LSE + s * N
+  static constexpr int DELTA = LSE + STAGES * N;
+  static constexpr int FLOATS_DQ = LSE;
+  static constexpr int FLOATS_DKV = DELTA + STAGES * N;
+};
+
+// The A fragment of 8-deep step kk of a warp's 16 rows, read from shared
+// memory (row 0 at r, LD floats apart), standard order.
+template <int LD>
+__device__ __forceinline__ void a_frag(const float* r, int g, int t, int kk, float (&a)[4]) {
+  r += g * LD + 8 * kk + t;
+  a[0] = r[0];
+  a[1] = r[8 * LD];
+  a[2] = r[4];
+  a[3] = r[8 * LD + 4];
+}
+
+// Write a warp's 16 x D accumulator to rows row0 + g and row0 + g + 8 of one
+// (b, h) slice, skipping rows at or past L.
+template <int D>
+__device__ __forceinline__ void store_acc(float* __restrict__ dst, Strides s, int b, int h,
+                                          int row0, int L, int g, int t,
+                                          const float (&acc)[D / 8][4]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    if (row < L) {
+      float* out = dst + (long long)b * s.b + (long long)row * s.l + (long long)h * s.h + 2 * t;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<float2*>(out + 8 * j) = make_float2(acc[j][2 * r], acc[j][2 * r + 1]);
+      }
+    }
+  }
+}
+
+// s += A . X^T and dp += A2 . Y^T over a streamed tile's 8-row column tiles
+// (rows of X and Y at xs and ys, LD apart), for the columns `want` admits:
+// the two score products of a tile, depth outer so that the column tiles'
+// independent sums interleave.  The warp's own rows of A and A2 (at a_rows,
+// a2_rows) are read and split per step: held in registers, split or not,
+// they would leave too few for the accumulators at D 64.
+template <int D, int LD, int NT, bool ALL, class Want>
+__device__ __forceinline__ void score_products(const float* a_rows, const float* a2_rows,
+                                               const float* xs, const float* ys, int g, int t,
+                                               Want want, float (&s)[NT][4],
+                                               float (&dp)[NT][4]) {
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    float a[4], a2[4];
+    uint32_t ab[4], as[4], a2b[4], a2s[4];
+    a_frag<LD>(a_rows, g, t, kk, a);
+    a_frag<LD>(a2_rows, g, t, kk, a2);
+    split4(a, ab, as);
+    split4(a2, a2b, a2s);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (ALL || want(j)) {
+        const float* xr = xs + (8 * j + g) * LD + 8 * kk + t;
+        const float* yr = ys + (8 * j + g) * LD + 8 * kk + t;
+        mma_3xtf32(s[j], ab, as, xr[0], xr[4]);
+        mma_3xtf32(dp[j], a2b, a2s, yr[0], yr[4]);
+      }
+    }
+  }
+}
+
+// acc += P . X over the 8-row steps `want` admits: P (16 x 8 NT, an
+// accumulator) as the A operand in the permuted order, X's rows at xs (LD
+// apart) as the B operand, rows 2t and 2t + 1 of each step.
+template <int D, int LD, int NT, bool ALL, class Want>
+__device__ __forceinline__ void grad_product(const float (&p)[NT][4], const float* xs, int g,
+                                             int t, Want want, float (&acc)[D / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < NT; ++kk) {
+    if (ALL || want(kk)) {
+      float a[4];
+      uint32_t ab[4], as[4];
+      a_from_acc(p[kk], a);
+      split4(a, ab, as);
+      const float* xr = xs + (8 * kk + 2 * t) * LD + g;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) mma_3xtf32(acc[j], ab, as, xr[8 * j], xr[LD + 8 * j]);
+    }
+  }
 }
 
 template <int D>
-__global__ void __launch_bounds__(DQ_THREADS)
+__global__ void __launch_bounds__(THREADS)
     flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const float* __restrict__ dout,
                         const float* __restrict__ lse, const float* __restrict__ delta,
                         float* __restrict__ dq, int H, int L, Strides sq, Strides sk, Strides sv,
                         Strides sdo, Strides sdq, int causal, float scale) {
-  constexpr int HALF = D / 2;  // elements of a row held by each thread of a pair
-  __shared__ float qs[DQ_BQ][D + 1];  // q, then dQ, staged for coalesced rows
-  __shared__ float dos[DQ_BQ][D + 1];
-  __shared__ __align__(16) float ks[DQ_BK][D];
-  __shared__ __align__(16) float vs[DQ_BK][D];
+  using T = BwdTile<D>;
+  constexpr int BK = T::N;
+  constexpr int LD = T::LD;
+  constexpr int NT = BK / 8;  // 8-key column tiles of S
+  constexpr int KD = D / 8;   // 8-deep steps of S; 8-column tiles of dQ
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
 
-  const int tid = threadIdx.x;
-  const int row = tid >> 1;  // this thread's query row in the tile
-  const int half = tid & 1;  // and its half of the row (dq_col)
-  const int q0 = blockIdx.x * DQ_BQ;
-  const int bh = blockIdx.y;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh - b * H;
-  const int q_pos = q0 + row;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * ROWS;  // the heaviest causal q tile first
+  const int r0 = q0 + 16 * warp;                       // this warp's first row
+  const bool live = r0 < L;
+  // keys this warp needs, and the block's K/V tiles
+  const int k_end = causal ? min(L, r0 + 16) : L;
+  const int n_kt = ((causal ? min(L, q0 + ROWS) : L) + BK - 1) / BK;
 
-  load_rows<D, DQ_BQ>(&qs[0][0], D + 1, q, sq, b, h, q0, L, tid, DQ_THREADS);
-  load_rows<D, DQ_BQ>(&dos[0][0], D + 1, dout, sdo, b, h, q0, L, tid, DQ_THREADS);
-  const float lse_r = q_pos < L ? lse[(long long)bh * L + q_pos] : -CUDART_INF_F;
-  const float delta_r = q_pos < L ? delta[(long long)bh * L + q_pos] : 0.f;
-  __syncthreads();
-  float qr[HALF], dor[HALF], acc[HALF];  // this thread's half of q, dO and dQ
+  load_tile<D, ROWS>(smem + T::OWN0, LD, q, sq, b, h, q0, L);
+  load_tile<D, ROWS>(smem + T::OWN1, LD, dout, sdo, b, h, q0, L);
+  cp_async_commit();
+  load_tile<D, BK>(smem + T::RING0, LD, k, sk, b, h, 0, L);
+  load_tile<D, BK>(smem + T::RING1, LD, v, sv, b, h, 0, L);
+  cp_async_commit();
+  float lse_r[2], delta_r[2];  // rows r0 + g and r0 + g + 8; -inf LSE past L gives P = 0
 #pragma unroll
-  for (int i = 0; i < HALF; ++i) {
-    qr[i] = qs[row][dq_col(i, half)];
-    dor[i] = dos[row][dq_col(i, half)];
-    acc[i] = 0.f;
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + g + 8 * r;
+    lse_r[r] = row < L ? lse[(long long)bh * L + row] : -CUDART_INF_F;
+    delta_r[r] = row < L ? delta[(long long)bh * L + row] : 0.f;
+  }
+  cp_async_wait<1>();  // Q and dO have landed (read by every tile's products)
+  __syncthreads();
+
+  const float* qa = smem + T::OWN0 + 16 * warp * LD;  // this warp's rows of q and dO
+  const float* da = smem + T::OWN1 + 16 * warp * LD;
+  float acc[KD][4];
+#pragma unroll
+  for (int j = 0; j < KD; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
   }
 
-  const int k_end = causal ? min(L, q0 + DQ_BQ) : L;
-  for (int k0 = 0; k0 < k_end; k0 += DQ_BK) {
-    __syncthreads();
-    load_rows<D, DQ_BK>(&ks[0][0], D, k, sk, b, h, k0, L, tid, DQ_THREADS);
-    load_rows<D, DQ_BK>(&vs[0][0], D, v, sv, b, h, k0, L, tid, DQ_THREADS);
-    __syncthreads();
-#pragma unroll 1
-    for (int j = 0; j < DQ_BK; ++j) {
-      const float4* kr = reinterpret_cast<const float4*>(&ks[j][4 * half]);
-      const float4* vr = reinterpret_cast<const float4*>(&vs[j][4 * half]);
-      float s = 0.f;
-      float dp = 0.f;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int stage = kt % STAGES;
+    if (kt + 1 < n_kt) {  // the next tile's copies overlap this tile's products
+      const int nxt = (kt + 1) % STAGES;
+      load_tile<D, BK>(smem + T::RING0 + nxt * BK * LD, LD, k, sk, b, h, (kt + 1) * BK, L);
+      load_tile<D, BK>(smem + T::RING1 + nxt * BK * LD, LD, v, sv, b, h, (kt + 1) * BK, L);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile kt has landed for every thread
+
+    const int k0 = kt * BK;
+    if (live && k0 < k_end) {
+      const float* ks = smem + T::RING0 + stage * BK * LD;
+      const float* vs = smem + T::RING1 + stage * BK * LD;
+      // only the tile holding this warp's diagonal or the ragged edge tests
+      const bool masked = (causal && k0 + BK - 1 > r0) || k0 + BK > L;
+      const auto want = [&](int j) { return k0 + 8 * j < k_end; };
+      float s[NT][4], dp[NT][4];
 #pragma unroll
-      for (int i = 0; i < HALF; i += 4) {
-        const float4 kk = kr[i / 2];  // columns dq_col(i .. i + 3, half)
-        const float4 vv = vr[i / 2];
-        s = fmaf(qr[i], kk.x, s);
-        s = fmaf(qr[i + 1], kk.y, s);
-        s = fmaf(qr[i + 2], kk.z, s);
-        s = fmaf(qr[i + 3], kk.w, s);
-        dp = fmaf(dor[i], vv.x, dp);
-        dp = fmaf(dor[i + 1], vv.y, dp);
-        dp = fmaf(dor[i + 2], vv.z, dp);
-        dp = fmaf(dor[i + 3], vv.w, dp);
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
       }
-      s += __shfl_xor_sync(0xffffffffu, s, 1);  // the pair's two halves
-      dp += __shfl_xor_sync(0xffffffffu, dp, 1);
-      float p, ds;
-      block_grads(s * scale, dp, lse_r, delta_r, key_live(q_pos, k0 + j, L, causal), scale, p,
-                  ds);
+      if (masked) {
+        score_products<D, LD, NT, false>(qa, da, ks, vs, g, t, want, s, dp);
+      } else {
+        score_products<D, LD, NT, true>(qa, da, ks, vs, g, t, want, s, dp);
+      }
+      // dS in place of S
 #pragma unroll
-      for (int i = 0; i < HALF; i += 4) {
-        const float4 kk = kr[i / 2];
-        acc[i] = fmaf(ds, kk.x, acc[i]);
-        acc[i + 1] = fmaf(ds, kk.y, acc[i + 1]);
-        acc[i + 2] = fmaf(ds, kk.z, acc[i + 2]);
-        acc[i + 3] = fmaf(ds, kk.w, acc[i + 3]);
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + 8 * j + 2 * t + (e & 1);
+          const int row = r0 + g + 8 * (e >> 1);
+          const bool on = !masked || (want(j) && key_live(row, key, L, causal));
+          float p;
+          block_grads(s[j][e] * scale, dp[j][e], lse_r[e >> 1], delta_r[e >> 1], on, scale, p,
+                      s[j][e]);
+        }
+      }
+      if (masked) {
+        grad_product<D, LD, NT, false>(s, ks, g, t, want, acc);
+      } else {
+        grad_product<D, LD, NT, true>(s, ks, g, t, want, acc);
       }
     }
+    __syncthreads();  // every warp is done with this stage before it is refilled
   }
 
-  __syncthreads();  // each pair overwrites only its own q row
-#pragma unroll
-  for (int i = 0; i < HALF; ++i) qs[row][dq_col(i, half)] = acc[i];
-  __syncthreads();
-  store_rows<D, DQ_BQ>(dq, sdq, &qs[0][0], D + 1, b, h, q0, L, tid, DQ_THREADS);
+  if (live) store_acc<D>(dq, sdq, b, h, r0, L, g, t, acc);
 }
 
 template <int D>
-__global__ void __launch_bounds__(DKV_THREADS)
+__global__ void __launch_bounds__(THREADS)
     flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, const float* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ delta,
                          float* __restrict__ dk, float* __restrict__ dv, int H, int L,
                          Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdk,
                          Strides sdv, int causal, float scale) {
-  constexpr int HALF = D / 2;  // elements of a row held by each thread of a pair
-  // pitch D + 2: the 16 pairs of a warp read 32 distinct banks
-  __shared__ float ks[DKV_BK][D + 2];
-  __shared__ float vs[DKV_BK][D + 2];
-  __shared__ float qs[DKV_BQ][D];
-  __shared__ float dos[DKV_BQ][D];
-  __shared__ float lses[DKV_BQ];
-  __shared__ float deltas[DKV_BQ];
+  using T = BwdTile<D>;
+  constexpr int BQ = T::N;
+  constexpr int LD = T::LD;
+  constexpr int NT = BQ / 8;  // 8-query column tiles of S^T
+  constexpr int KD = D / 8;   // 8-deep steps of S^T; 8-column tiles of dK and dV
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
 
-  const int tid = threadIdx.x;
-  const int key = tid >> 1;   // this thread's key in the tile
-  const int half = tid & 1;   // and its elements of the row: half, half + 2, ...
-  const int k0 = blockIdx.x * DKV_BK;
-  const int bh = blockIdx.y;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh - b * H;
-  const int k_pos = k0 + key;
+  const int k0 = blockIdx.y * ROWS;  // key tile 0, the heaviest when causal, first
+  const int c0 = k0 + 16 * warp;     // this warp's first key
+  const bool live = c0 < L;
+  // causal: a query before the block's first key sees none of its keys
+  const int q_begin = causal ? k0 : 0;
+  const int n_qt = (L - q_begin + BQ - 1) / BQ;
+  const float* lse_bh = lse + (long long)bh * L;
+  const float* delta_bh = delta + (long long)bh * L;
 
-  load_rows<D, DKV_BK>(&ks[0][0], D + 2, k, sk, b, h, k0, L, tid, DKV_THREADS);
-  load_rows<D, DKV_BK>(&vs[0][0], D + 2, v, sv, b, h, k0, L, tid, DKV_THREADS);
-  float dka[HALF];
-  float dva[HALF];
-#pragma unroll
-  for (int i = 0; i < HALF; ++i) {
-    dka[i] = 0.f;
-    dva[i] = 0.f;
-  }
-
-  // causal: a query row before this tile's first key sees none of its keys
-  const int q_begin = causal ? (k0 / DKV_BQ) * DKV_BQ : 0;
-  for (int q0 = q_begin; q0 < L; q0 += DKV_BQ) {
-    __syncthreads();
-    load_rows<D, DKV_BQ>(&qs[0][0], D, q, sq, b, h, q0, L, tid, DKV_THREADS);
-    load_rows<D, DKV_BQ>(&dos[0][0], D, dout, sdo, b, h, q0, L, tid, DKV_THREADS);
-    if (tid < DKV_BQ) {
-      const int pos = q0 + tid;
-      lses[tid] = pos < L ? lse[(long long)bh * L + pos] : -CUDART_INF_F;
-      deltas[tid] = pos < L ? delta[(long long)bh * L + pos] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 1
-    for (int r = 0; r < DKV_BQ; ++r) {
-      float s = 0.f;
-      float dp = 0.f;
-#pragma unroll
-      for (int i = 0; i < HALF; ++i) {
-        const int c = 2 * i + half;
-        s = fmaf(qs[r][c], ks[key][c], s);
-        dp = fmaf(dos[r][c], vs[key][c], dp);
-      }
-      s += __shfl_xor_sync(0xffffffffu, s, 1);  // the pair's two halves
-      dp += __shfl_xor_sync(0xffffffffu, dp, 1);
-      float p, ds;
-      block_grads(s * scale, dp, lses[r], deltas[r], key_live(q0 + r, k_pos, L, causal), scale,
-                  p, ds);
-#pragma unroll
-      for (int i = 0; i < HALF; ++i) {
-        const int c = 2 * i + half;
-        dva[i] = fmaf(p, dos[r][c], dva[i]);
-        dka[i] = fmaf(ds, qs[r][c], dka[i]);
-      }
-    }
-  }
-
-  __syncthreads();  // each pair overwrites only its own k and v rows
-#pragma unroll
-  for (int i = 0; i < HALF; ++i) {
-    ks[key][2 * i + half] = dka[i];
-    vs[key][2 * i + half] = dva[i];
-  }
+  load_tile<D, ROWS>(smem + T::OWN0, LD, k, sk, b, h, k0, L);
+  load_tile<D, ROWS>(smem + T::OWN1, LD, v, sv, b, h, k0, L);
+  cp_async_commit();
+  load_tile<D, BQ>(smem + T::RING0, LD, q, sq, b, h, q_begin, L);
+  load_tile<D, BQ>(smem + T::RING1, LD, dout, sdo, b, h, q_begin, L);
+  load_stat<BQ>(smem + T::LSE, lse_bh, q_begin, L, -CUDART_INF_F);  // P = 0 past L
+  load_stat<BQ>(smem + T::DELTA, delta_bh, q_begin, L, 0.f);
+  cp_async_commit();
+  cp_async_wait<1>();  // K and V have landed (read by every tile's products)
   __syncthreads();
-  store_rows<D, DKV_BK>(dk, sdk, &ks[0][0], D + 2, b, h, k0, L, tid, DKV_THREADS);
-  store_rows<D, DKV_BK>(dv, sdv, &vs[0][0], D + 2, b, h, k0, L, tid, DKV_THREADS);
+
+  const float* ka = smem + T::OWN0 + 16 * warp * LD;  // this warp's keys of k and v
+  const float* va = smem + T::OWN1 + 16 * warp * LD;
+  float dka[KD][4], dva[KD][4];
+#pragma unroll
+  for (int j = 0; j < KD; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+  }
+
+  for (int it = 0; it < n_qt; ++it) {
+    const int stage = it % STAGES;
+    const int q0 = q_begin + it * BQ;
+    if (it + 1 < n_qt) {  // the next tile's copies overlap this tile's products
+      const int nxt = (it + 1) % STAGES;
+      load_tile<D, BQ>(smem + T::RING0 + nxt * BQ * LD, LD, q, sq, b, h, q0 + BQ, L);
+      load_tile<D, BQ>(smem + T::RING1 + nxt * BQ * LD, LD, dout, sdo, b, h, q0 + BQ, L);
+      load_stat<BQ>(smem + T::LSE + nxt * BQ, lse_bh, q0 + BQ, L, -CUDART_INF_F);
+      load_stat<BQ>(smem + T::DELTA + nxt * BQ, delta_bh, q0 + BQ, L, 0.f);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile it has landed for every thread
+
+    if (live && (!causal || q0 + BQ - 1 >= c0)) {
+      const float* qs = smem + T::RING0 + stage * BQ * LD;
+      const float* dos = smem + T::RING1 + stage * BQ * LD;
+      const float* lses = smem + T::LSE + stage * BQ;
+      const float* deltas = smem + T::DELTA + stage * BQ;
+      // only the tile holding this warp's diagonal or a ragged edge tests
+      const bool masked = (causal && q0 < c0 + 15) || q0 + BQ > L || c0 + 16 > L;
+      // an 8-query column this warp can see: inside L and, when causal, not
+      // wholly before its first key
+      const auto want = [&](int j) {
+        return q0 + 8 * j < L && (!causal || q0 + 8 * j + 7 >= c0);
+      };
+      float s[NT][4], dp[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      }
+      if (masked) {
+        score_products<D, LD, NT, false>(ka, va, qs, dos, g, t, want, s, dp);
+      } else {
+        score_products<D, LD, NT, true>(ka, va, qs, dos, g, t, want, s, dp);
+      }
+      // P^T in place of S^T, dS^T in place of dP^T
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(lses + 8 * j + 2 * t);
+        const float2 d2 = *reinterpret_cast<const float2*>(deltas + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int query = q0 + 8 * j + 2 * t + (e & 1);
+          const int key = c0 + g + 8 * (e >> 1);
+          const bool on = !masked || (want(j) && key_live(query, key, L, causal));
+          block_grads(s[j][e] * scale, dp[j][e], (e & 1) ? l2.y : l2.x, (e & 1) ? d2.y : d2.x,
+                      on, scale, s[j][e], dp[j][e]);
+        }
+      }
+      if (masked) {
+        grad_product<D, LD, NT, false>(s, dos, g, t, want, dva);
+        grad_product<D, LD, NT, false>(dp, qs, g, t, want, dka);
+      } else {
+        grad_product<D, LD, NT, true>(s, dos, g, t, want, dva);
+        grad_product<D, LD, NT, true>(dp, qs, g, t, want, dka);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+  if (live) {
+    store_acc<D>(dk, sdk, b, h, c0, L, g, t, dka);
+    store_acc<D>(dv, sdv, b, h, c0, L, g, t, dva);
+  }
+}
+
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes) {
+  return cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 template <int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* delta, void* dq, int B, int H, int L,
                       const long long* st, int causal, float scale, cudaStream_t stream) {
-  const dim3 grid((L + DQ_BQ - 1) / DQ_BQ, B * H);
-  flash_bwd_dq_kernel<D><<<grid, DQ_THREADS, 0, stream>>>(
+  constexpr int smem = BwdTile<D>::FLOATS_DQ * 4;
+  cudaError_t err = allow_smem(flash_bwd_dq_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * H, (L + ROWS - 1) / ROWS);
+  flash_bwd_dq_kernel<D><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<float*>(dq), H, L, strides_at(st, 0),
@@ -235,8 +422,11 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
                        const void* lse, const void* delta, void* dk, void* dv, int B, int H,
                        int L, const long long* st, int causal, float scale,
                        cudaStream_t stream) {
-  const dim3 grid((L + DKV_BK - 1) / DKV_BK, B * H);
-  flash_bwd_dkv_kernel<D><<<grid, DKV_THREADS, 0, stream>>>(
+  constexpr int smem = BwdTile<D>::FLOATS_DKV * 4;
+  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * H, (L + ROWS - 1) / ROWS);
+  flash_bwd_dkv_kernel<D><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv), H, L,
@@ -245,10 +435,14 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
+}  // namespace tf32
 }  // namespace flash
 
 // fp32 only; D: 32 or 64.  strides: 15 int64, the (b, l, h) element strides of
-// q, k, v, dO and dq.  Returns the launch's cudaError_t.
+// q, k, v, dO and dq; q, k, v and dO each with a 16-byte aligned base and
+// strides that are multiples of 4 (16-byte copies), dq 8-byte aligned with
+// even strides.  lse and delta contiguous [B, H, L].  Returns the launch's
+// cudaError_t.
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* delta, void* dq, int B, int H, int L,
                             int D, int causal, float scale, const void* strides, void* stream) {
@@ -256,15 +450,15 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const v
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (D == 32) {
-    err = flash::launch_dq<32>(q, k, v, dout, lse, delta, dq, B, H, L, st, causal, scale, s);
+    err = flash::tf32::launch_dq<32>(q, k, v, dout, lse, delta, dq, B, H, L, st, causal, scale, s);
   } else if (D == 64) {
-    err = flash::launch_dq<64>(q, k, v, dout, lse, delta, dq, B, H, L, st, causal, scale, s);
+    err = flash::tf32::launch_dq<64>(q, k, v, dout, lse, delta, dq, B, H, L, st, causal, scale, s);
   }
   return static_cast<int>(err);
 }
 
 // fp32 only; D: 32 or 64.  strides: 18 int64, the (b, l, h) element strides of
-// q, k, v, dO, dk and dv.
+// q, k, v, dO, dk and dv; the alignment of flash_bwd_dq, dk and dv as dq.
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                              const void* lse, const void* delta, void* dk, void* dv, int B, int H,
                              int L, int D, int causal, float scale, const void* strides,
@@ -273,9 +467,11 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (D == 32) {
-    err = flash::launch_dkv<32>(q, k, v, dout, lse, delta, dk, dv, B, H, L, st, causal, scale, s);
+    err = flash::tf32::launch_dkv<32>(q, k, v, dout, lse, delta, dk, dv, B, H, L, st, causal,
+                                      scale, s);
   } else if (D == 64) {
-    err = flash::launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, B, H, L, st, causal, scale, s);
+    err = flash::tf32::launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, B, H, L, st, causal,
+                                      scale, s);
   }
   return static_cast<int>(err);
 }

@@ -11,10 +11,13 @@
 //
 // Layout: q, k, v, o, dO, dq, dk, dv are [B, L, H, D] tensors read through
 // element strides (the last dim must be contiguous); lse and delta are
-// contiguous [B, H, L] fp32.  Arithmetic is fp32 throughout (never TF32); the
-// bf16 kernels multiply bf16 exactly on the tensor cores with fp32 sums and
-// round to bf16 the values the JAX kernel casts to the input type before a
-// product (P before P.V and P^T.dO, dS before dS.K and dS^T.Q).
+// contiguous [B, H, L] fp32.  Sums are fp32 throughout.  The fp32 tensor-core
+// kernels (forward, dQ, dK/dV) take each product as three TF32 products of
+// split operands (flash_tf32.cuh), fp32-exact to about 2^-21; the shard fold
+// (flash_update.cu) multiplies on fp32 FMAs.  The bf16 kernels multiply bf16
+// exactly on the tensor cores and round to bf16 the values the JAX kernel
+// casts to the input type before a product (P before P.V and P^T.dO, dS
+// before dS.K and dS^T.Q).
 #pragma once
 
 #include <cuda_bf16.h>

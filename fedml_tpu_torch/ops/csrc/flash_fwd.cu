@@ -7,17 +7,14 @@
 // past L masked and, when causal, keys after the row masked; online softmax
 // in fp32; O = softmax . V; LSE in fp32 (-inf for a row with no live key).
 //
-// Products.  A TF32 operand keeps 10 of fp32's 23 mantissa bits, too few for
-// the fp32 tolerances.  Each fp32 operand x is split into big, x rounded to
-// TF32, and small = x - big, which keep about 21 bits between them, and each
-// product is three TF32 products summed in fp32: small.big + big.small
-// first, then big.big; small.small, 2^-22 of the product, is dropped.  The
-// same route as the fp32 path of PyTorch's memory-efficient attention
-// (CUTLASS's OpMultiplyAddFastF32).  Products are mma.sync m16n8k8 TF32:
-// wgmma takes TF32 operands only K-major, and V [keys, D] is MN-major for
-// P.V, so wgmma would need a transposed copy of every V tile; mma.sync lets
-// each thread load its own fragments from one padded layout.  The
-// exponentials are exp2 of the log2(e)-scaled scores, as in the bf16 kernels.
+// Products.  Every product is split TF32 on the tensor cores (mma.sync
+// m16n8k8; flash_tf32.cuh, shared with the backward kernels): each fp32
+// operand split into a TF32 big part and the small remainder, three TF32
+// products summed in fp32.  mma.sync rather than wgmma: wgmma takes TF32
+// operands only K-major, and V [keys, D] is MN-major for P.V, so wgmma would
+// need a transposed copy of every V tile; mma.sync lets each thread load its
+// own fragments from one padded layout.  The exponentials are exp2 of the
+// log2(e)-scaled scores, as in the bf16 kernels.
 //
 // What bounds it on an H100 (3.35 TB/s; fp32-exact products at the 3xTF32
 // rate, 495 / 3 = 165 TFLOP/s):
@@ -50,15 +47,12 @@
 // a thread, a quad covering 32 contiguous bytes of a row.  The wrapper
 // raises on views whose base or (b, l, h) strides are not 16-byte aligned.
 
-#include "flash_common.cuh"
+#include "flash_tf32.cuh"
 
 namespace flash {
 namespace tf32 {
 
-constexpr int WARPS = 4;
-constexpr int THREADS = 32 * WARPS;
 constexpr int BQ = 16 * WARPS;  // query rows per block
-constexpr int STAGES = 2;
 
 // keys per K/V tile: 32 at D 64, 64 at D 32 (the same bytes a tile)
 template <int D>
@@ -73,73 +67,8 @@ struct Tile {
   static constexpr int FLOATS = V + STAGES * BK * LDV;
 };
 
-// 16 bytes from global to shared memory, or 16 zero bytes when !valid.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Queue the copy of rows [row0, row0 + ROWS) of one (b, h) slice into shared
-// memory ld floats apart; rows at or past L are zero-filled.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(float* dst, int ld, const float* __restrict__ src,
-                                          Strides s, int b, int h, int row0, int L) {
-  constexpr int CHUNKS = D / 4;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < ROWS * CHUNKS; c += THREADS) {
-    const int r = c / CHUNKS;
-    const int cc = c - r * CHUNKS;
-    const bool valid = row0 + r < L;
-    const float* g = valid ? src + (long long)b * s.b + (long long)(row0 + r) * s.l +
-                                 (long long)h * s.h + cc * 4
-                           : src;
-    cp_async16(dst + r * ld + cc * 4, g, valid);
-  }
-}
-
-// fp32 -> (big, small) TF32 parts, x = big + small to about 21 bits.  big is
-// x rounded to TF32, to nearest with ties away from zero (cvt.rna.tf32.f32's
-// rounding, done as an integer add and mask: two full-rate instructions, not
-// a conversion); small = x - big is exact in fp32 and goes to the tensor
-// cores as it is, which read a TF32 operand's top 19 bits (small truncated:
-// 2^-10 of small, about 2^-21 of x).
-__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
-  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  small = __float_as_uint(x - __uint_as_float(big));
-}
-
-// d[16 x 8] += a[16 x 8] . b[8 x 8], TF32 operands, fp32 sums.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a . b with fp32 operands given as TF32 parts: the two correction
-// products first, then big . big.
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&a_big)[4],
-                                           const uint32_t (&a_small)[4], uint32_t b_big0,
-                                           uint32_t b_big1, uint32_t b_small0,
-                                           uint32_t b_small1) {
-  mma_tf32(d, a_small, b_big0, b_big1);
-  mma_tf32(d, a_big, b_small0, b_small1);
-  mma_tf32(d, a_big, b_big0, b_big1);
-}
-
-// Fragments (g = lane / 4, t = lane % 4): an accumulator d[16 x 8] holds
-// (g, 2t + {0, 1}) in d[0], d[1] and (g + 8, 2t + {0, 1}) in d[2], d[3].  The
-// A operand of a 16 x 8 step takes its columns t and t + 4 from the source's
-// columns 2t and 2t + 1, and the B operand its rows t and t + 4 likewise: a
-// permutation of the summed index, the same on both sides.
+// The S step takes its depth, and P.V its keys, in the permuted order of
+// flash_tf32.cuh (2t and 2t + 1 as the A operand's columns t and t + 4).
 template <int D>
 __global__ void __launch_bounds__(THREADS)
     flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -227,10 +156,7 @@ __global__ void __launch_bounds__(THREADS)
       const float* kr = ks + g * T::LDK + 2 * t;
       auto s_step = [&](int j, int kk) {
         const float2 kv = *reinterpret_cast<const float2*>(kr + 8 * j * T::LDK + 8 * kk);
-        uint32_t bb0, bs0, bb1, bs1;
-        split(kv.x, bb0, bs0);
-        split(kv.y, bb1, bs1);
-        mma_3xtf32(s[j], qb[kk], qs[kk], bb0, bb1, bs0, bs1);
+        mma_3xtf32(s[j], qb[kk], qs[kk], kv.x, kv.y);
       };
       if (k0 + BK <= k_end) {  // the whole tile is live for this warp: no branch
 #pragma unroll
@@ -292,12 +218,7 @@ __global__ void __launch_bounds__(THREADS)
           }
           const float* vr = vs + (8 * kk + 2 * t) * T::LDV + g;
 #pragma unroll
-          for (int j = 0; j < KD; ++j) {
-            uint32_t bb0, bs0, bb1, bs1;
-            split(vr[8 * j], bb0, bs0);
-            split(vr[T::LDV + 8 * j], bb1, bs1);
-            mma_3xtf32(acc[j], pb, ps, bb0, bb1, bs0, bs1);
-          }
+          for (int j = 0; j < KD; ++j) mma_3xtf32(acc[j], pb, ps, vr[8 * j], vr[T::LDV + 8 * j]);
         }
       }
     }

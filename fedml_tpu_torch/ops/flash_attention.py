@@ -3,8 +3,9 @@
 Counterpart of ``fedml_tpu/ops/flash_attention.py``.  Each of the four Pallas
 kernels has two CUDA kernels for Hopper, one per input type: in fp32
 (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``, ``csrc/flash_update.cu``) the
-forward on the tensor cores in split TF32 (three TF32 products per fp32
-product) and the others on scalar FMAs; in bf16 the tensor cores
+forward and both backward kernels on the tensor cores in split TF32 (three
+TF32 products per fp32 product, ``csrc/flash_tf32.cuh``) and the shard fold
+on scalar FMAs; in bf16 the tensor cores
 (``csrc/flash_fwd_sm90.cu``, ``csrc/flash_dq_sm90.cu``,
 ``csrc/flash_dkv_sm90.cu``, ``csrc/flash_update_sm90.cu``).  Beside them here
 is a plain PyTorch version of the same function that materialises the scores:
@@ -29,8 +30,9 @@ Each CUDA wrapper adds one to ``LAUNCHES[kernel]`` for the kernel it launches:
 ``flash_fwd_sm90``, ``flash_dq_sm90``, ``flash_dkv_sm90`` and
 ``flash_update_sm90`` count the bf16 tensor-core kernels, ``flash_fwd``,
 ``flash_bwd_dq``, ``flash_bwd_dkv`` and ``flash_shard_update`` the fp32 ones.
-The bf16 kernels load tiles with TMA and the fp32 forward with 16-byte
-``cp.async`` copies: each takes a tensor only if its base is 16-byte aligned
+The bf16 kernels load tiles with TMA and the fp32 forward and backward
+kernels with 16-byte ``cp.async`` copies: each takes a tensor only if its
+base is 16-byte aligned
 and its (b, l, h) strides are whole 16 bytes (8 bf16 or 4 fp32 elements, so
 the model's fused-qkv views load as they are); anything else raises.
 
@@ -57,7 +59,7 @@ LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_fwd_sm90": 0, "flash_bwd_dq":
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 KERNEL_HEAD_DIMS = (32, 64)
 _MAX_GRID_Y = 65535
-_ALIGN_BYTES = 16  # TMA (bf16 kernels) and cp.async (fp32 forward) copies
+_ALIGN_BYTES = 16  # TMA (bf16 kernels) and cp.async (fp32 K1-K3) copies
 # negative status codes of the tensor-map (TMA) entry points, csrc/flash_sm90.cuh
 _TMA_ERRORS = {-1: "the CUDA driver has no cuTensorMapEncodeTiled",
                -2: "the CUDA driver refused a tensor map for these strides"}
@@ -282,6 +284,12 @@ def _check_tma(name: str, *tensors: torch.Tensor) -> None:
     _check_16b(name, "the bf16 kernel loads tiles with TMA", *tensors)
 
 
+def _check_cp_async(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless 16-byte cp.async copies can load every tensor (the fp32
+    split-TF32 kernels)."""
+    _check_16b(name, "the fp32 kernel loads tiles with 16-byte cp.async copies", *tensors)
+
+
 def _check_pairs(name: str, t: torch.Tensor) -> None:
     """Raise unless the bf16 fold can move the fp32 state two floats at a
     time: an 8-byte aligned base and even (b, l, h) strides."""
@@ -322,8 +330,7 @@ def flash_forward_cuda(q, k, v, causal: bool = True) -> Tuple[torch.Tensor, torc
     if bf16:
         _check_tma("flash_fwd", q, k, v)
     else:
-        _check_16b("flash_fwd", "the fp32 kernel loads tiles with 16-byte cp.async copies",
-                   q, k, v)
+        _check_cp_async("flash_fwd", q, k, v)
     lib = load()
     o = torch.empty((B, L, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
@@ -337,8 +344,9 @@ def flash_forward_cuda(q, k, v, causal: bool = True) -> Tuple[torch.Tensor, torc
 
 
 def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool = True) -> torch.Tensor:
-    """K2 on the card: dQ as :func:`flash_bwd_dq_plain`; bf16 on the tensor
-    cores (``flash_dq_sm90.cu``), fp32 on scalar FMAs."""
+    """K2 on the card: dQ as :func:`flash_bwd_dq_plain`, on the tensor cores
+    in both types: bf16 by ``wgmma`` (``flash_dq_sm90.cu``), fp32 in split
+    TF32 by ``mma.sync`` (``flash_bwd.cu``)."""
     from .build import load
 
     B, L, H, D = _check("flash_bwd_dq", q, k, v, do)
@@ -346,6 +354,8 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool = True) -> torch.Ten
     bf16 = q.dtype == torch.bfloat16
     if bf16:
         _check_tma("flash_bwd_dq", q, k, v, do)
+    else:
+        _check_cp_async("flash_bwd_dq", q, k, v, do)
     lib = load()
     dq = torch.empty((B, L, H, D), dtype=q.dtype, device=q.device)
     st = _strides(q, k, v, do, dq)
@@ -358,8 +368,9 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool = True) -> torch.Ten
 
 
 def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool = True):
-    """K3 on the card: (dK, dV) as :func:`flash_bwd_dkv_plain`; bf16 on the
-    tensor cores (``flash_dkv_sm90.cu``), fp32 on scalar FMAs."""
+    """K3 on the card: (dK, dV) as :func:`flash_bwd_dkv_plain`, on the tensor
+    cores in both types: bf16 by ``wgmma`` (``flash_dkv_sm90.cu``), fp32 in
+    split TF32 by ``mma.sync`` (``flash_bwd.cu``)."""
     from .build import load
 
     B, L, H, D = _check("flash_bwd_dkv", q, k, v, do)
@@ -367,6 +378,8 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool = True):
     bf16 = q.dtype == torch.bfloat16
     if bf16:
         _check_tma("flash_bwd_dkv", q, k, v, do)
+    else:
+        _check_cp_async("flash_bwd_dkv", q, k, v, do)
     lib = load()
     dk = torch.empty((B, L, H, D), dtype=q.dtype, device=q.device)
     dv = torch.empty((B, L, H, D), dtype=q.dtype, device=q.device)

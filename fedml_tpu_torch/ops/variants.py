@@ -1,12 +1,14 @@
-"""Time variants of a forward kernel on the card: the tree's source with text
+"""Time variants of a kernel on the card: the tree's source with text
 replaced, built beside the tree's library and timed in turns with it.
 
     python -m fedml_tpu_torch.ops.variants [SET ...] [--trace]
 
 Each variant of a set is a list of (old, new) replacements in one source of
-``csrc/``; every ``old`` must occur exactly once.  The tree's kernels run first
-and last, each variant between, at the cases of its source (the bench shapes
-of ``chip_smoke.py`` and, for the bf16 forward, its non-causal twin).  With
+``csrc/`` (or (file, old, new) in another file of ``csrc/``, a header it
+includes); every ``old`` must occur exactly once.  The tree's kernels run first
+and last, each variant between, at the cases of its source (the shapes of
+``chip_smoke.py``'s phase 2 and, for the bf16 forward, its non-causal twin);
+a backward source times each of its kernels.  With
 ``--trace`` the bf16 forward is built with clock64 probes at the steps of a
 consumer's key loop (block 0, first q tile) and the cycles between them are
 printed.  Needs a CUDA card and nvcc; results go to ``variants/`` beside
@@ -25,6 +27,7 @@ from typing import Dict, List, Tuple
 
 BF16_SRC = "flash_fwd_sm90.cu"
 FP32_SRC = "flash_fwd.cu"
+BWD_SRC = "flash_bwd.cu"
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 # (name, B, L, H, D, dtype, causal)
@@ -34,6 +37,9 @@ CASES = {
     FP32_SRC: [("slice_train", 32, 80, 8, 32, "float32", True),
                ("slice_eval", 256, 80, 8, 32, "float32", True),
                ("bench_fp32", 8, 1024, 16, 64, "float32", True)],
+    BWD_SRC: [("slice_train", 32, 80, 8, 32, "float32", True),
+              ("ragged_full", 4, 50, 8, 32, "float32", False),
+              ("bench_fp32", 8, 1024, 16, 64, "float32", True)],
 }
 
 _STEP = "      issue_s(sb, kt + 1);\n      softmax_exp(sa);\n"
@@ -87,6 +93,19 @@ def _ping_pong(region: str) -> List[Tuple[str, str]]:
     ]
 
 
+def _bounds(kernel: str, blocks: int) -> Tuple[str, str]:
+    return (f"__launch_bounds__(THREADS)\n    {kernel}(",
+            f"__launch_bounds__(THREADS, {blocks})\n    {kernel}(")
+
+
+_BWD_TILE = "static constexpr int N = 32; "
+_TF32_H = "flash_tf32.cuh"
+_CORRECTIONS = ("  mma_tf32(d, a_small, b_big0, b_big1);\n"
+                "  mma_tf32(d, a_big, b_small0, b_small1);\n")
+_SPLIT_B = "  split(b0, b_big0, b_small0);\n  split(b1, b_big1, b_small1);\n"
+_UNSPLIT_B = ("  b_big0 = __float_as_uint(b0);\n  b_big1 = __float_as_uint(b1);\n"
+              "  b_small0 = b_small1 = 0u;\n")
+
 # the variants of the bf16 forward measured for PERF.md: the next tile's S
 # issued after the exponentials (not in flight), ping-pong between the
 # consumers, three consumer warpgroups (192-row q tiles) with and without S
@@ -99,6 +118,23 @@ SETS: Dict[str, List[Tuple[str, str, List[Tuple[str, str]]]]] = {
              ("three_consumers_s_after_exp", BF16_SRC, _THREE + [_SEQ]),
              ("stages_2", BF16_SRC, [_stages(2)]),
              ("stages_6", BF16_SRC, [_stages(6)])],
+    # the fp32 backward: registers capped for 4 blocks an SM; streamed tiles
+    # of 64 rows at D 32 (the first design's), or of 16 at both head dims;
+    # dQ's q tiles in grid order rather than the heaviest first
+    "fp32_bwd": [("four_blocks", BWD_SRC, [_bounds("flash_bwd_dq_kernel", 4),
+                                           _bounds("flash_bwd_dkv_kernel", 4)]),
+                 ("tile_64_at_32", BWD_SRC, [(_BWD_TILE,
+                                              "static constexpr int N = D == 64 ? 32 : 64; ")]),
+                 ("tile_16", BWD_SRC, [(_BWD_TILE, "static constexpr int N = 16; ")]),
+                 # diagnostics, not the kernels' function: one TF32 product
+                 # (the correction products removed), and B operands taken
+                 # unsplit (big = x, small = 0): what the products and the
+                 # splits of B cost
+                 ("one_product", BWD_SRC, [(_TF32_H, _CORRECTIONS, "")]),
+                 ("b_unsplit", BWD_SRC, [(_TF32_H, _SPLIT_B, _UNSPLIT_B)]),
+                 ("dq_grid_order", BWD_SRC, [(
+                     "const int q0 = (gridDim.y - 1 - blockIdx.y) * ROWS;",
+                     "const int q0 = blockIdx.y * ROWS;")])],
 }
 
 # clock64 probes at the steps of the bf16 forward's key loop
@@ -145,14 +181,15 @@ def build_variants(variants, root: str) -> Dict[str, str]:
         d = os.path.join(root, name)
         shutil.copytree(build.CSRC, os.path.join(d, "csrc"))
         path = os.path.join(d, "csrc", source)
-        with open(path) as f:
-            text = f.read()
-        for old, new in reps:
+        for rep in reps:
+            edit, old, new = rep if len(rep) == 3 else (source, *rep)
+            edit_path = os.path.join(d, "csrc", edit)
+            with open(edit_path) as f:
+                text = f.read()
             if text.count(old) != 1:
                 raise ValueError(f"variant {name}: {old[:60]!r} occurs {text.count(old)} times")
-            text = text.replace(old, new)
-        with open(path, "w") as f:
-            f.write(text)
+            with open(edit_path, "w") as f:
+                f.write(text.replace(old, new))
         lib = os.path.join(d, f"lib{name}.so")
         procs[name] = (subprocess.Popen([build.find_nvcc(), *build.NVCC_FLAGS, "-o", lib, path],
                                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -187,13 +224,36 @@ def _inputs(B, L, H, D, dtype):
     return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
 
 
+def _calls(source, B, L, H, D, dtype, causal):
+    """[(kernel, call, max |kernel - plain|)] of a source's kernels at one case."""
+    import torch
+
+    from . import flash_attention as fa
+
+    q, k, v = _inputs(B, L, H, D, dtype)
+    if source != BWD_SRC:
+        o, _ = fa.flash_forward_cuda(q, k, v, causal)
+        err = (o.float() - fa.flash_forward_plain(q, k, v, causal)[0].float()).abs().max()
+        return [("forward", lambda: fa.flash_forward_cuda(q, k, v, causal), float(err))]
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    do = (torch.randn(B, L, H, D, generator=gen, device="cuda") * 0.5).to(q.dtype)
+    o, lse = fa.flash_forward_plain(q, k, v, causal)
+    delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
+    args = (q, k, v, do, lse, delta, causal)
+    dq_err = (fa.flash_bwd_dq_cuda(*args) - fa.flash_bwd_dq_plain(*args)).abs().max()
+    dkv_err = max((a - b).abs().max() for a, b in zip(fa.flash_bwd_dkv_cuda(*args),
+                                                      fa.flash_bwd_dkv_plain(*args)))
+    return [("dQ", lambda: fa.flash_bwd_dq_cuda(*args), float(dq_err)),
+            ("dK/dV", lambda: fa.flash_bwd_dkv_cuda(*args), float(dkv_err))]
+
+
 def time_variants(variants) -> list:
-    """Rows (variant, case, ms, max |O - plain|): the tree first and last."""
+    """Rows (variant, case, kernel, ms, max |out - plain|): the tree first and
+    last."""
     import torch
 
     sys.path.insert(0, _ROOT)
     import chip_smoke as cs
-    from . import flash_attention as fa
 
     libs = build_variants(variants, os.path.join(_ROOT, "build", "variants"))
     sources = sorted({source for _, source, _ in variants})
@@ -204,15 +264,11 @@ def time_variants(variants) -> list:
     for name, source, lib in order:
         _bind(source, lib)
         for case, B, L, H, D, dtype, causal in CASES[source]:
-            q, k, v = _inputs(B, L, H, D, dtype)
-            o, _ = fa.flash_forward_cuda(q, k, v, causal)
-            err = (o.float() - fa.flash_forward_plain(q, k, v, causal)[0].float()).abs().max()
-            ms = cs.time_ms(lambda: fa.flash_forward_cuda(q, k, v, causal),
-                            10 if L >= 1024 else 30)
-            rows.append((name, case, ms, float(err)))
-            print(f"  {name:30s} {case:12s} {ms:.4f} ms  max |O - plain| {float(err):.3e}",
-                  flush=True)
-            del q, k, v, o
+            for kernel, call, err in _calls(source, B, L, H, D, dtype, causal):
+                ms = cs.time_ms(call, 10 if L >= 1024 else 30)
+                rows.append((name, case, kernel, ms, err))
+                print(f"  {name:30s} {case:12s} {kernel:8s} {ms:.4f} ms  max |out - plain| "
+                      f"{err:.3e}", flush=True)
             torch.cuda.empty_cache()
     _bind(sources[0])
     return rows

@@ -7,9 +7,11 @@ machine with the card and without JAX, run it without the repo's conftest:
 In bf16 every kernel is a tensor-core (wgmma, TMA) kernel; the edge cases of
 test_kernels_match_plain and test_shard_update_kernel_matches_plain cover
 their 64-row tiles.
-The fp32 forward is a split-TF32 kernel (three TF32 products per fp32
-product on the tensor cores); test_fp32_fwd_tolerance_fails_a_planted_fault
-shows that one TF32 product fails its tolerance.
+The fp32 forward, dQ and dK/dV kernels are split-TF32 kernels (three TF32
+products per fp32 product on the tensor cores, csrc/flash_tf32.cuh);
+test_fp32_fwd_tolerance_fails_a_planted_fault and
+test_fp32_bwd_tolerance_fails_a_planted_fault show that one TF32 product
+fails their tolerances.
 Tolerances as chip_smoke.py states them: fp32 forward atol 2e-5 + rtol 1e-5,
 gradients atol 1e-4 + rtol 1e-4 (sums in another order); bf16 O atol 1e-3 +
 rtol 2e-2 and gradients atol 1e-3 + rtol 3e-2 (bf16 rounding of O, P and dS;
@@ -45,14 +47,15 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("L", [1, 15, 16, 17, 63, 64, 65, 80, 127, 129, 1000])
+@pytest.mark.parametrize("L", [1, 15, 16, 17, 31, 32, 33, 63, 64, 65, 80, 127, 128, 129, 1000])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("D", [32, 64])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernels_match_plain(cuda, dtype, D, causal, L):
     """K1-K3 against their plain versions over the tile edges (one row; a
-    16-row warp tile and 8-key step of the fp32 forward short of, at and past
-    16; a tile short of, at, and past 64 and 128 rows; the slice's 80; a
+    16-row warp tile and 8-key step of the fp32 kernels short of, at and past
+    16; the fp32 kernels' 32-row streamed tiles at D 64 short of, at and past
+    32; a tile short of, at, and past 64 and 128 rows; the slice's 80; a
     ragged long run), with q, k and v as views of one fused qkv, as the model
     gives them."""
     fwd_tol, grad_tol = ((2e-5, 1e-5), (1e-4, 1e-4)) if dtype == torch.float32 else \
@@ -123,6 +126,33 @@ def test_fp32_forward_rejects_what_cp_async_cannot_load(cuda):
     assert fa.LAUNCHES["flash_fwd"] == before["flash_fwd"] + 1
 
 
+def test_fp32_backward_rejects_what_cp_async_cannot_load(cuda):
+    """The fp32 dQ and dK/dV kernels load tiles with 16-byte cp.async copies:
+    a head stride that is not a whole 16 bytes, or a base off a 16-byte
+    boundary, in q, k, v or dO raises, and no kernel launches; fused-qkv
+    views load as they are."""
+    shape = (2, 70, 2, 64)
+    good = torch.randn(shape, device=cuda)
+    odd_stride = torch.zeros(2, 70, 2, 65, device=cuda)[..., :64]
+    odd_base = torch.zeros(good.numel() + 1, device=cuda)[1:].view(shape)
+    lse = torch.zeros(2, 2, 70, device=cuda)
+    before = dict(fa.LAUNCHES)
+    for bad in (odd_stride, odd_base):
+        for i in range(4):
+            args = [good] * 4
+            args[i] = bad
+            with pytest.raises(ValueError, match="cp.async"):
+                fa.flash_bwd_dq_cuda(*args, lse, lse, True)
+            with pytest.raises(ValueError, match="cp.async"):
+                fa.flash_bwd_dkv_cuda(*args, lse, lse, True)
+    assert fa.LAUNCHES == before
+    qkv = torch.randn(2, 70, 3, 2, 64, device=cuda)
+    fa.flash_bwd_dq_cuda(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], good, lse, lse, True)
+    fa.flash_bwd_dkv_cuda(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], good, lse, lse, True)
+    assert fa.LAUNCHES["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    assert fa.LAUNCHES["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+
+
 def _least_atol(got, want, rtol):
     """The least atol with which |got - want| <= atol + rtol * |want| holds."""
     err = (got.float() - want.float()).abs() - rtol * want.float().abs()
@@ -160,7 +190,8 @@ def test_fp32_fwd_tolerance_fails_a_planted_fault(cuda, tmp_path, monkeypatch):
     o, lse = fa.flash_forward_cuda(q, k, v, True)
     sound = _least_atol(o, o_r, rtol)
 
-    _plant_fault(monkeypatch, tmp_path, "flash_fwd.cu", SOUND_FWD, FAULT_FWD)
+    _plant_fault(monkeypatch, tmp_path, "flash_fwd.cu", SOUND_FWD, FAULT_FWD,
+                 edit="flash_tf32.cuh")
     o_f, _ = fa.flash_forward_cuda(q, k, v, True)
     torch.cuda.synchronize()
     fault = _least_atol(o_f, o_r, rtol)
@@ -169,6 +200,41 @@ def test_fp32_fwd_tolerance_fails_a_planted_fault(cuda, tmp_path, monkeypatch):
     assert sound <= atol
     torch.testing.assert_close(lse, lse_r, atol=1e-5, rtol=1e-6)
     assert fault > atol
+
+
+def test_fp32_bwd_tolerance_fails_a_planted_fault(cuda, tmp_path, monkeypatch):
+    """At the slice's shape (the inputs of chip_smoke.py's slice_train case:
+    q, k, v views of one fused qkv, dO, the plain forward's LSE and delta)
+    the fp32 gradient tolerance (atol 1e-4 + rtol 1e-4) passes the split-TF32
+    dQ and dK/dV kernels and fails copies of them that take one TF32 product
+    per fp32 product (the two correction products removed from the shared
+    split).  The assertion is on the gradient that fails by the most; prints
+    the least atol each gradient needs."""
+    gen = torch.Generator(device=cuda).manual_seed(1234)
+    qkv = torch.randn(32, 80, 3, 8, 32, generator=gen, device=cuda) * 0.5
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    do = torch.randn(32, 80, 8, 32, generator=gen, device=cuda) * 0.5
+    o_r, lse = fa.flash_forward_plain(q, k, v, True)
+    delta = (do * o_r).sum(-1).permute(0, 2, 1).contiguous()
+    want = (fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, True),
+            *fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, True))
+    atol, rtol = 1e-4, 1e-4
+
+    def grads():
+        got = (fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, True),
+               *fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, True))
+        torch.cuda.synchronize()
+        return [_least_atol(g, w, rtol) for g, w in zip(got, want)]
+
+    sound = grads()
+    _plant_fault(monkeypatch, tmp_path, "flash_bwd.cu", SOUND_FWD, FAULT_FWD,
+                 edit="flash_tf32.cuh")
+    fault = grads()
+    print(f"\nfp32 backward at the slice shape: least atol at rtol {rtol} (dQ, dK, dV): "
+          f"split TF32 {', '.join(f'{x:.3e}' for x in sound)}; one TF32 product "
+          f"{', '.join(f'{x:.3e}' for x in fault)}")
+    assert max(sound) <= atol
+    assert max(fault) > atol
 
 
 def _bench_bf16_inputs(cuda):
@@ -185,16 +251,18 @@ def _bench_bf16_inputs(cuda):
     return q, k, v, do, lse, delta
 
 
-def _plant_fault(monkeypatch, tmp_path, source, sound, fault):
-    """Build a copy of ``source`` with ``sound`` replaced by ``fault`` and bind
-    it in place of the sound library for the rest of the test."""
+def _plant_fault(monkeypatch, tmp_path, source, sound, fault, edit=None):
+    """Build a copy of ``source`` with ``sound`` replaced by ``fault`` in the
+    file ``edit`` (``source`` itself by default, or a header it includes) and
+    bind it in place of the sound library for the rest of the test."""
     from fedml_tpu_torch.ops import build
 
     src = tmp_path / "csrc"
     shutil.copytree(build.CSRC, src)
-    text = (src / source).read_text()
+    edit = edit or source
+    text = (src / edit).read_text()
     assert text.count(sound) == 1, "the planted fault no longer matches the kernel's source"
-    (src / source).write_text(text.replace(sound, fault))
+    (src / edit).write_text(text.replace(sound, fault))
     lib = tmp_path / f"lib{source}_fault.so"
     subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o", str(lib), str(src / source)],
                    check=True, capture_output=True)

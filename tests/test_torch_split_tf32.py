@@ -1,6 +1,7 @@
-"""The numerical design of the fp32 forward kernel (``csrc/flash_fwd.cu``),
-emulated on the CPU: products on TF32 tensor cores, each fp32 operand split
-into a big and a small TF32 part, three products summed in fp32.
+"""The numerical design of the fp32 kernels (``csrc/flash_fwd.cu``,
+``csrc/flash_bwd.cu``, over ``csrc/flash_tf32.cuh``), emulated on the CPU:
+products on TF32 tensor cores, each fp32 operand split into a big and a small
+TF32 part, three products summed in fp32.
 
 TF32 keeps 10 of fp32's 23 mantissa bits.  ``tf32`` drops the low 13 bits
 of the int32 view, rounding to nearest with ties away from zero (the
@@ -12,9 +13,11 @@ dropped term, is 2^-22 of the product.  Attention at
 B 2, L 80, H 2, D 32 with the scores Q.K^T and O = P.V so computed must hold
 a float64 ``reference_attention`` to the fp32 forward tolerance the card
 holds the kernel to (O atol 2e-5 + rtol 1e-5, LSE atol 1e-5 + rtol 1e-6);
-the same with one TF32 product (big . big) must fail it.  That is why the
-kernel takes three products and what a planted single-TF32 copy of it shows
-on the card (tests/test_torch_flash_cuda.py).
+the same with one TF32 product (big . big) must fail it.  So must the
+backward's dQ, dK and dV, with S, dP, P^T.dO, dS.K and dS^T.Q so computed,
+to the gradient tolerance (atol 1e-4 + rtol 1e-4), and one TF32 product must
+fail it on dV.  That is why the kernels take three products and what planted
+single-TF32 copies of them show on the card (tests/test_torch_flash_cuda.py).
 """
 
 import math
@@ -27,6 +30,7 @@ from fedml_tpu_torch.ops import flash_attention as fa
 
 O_TOL = (2e-5, 1e-5)
 LSE_TOL = (1e-5, 1e-6)
+GRAD_TOL = (1e-4, 1e-4)
 
 
 def tf32(x: torch.Tensor, rounding: str) -> torch.Tensor:
@@ -70,6 +74,26 @@ def tf32_attention(q, k, v, causal: bool, split: bool, rounding: str):
     return o.permute(0, 2, 1, 3), (m + torch.log(l)).squeeze(-1)
 
 
+def tf32_attention_grads(q, k, v, do, lse, delta, causal: bool, split: bool, rounding: str):
+    """(dQ, dK, dV) of [B, L, H, D] fp32 inputs, the backward kernels' way: P
+    rebuilt from the given LSE [B, H, L], dS = P * (dP - delta) * scale, the
+    five products as the kernels take them, the rest in fp32."""
+    L, D = q.shape[1], q.shape[-1]
+    scale = 1.0 / math.sqrt(D)
+    qh, kh, vh, doh = (t.permute(0, 2, 1, 3) for t in (q, k, v, do))  # [B, H, L, D]
+    s = tf32_matmul(qh, kh.transpose(-1, -2), split, rounding) * scale
+    dp = tf32_matmul(doh, vh.transpose(-1, -2), split, rounding)
+    live = torch.ones(L, L, dtype=torch.bool)
+    if causal:
+        live = live.tril()
+    p = torch.where(live, torch.exp(s - lse[..., None]), torch.zeros_like(s))
+    ds = p * (dp - delta[..., None]) * scale
+    dq = tf32_matmul(ds, kh, split, rounding)
+    dk = tf32_matmul(ds.transpose(-1, -2), qh, split, rounding)
+    dv = tf32_matmul(p.transpose(-1, -2), doh, split, rounding)
+    return tuple(t.permute(0, 2, 1, 3) for t in (dq, dk, dv))
+
+
 def _within(got, want, tol) -> bool:
     return bool(((got.double() - want).abs() <= tol[0] + tol[1] * want.abs()).all())
 
@@ -109,3 +133,29 @@ def test_split_tf32_attention_holds_the_fp32_tolerance(case, split, rounding):
         assert _within(lse, lse_ref, LSE_TOL)
     else:
         assert not _within(o, o_ref, O_TOL)
+
+
+@pytest.fixture(scope="module")
+def grad_case(case):
+    """dO, the LSE and delta in fp32 (as the forward hands them to the
+    backward), and the float64 reference gradients of the same inputs."""
+    (q, k, v), o_ref, lse_ref = case
+    do = torch.from_numpy(np.random.RandomState(6).randn(*q.shape).astype(np.float32) * 0.5)
+    q64, k64, v64 = (t.double().requires_grad_() for t in (q, k, v))
+    o = fa.reference_attention(q64, k64, v64, True)
+    grads = torch.autograd.grad(o, (q64, k64, v64), do.double())
+    delta = (do.double() * o_ref).sum(-1).permute(0, 2, 1)
+    return (q, k, v, do, lse_ref.float(), delta.float()), grads
+
+
+@pytest.mark.parametrize("rounding", [("rna", "trunc"), ("rna", "rna"), ("rne", "rne")],
+                         ids=["kernel", "rna", "rne"])
+@pytest.mark.parametrize("split", [True, False], ids=["split_tf32", "single_tf32"])
+def test_split_tf32_backward_holds_the_fp32_grad_tolerance(grad_case, split, rounding):
+    inputs, (dq_ref, dk_ref, dv_ref) = grad_case
+    dq, dk, dv = tf32_attention_grads(*inputs, True, split, rounding)
+    if split:
+        for got, want in ((dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
+            assert _within(got, want, GRAD_TOL)
+    else:
+        assert not _within(dv, dv_ref, GRAD_TOL)

@@ -9,9 +9,8 @@
    registers and spills of every kernel instantiation are logged: a spill in
    a kernel of NO_SPILL fails the phase.
 2. Kernels: each flash-attention kernel (forward, dQ, dK/dV; in bf16 the
-   tensor-core kernels; the fp32 forward, dQ and dK/dV on the tensor cores
-   in split TF32) against its plain PyTorch version on the same
-   inputs, at the slice's shapes (B 32 and, for the eval forward, B 256;
+   tensor-core kernels; in fp32 the split-TF32 tensor-core kernels) against
+   its plain PyTorch version on the same inputs, at the slice's shapes (B 32 and, for the eval forward, B 256;
    L 80, H 8, D 32, fp32, causal), a ragged non-causal case (L 50) and the
    TransformerLM bench shape (B 8, L 1024, H 16, D 64) in bf16 and fp32,
    with the tolerances below.  Then ring
@@ -19,8 +18,8 @@
    parallel slice's fold (B 8, Lq = Lk 256, H 16, D 64): the three kinds of
    fold a causal ring makes (keys before the rows, the diagonal, keys after
    the rows) in bf16 and fp32, ragged non-causal folds with padded keys in
-   fp32 and (D 32) bf16, and a bf16 diagonal fold whose key positions are a
-   seeded permutation.
+   fp32 and (D 32) bf16, and in both types a diagonal fold whose key
+   positions are a seeded permutation.
    Kernel, plain version and, where one PyTorch call computes the same
    function, that call (F.scaled_dot_product_attention, its efficient-
    attention backward and, in bf16, its flash-attention backward: yardsticks
@@ -40,7 +39,8 @@
    width (d_model 1024, 8 layers, 16 heads x 64, d_ff 4096, vocab 32000,
    B 8 x L 1024, sp 4) through create_mesh -> sp_init -> sp_apply ->
    sp_loss_fn with make_optimizer's SGD: fp32 logits held to the single-card
-   model's (flash attention, K1), then one warm and 3 timed bf16 SGD steps,
+   model's (flash attention, K1), that fp32 forward under torch.profiler for
+   the fp32 K4's device time, then one warm and 3 timed bf16 SGD steps,
    with the launch counts read just after: the fp32 forward launches the fp32
    K4 128 times, each bf16 forward the bf16 K4 128 times, and nothing else.
 7. Single card: bench.py's TransformerLM leg (_measure_transformer,
@@ -76,15 +76,13 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out", "chip_smoke")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 # the least time for a product of the input type: bf16 dense on the tensor
 # cores; fp32-exact products as split TF32, three TF32 products for each fp32
-# one on the tensor cores (495 TFLOP/s / 3), the route of the fp32 forward and
-# backward (csrc/flash_tf32.cuh) and of PyTorch's fp32 memory-efficient
-# attention; 67
-# TFLOP/s, fp32 outside the tensor cores, would be the scalar route's
+# one on the tensor cores (495 TFLOP/s / 3), the route of every fp32 kernel
+# (csrc/flash_tf32.cuh) and of PyTorch's fp32 memory-efficient attention; 67
+# TFLOP/s, fp32 outside the tensor cores, would be a scalar route's
 PEAK_OPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
 # tolerance per dtype: |kernel - plain| <= atol + rtol * |plain|, elementwise.
-# fp32: the two sum in another order; the products of the forward, dQ and
-# dK/dV are split TF32 (about 21 bits of each operand;
-# tests/test_torch_split_tf32.py), the shard fold's fp32 FMAs, the plain
+# fp32: the two sum in another order; the kernels' products are split TF32
+# (about 21 bits of each operand; tests/test_torch_split_tf32.py), the plain
 # versions' fp32 (no TF32).
 # bf16: outputs are rounded to bf16 (2^-8 relative), and the forward rounds P
 # against its running max where the plain version uses the row max, so one
@@ -152,7 +150,7 @@ CASES = [
 # k shard, padded key tail, key positions permuted).  With shards of Lq keys,
 # q shard 1 folds shard 0 (all keys before the rows), itself (the diagonal)
 # and shard 2 (all after: dead when causal); past and dead folds carry the
-# diagonal fold's state.  The permuted fold takes the diagonal shard's
+# diagonal fold's state.  The permuted folds take the diagonal shard's
 # positions in a seeded order, which the dead-tile skip must survive.
 FOLD_CASES = [
     ("fold_past_bf16", 8, 256, 256, 16, 64, "bfloat16", True, 1, 0, 0, False),
@@ -163,6 +161,7 @@ FOLD_CASES = [
     ("fold_past_fp32", 8, 256, 256, 16, 64, "float32", True, 1, 0, 0, False),
     ("fold_diagonal_fp32", 8, 256, 256, 16, 64, "float32", True, 1, 1, 0, False),
     ("fold_dead_fp32", 8, 256, 256, 16, 64, "float32", True, 1, 2, 0, False),
+    ("fold_permuted_fp32", 8, 256, 256, 16, 64, "float32", True, 1, 1, 0, True),
     ("fold_ragged_full", 4, 200, 130, 8, 32, "float32", False, 1, 0, 17, False),
 ]
 # slice 2: bench.py's TransformerLM leg (bench.py:1465-1502), sequence-parallel
@@ -410,33 +409,42 @@ def kernel_phase(fa):
     return rows
 
 
+def fold_args(fa, B, Lq, Lk, H, D, dtype_name, causal, q_shard, k_shard, tail, perm):
+    """The arguments of one fold case of FOLD_CASES (its row without the
+    name): (q, k, v, q_pos, k_pos, m, l, o, causal) on the card."""
+    import torch
+
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    # q and the rows' own k, v as views of one fused projection, as the model gives them
+    qkv = (torch.randn(B, Lq, 3, H, D, generator=gen, device="cuda") * 0.5).to(dtype)
+    q, k_own, v_own = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    kv = (torch.randn(B, Lk, 2, H, D, generator=gen, device="cuda") * 0.5).to(dtype)
+    k, v = kv[:, :, 0], kv[:, :, 1]
+    q_pos = q_shard * Lq + torch.arange(Lq, dtype=torch.int32, device="cuda")
+    k_pos = k_shard * Lk + torch.arange(Lk, dtype=torch.int32, device="cuda")
+    if perm:
+        order = torch.randperm(Lk, generator=torch.Generator().manual_seed(5))
+        k_pos = k_pos[order.to("cuda")]
+    if tail:
+        k_pos[-tail:] = -1
+    m = torch.full((B, H, Lq), float("-inf"), device="cuda")
+    l = torch.zeros((B, H, Lq), device="cuda")
+    o = torch.zeros((B, Lq, H, D), device="cuda")
+    if causal and k_shard != q_shard:  # the ring folds the diagonal first
+        m, l, o = fa.flash_shard_update_plain(q, k_own, v_own, q_pos, q_pos, m, l, o, True)
+    return q, k, v, q_pos, k_pos, m, l, o, causal
+
+
 def fold_phase(fa):
     """K4 against its plain twin at every fold case; returns per-case rows."""
     import torch
 
     rows = []
     for case, B, Lq, Lk, H, D, dtype_name, causal, q_shard, k_shard, tail, perm in FOLD_CASES:
-        dtype = getattr(torch, dtype_name)
         tol = TOLERANCE[dtype_name]
-        gen = torch.Generator(device="cuda").manual_seed(4321)
-        # q and the rows' own k, v as views of one fused projection, as the model gives them
-        qkv = (torch.randn(B, Lq, 3, H, D, generator=gen, device="cuda") * 0.5).to(dtype)
-        q, k_own, v_own = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        kv = (torch.randn(B, Lk, 2, H, D, generator=gen, device="cuda") * 0.5).to(dtype)
-        k, v = kv[:, :, 0], kv[:, :, 1]
-        q_pos = q_shard * Lq + torch.arange(Lq, dtype=torch.int32, device="cuda")
-        k_pos = k_shard * Lk + torch.arange(Lk, dtype=torch.int32, device="cuda")
-        if perm:
-            order = torch.randperm(Lk, generator=torch.Generator().manual_seed(5))
-            k_pos = k_pos[order.to("cuda")]
-        if tail:
-            k_pos[-tail:] = -1
-        m = torch.full((B, H, Lq), float("-inf"), device="cuda")
-        l = torch.zeros((B, H, Lq), device="cuda")
-        o = torch.zeros((B, Lq, H, D), device="cuda")
-        if causal and k_shard != q_shard:  # the ring folds the diagonal first
-            m, l, o = fa.flash_shard_update_plain(q, k_own, v_own, q_pos, q_pos, m, l, o, True)
-        args = (q, k, v, q_pos, k_pos, m, l, o, causal)
+        args = fold_args(fa, B, Lq, Lk, H, D, dtype_name, causal, q_shard, k_shard, tail, perm)
+        q_pos, k_pos, m, l, o = args[3:8]
         poison(m, l, o)
         before = dict(fa.LAUNCHES)
         got = fa.flash_shard_update_cuda(*args)
@@ -446,7 +454,7 @@ def fold_phase(fa):
             raise AssertionError(f"{case}: launch counters moved {moved}")
         want = fa.flash_shard_update_plain(*args)
         scale = want[1].clamp_min(1.0).permute(0, 2, 1)[..., None]
-        err, _ = worst(check_close(f"{case} m", got[0], want[0], tol["m"]),
+        err, least_atol = worst(check_close(f"{case} m", got[0], want[0], tol["m"]),
                        check_close(f"{case} l", got[1], want[1], tol["l"]),
                        check_close(f"{case} o", got[2], want[2], tol["fold_o"], scale))
         o_err_over_l = float(((got[2] - want[2]).abs() / scale).max().item())
@@ -455,7 +463,7 @@ def fold_phase(fa):
         b_ms, b_by = bound_fold(B, H, D, dtype_name, live)
         row = {"case": case, "kernel": moved[0], "shape": [B, Lq, Lk, H, D],
                "dtype": dtype_name, "causal": causal, "shards": [q_shard, k_shard],
-               "live_pairs_per_bh": live_pairs, "max_abs_err": err,
+               "live_pairs_per_bh": live_pairs, "max_abs_err": err, "least_atol": least_atol,
                "o_err_over_l": o_err_over_l,
                "ms": time_ms(lambda: fa.flash_shard_update_cuda(*args), 30),
                # about 30 launches a call: 10 calls stay inside the card's launch queue
@@ -463,9 +471,9 @@ def fold_phase(fa):
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
         rows.append(row)
         log(f"  {case:18s} {moved[0]:18s} {dtype_name:8s} live pairs {live_pairs:6d} err {err:.3e} "
-            f"(o over max(l, 1) {o_err_over_l:.3e})  kernel "
+            f"(o over max(l, 1) {o_err_over_l:.3e}, least atol {least_atol:.3e})  kernel "
             f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
-        del qkv, kv, got, want, args
+        del got, want, args
         torch.cuda.empty_cache()
     return rows
 
@@ -636,8 +644,9 @@ def profile_phase(ft, fa):
 
 def sp_slice_phase(fa):
     """Slice 2 at full width: fp32 parity of sp logits with single-card
-    logits, then one warm and 3 timed bf16 SGD steps; the counts are set to
-    0 just before the sp forward and read after the last step.  One more step
+    logits (the sp forward under torch.profiler, for the fp32 K4's device
+    time), then one warm and 3 timed bf16 SGD steps; the counts are set to 0
+    just before the sp forward and read after the last step.  One more step
     runs under torch.profiler after that."""
     import dataclasses
     import types
@@ -665,9 +674,17 @@ def sp_slice_phase(fa):
         single = functional_call(TransformerLM(cfg, device="meta"), params, (tokens,))
         torch.cuda.synchronize()
         fa.reset_launches()  # slice 2's main path from here
-        logits = sp_apply(cfg, params, tokens, mesh)
-        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     acc_events=True) as fwd_prof:
+            logits = sp_apply(cfg, params, tokens, mesh)
+            torch.cuda.synchronize()
     fwd_launches = dict(fa.LAUNCHES)
+    fwd_fold = [e for e in fwd_prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and "flash_update_kernel" in e.key]
+    fwd_fold_ms = sum(e.self_device_time_total for e in fwd_fold) / 1e3
+    log(f"  fp32 sp forward under the profiler: K4 fp32 {fwd_fold_ms:.3f} ms of device time in "
+        f"{sum(e.count for e in fwd_fold)} launches")
     if tuple(logits.shape) != (SP_BATCH, SP_LEN, cfg.vocab_size):
         raise AssertionError(f"sp logits shape {tuple(logits.shape)}")
     parity, _ = check_close("sp logits vs single-card", logits, single, (SP_PARITY_ATOL, 0.0))
@@ -739,7 +756,8 @@ def sp_slice_phase(fa):
                       "calls": e.count})
         log(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
     return launches, {"params": n_params, "parity_max_abs_diff": parity,
-                      "forward_launches": fwd_launches, "launches": launches, "losses": losses,
+                      "forward_launches": fwd_launches, "forward_fold_ms": fwd_fold_ms,
+                      "launches": launches, "losses": losses,
                       "step_seconds": step_s, "median_step_s": timed,
                       "tokens_per_s": tokens_per_s, "peak_memory_bytes": peak,
                       "profile": {"wall_ms": wall_ms, "device_ms": device_ms, "fold_ms": fold_ms,

@@ -1,6 +1,6 @@
-// Shared device code of the flash-attention kernels: the fp32 kernels
-// (flash_fwd.cu, flash_bwd.cu, flash_update.cu) and the bf16 tensor-core
-// kernels (flash_fwd_sm90.cu, flash_dq_sm90.cu, flash_dkv_sm90.cu,
+// Shared device code of the flash-attention kernels: the fp32 split-TF32
+// kernels (flash_fwd.cu, flash_bwd.cu, flash_update.cu) and the bf16
+// tensor-core kernels (flash_fwd_sm90.cu, flash_dq_sm90.cu, flash_dkv_sm90.cu,
 // flash_update_sm90.cu).
 //
 // Everything that decides WHICH scores live and HOW P and dS are rebuilt lives
@@ -12,12 +12,11 @@
 // Layout: q, k, v, o, dO, dq, dk, dv are [B, L, H, D] tensors read through
 // element strides (the last dim must be contiguous); lse and delta are
 // contiguous [B, H, L] fp32.  Sums are fp32 throughout.  The fp32 tensor-core
-// kernels (forward, dQ, dK/dV) take each product as three TF32 products of
-// split operands (flash_tf32.cuh), fp32-exact to about 2^-21; the shard fold
-// (flash_update.cu) multiplies on fp32 FMAs.  The bf16 kernels multiply bf16
-// exactly on the tensor cores and round to bf16 the values the JAX kernel
-// casts to the input type before a product (P before P.V and P^T.dO, dS
-// before dS.K and dS^T.Q).
+// kernels (forward, dQ, dK/dV, the shard fold) take each product as three
+// TF32 products of split operands (flash_tf32.cuh), fp32-exact to about
+// 2^-21.  The bf16 kernels multiply bf16 exactly on the tensor cores and
+// round to bf16 the values the JAX kernel casts to the input type before a
+// product (P before P.V and P^T.dO, dS before dS.K and dS^T.Q).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -91,41 +90,6 @@ __device__ __forceinline__ void block_grads(float s, float dp, float lse, float 
                                             float scale, float& p, float& ds) {
   p = (live && is_finite(lse)) ? expf(s - lse) : 0.f;
   ds = p * (dp - delta) * scale;
-}
-
-// Stage rows [row0, row0 + ROWS) of one fp32 (b, h) slice into shared memory,
-// ld floats apart.  Rows at or past L are zero.  Neighbouring threads read
-// neighbouring elements of a row.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_rows(float* dst, int ld, const float* __restrict__ src,
-                                          Strides s, int b, int h, int row0, int L, int tid,
-                                          int nthreads) {
-  for (int e = tid; e < ROWS * D; e += nthreads) {
-    const int r = e / D;
-    const int c = e - r * D;
-    const int pos = row0 + r;
-    float val = 0.f;
-    if (pos < L) {
-      val = src[(long long)b * s.b + (long long)pos * s.l + (long long)h * s.h + c];
-    }
-    dst[r * ld + c] = val;
-  }
-}
-
-// Write rows [row0, row0 + ROWS) from shared memory back to one (b, h) slice,
-// skipping rows at or past L.
-template <int D, int ROWS>
-__device__ __forceinline__ void store_rows(float* __restrict__ dst, Strides s, const float* src,
-                                           int ld, int b, int h, int row0, int L, int tid,
-                                           int nthreads) {
-  for (int e = tid; e < ROWS * D; e += nthreads) {
-    const int r = e / D;
-    const int c = e - r * D;
-    const int pos = row0 + r;
-    if (pos < L) {
-      dst[(long long)b * s.b + (long long)pos * s.l + (long long)h * s.h + c] = src[r * ld + c];
-    }
-  }
 }
 
 }  // namespace flash

@@ -2,7 +2,7 @@
 //
 // Replaces: fedml_tpu/ops/flash_attention.py:_flash_bwd_dq_kernel (the Pallas
 // TPU kernel launched by _flash_backward) for bf16 inputs; fp32 inputs take
-// the scalar kernel of flash_bwd.cu.  Same function: P rebuilt from (q, k,
+// flash_bwd.cu's split-TF32 kernel.  Same function: P rebuilt from (q, k,
 // lse) and dS = P * (dO.V^T - delta) * scale through the block_grads of
 // flash_common.cuh, which the dK/dV kernel shares, on every accumulator
 // element; dS rounded to bf16 before dS.K, as the Pallas kernel's

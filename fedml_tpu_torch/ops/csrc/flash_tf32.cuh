@@ -1,7 +1,8 @@
 // Split TF32 on the tensor cores, and the cp.async ring that feeds it: the
-// device code shared by the fp32 tensor-core kernels, the forward
-// (flash_fwd.cu) and both backward kernels (flash_bwd.cu).  One split, one
-// order of products, so the three cannot drift apart.
+// device code shared by the fp32 tensor-core kernels: the forward
+// (flash_fwd.cu), both backward kernels (flash_bwd.cu) and the shard fold
+// (flash_update.cu).  One split, one order of products, so the four cannot
+// drift apart.
 //
 // A TF32 operand keeps 10 of fp32's 23 mantissa bits, too few for the fp32
 // tolerances.  Each fp32 operand x is split into big, x rounded to TF32, and

@@ -4,7 +4,7 @@
 //
 // Replaces: fedml_tpu/ops/flash_attention.py:_flash_update_kernel (the Pallas
 // TPU kernel launched by _flash_shard_update_impl) for bf16 q, k, v; fp32
-// inputs take the scalar kernel of flash_update.cu.  Same function as that
+// inputs take flash_update.cu's split-TF32 kernel.  Same function as that
 // kernel and flash_shard_update_plain: scores = q.k^T / sqrt(D) as fp32 sums
 // of exact bf16 products; a key is live iff k_pos >= 0 and, when causal,
 // q_pos >= k_pos, with positions read from the q_pos/k_pos arrays (global

@@ -1,11 +1,10 @@
 """Flash attention of the port: hand-written CUDA kernels and their plain twins.
 
 Counterpart of ``fedml_tpu/ops/flash_attention.py``.  Each of the four Pallas
-kernels has two CUDA kernels for Hopper, one per input type: in fp32
-(``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``, ``csrc/flash_update.cu``) the
-forward and both backward kernels on the tensor cores in split TF32 (three
-TF32 products per fp32 product, ``csrc/flash_tf32.cuh``) and the shard fold
-on scalar FMAs; in bf16 the tensor cores
+kernels has two CUDA kernels for Hopper, one per input type, all four of
+each on the tensor cores: in fp32 (``csrc/flash_fwd.cu``,
+``csrc/flash_bwd.cu``, ``csrc/flash_update.cu``) in split TF32 (three TF32
+products per fp32 product, ``csrc/flash_tf32.cuh``); in bf16
 (``csrc/flash_fwd_sm90.cu``, ``csrc/flash_dq_sm90.cu``,
 ``csrc/flash_dkv_sm90.cu``, ``csrc/flash_update_sm90.cu``).  Beside them here
 is a plain PyTorch version of the same function that materialises the scores:
@@ -30,11 +29,11 @@ Each CUDA wrapper adds one to ``LAUNCHES[kernel]`` for the kernel it launches:
 ``flash_fwd_sm90``, ``flash_dq_sm90``, ``flash_dkv_sm90`` and
 ``flash_update_sm90`` count the bf16 tensor-core kernels, ``flash_fwd``,
 ``flash_bwd_dq``, ``flash_bwd_dkv`` and ``flash_shard_update`` the fp32 ones.
-The bf16 kernels load tiles with TMA and the fp32 forward and backward
-kernels with 16-byte ``cp.async`` copies: each takes a tensor only if its
-base is 16-byte aligned
+The bf16 kernels load tiles with TMA and the fp32 kernels with 16-byte
+``cp.async`` copies: each takes a tensor only if its base is 16-byte aligned
 and its (b, l, h) strides are whole 16 bytes (8 bf16 or 4 fp32 elements, so
-the model's fused-qkv views load as they are); anything else raises.
+the model's fused-qkv views load as they are); the shard fold in both types
+also moves its carried o two floats at a time.  Anything else raises.
 
 Conventions shared by both routes (those of the JAX kernels): q, k, v, o are
 [B, L, H, D]; scores are scaled by 1/sqrt(D); keys past L and, when causal,
@@ -59,7 +58,7 @@ LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_fwd_sm90": 0, "flash_bwd_dq":
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 KERNEL_HEAD_DIMS = (32, 64)
 _MAX_GRID_Y = 65535
-_ALIGN_BYTES = 16  # TMA (bf16 kernels) and cp.async (fp32 K1-K3) copies
+_ALIGN_BYTES = 16  # TMA (bf16 kernels) and cp.async (fp32 kernels) copies
 # negative status codes of the tensor-map (TMA) entry points, csrc/flash_sm90.cuh
 _TMA_ERRORS = {-1: "the CUDA driver has no cuTensorMapEncodeTiled",
                -2: "the CUDA driver refused a tensor map for these strides"}
@@ -291,10 +290,10 @@ def _check_cp_async(name: str, *tensors: torch.Tensor) -> None:
 
 
 def _check_pairs(name: str, t: torch.Tensor) -> None:
-    """Raise unless the bf16 fold can move the fp32 state two floats at a
-    time: an 8-byte aligned base and even (b, l, h) strides."""
+    """Raise unless the fold (either type) can move the fp32 state two floats
+    at a time: an 8-byte aligned base and even (b, l, h) strides."""
     if t.data_ptr() % 8 or any(s % 2 for s in tma_strides(t)):
-        raise ValueError(f"{name}: the bf16 fold moves o two floats at a time, which needs an "
+        raise ValueError(f"{name}: the fold moves o two floats at a time, which needs an "
                          f"8-byte aligned base and even strides; got base {t.data_ptr():#x} "
                          f"and strides {t.stride()}")
 
@@ -394,15 +393,18 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool = True):
 
 
 def flash_shard_update_cuda(q, k, v, q_pos, k_pos, m, l, o, causal: bool = True):
-    """K4 on the card: (m, l, o) as :func:`flash_shard_update_plain`; bf16 q,
-    k, v on the tensor cores (``flash_update_sm90.cu``), fp32 on scalar FMAs."""
+    """K4 on the card: (m, l, o) as :func:`flash_shard_update_plain`, on the
+    tensor cores in both types: bf16 by ``wgmma`` (``flash_update_sm90.cu``),
+    fp32 in split TF32 by ``mma.sync`` (``flash_update.cu``)."""
     from .build import load
 
     B, Lq, H, D, Lk = _check_update("flash_shard_update", q, k, v, q_pos, k_pos, m, l, o)
     bf16 = q.dtype == torch.bfloat16
     if bf16:
         _check_tma("flash_shard_update", q, k, v)
-        _check_pairs("flash_shard_update", o)
+    else:
+        _check_cp_async("flash_shard_update", q, k, v)
+    _check_pairs("flash_shard_update", o)
     lib = load()
     m_out = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
     l_out = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)

@@ -7,8 +7,9 @@ Each variant of a set is a list of (old, new) replacements in one source of
 ``csrc/`` (or (file, old, new) in another file of ``csrc/``, a header it
 includes); every ``old`` must occur exactly once.  The tree's kernels run first
 and last, each variant between, at the cases of its source (the shapes of
-``chip_smoke.py``'s phase 2 and, for the bf16 forward, its non-causal twin);
-a backward source times each of its kernels.  With
+``chip_smoke.py``'s phase 2 and, for the bf16 forward, its non-causal twin;
+for the fp32 shard fold, phase 2's fp32 folds); a backward source times each
+of its kernels.  With
 ``--trace`` the bf16 forward is built with clock64 probes at the steps of a
 consumer's key loop (block 0, first q tile) and the cycles between them are
 printed.  Needs a CUDA card and nvcc; results go to ``variants/`` beside
@@ -28,9 +29,11 @@ from typing import Dict, List, Tuple
 BF16_SRC = "flash_fwd_sm90.cu"
 FP32_SRC = "flash_fwd.cu"
 BWD_SRC = "flash_bwd.cu"
+FOLD_SRC = "flash_update.cu"
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-# (name, B, L, H, D, dtype, causal)
+# (name, B, L, H, D, dtype, causal); for the fold, the names of chip_smoke.py's
+# FOLD_CASES
 CASES = {
     BF16_SRC: [("bench_bf16", 8, 1024, 16, 64, "bfloat16", True),
                ("bench_full", 8, 1024, 16, 64, "bfloat16", False)],
@@ -40,6 +43,8 @@ CASES = {
     BWD_SRC: [("slice_train", 32, 80, 8, 32, "float32", True),
               ("ragged_full", 4, 50, 8, 32, "float32", False),
               ("bench_fp32", 8, 1024, 16, 64, "float32", True)],
+    FOLD_SRC: [("fold_past_fp32",), ("fold_diagonal_fp32",), ("fold_dead_fp32",),
+               ("fold_permuted_fp32",), ("fold_ragged_full",)],
 }
 
 _STEP = "      issue_s(sb, kt + 1);\n      softmax_exp(sa);\n"
@@ -103,6 +108,104 @@ _TF32_H = "flash_tf32.cuh"
 _CORRECTIONS = ("  mma_tf32(d, a_small, b_big0, b_big1);\n"
                 "  mma_tf32(d, a_big, b_small0, b_small1);\n")
 _SPLIT_B = "  split(b0, b_big0, b_small0);\n  split(b1, b_big1, b_small1);\n"
+_FOLD_TILE = "static constexpr int BK = D == 64 ? 32 : 64;"
+_Q_FIRST = [("  const bool rows = r0 < Lq;                          // the warp has a row inside Lq\n",
+             "  const bool rows = r0 < Lq;\n"
+             "  load_tile<D, BQ>(smem + T::Q, T::LDQ, q, sq, b, h, q0, Lq);\n"
+             "  cp_async_commit();\n"),
+            ("  if (n_it > 0) {\n    load_tile<D, BQ>(smem + T::Q, T::LDQ, q, sq, b, h, q0, Lq);\n"
+             "    cp_async_commit();\n",
+             "  if (n_it == 0) cp_async_wait<0>();\n  if (n_it > 0) {\n")]
+# the fold's first design: Q's fragments split once into registers and held
+# for the whole fold (the tree reads them from shared memory at each 8-deep
+# step of S and splits them there)
+_Q_SPLIT = """    const float* qr = smem + T::Q + (16 * warp + g) * T::LDQ + 2 * t;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      const float2 lo = *reinterpret_cast<const float2*>(qr + 8 * kk);
+      const float2 hi = *reinterpret_cast<const float2*>(qr + 8 * T::LDQ + 8 * kk);
+      split(lo.x, qb[kk][0], qs[kk][0]);
+      split(hi.x, qb[kk][1], qs[kk][1]);
+      split(lo.y, qb[kk][2], qs[kk][2]);
+      split(hi.y, qb[kk][3], qs[kk][3]);
+    }
+"""
+_Q_REGISTERS = [("  if (n_it > 0) {\n    load_tile<D, BQ>",
+                 "  uint32_t qb[KD][4], qs[KD][4];\n  if (n_it > 0) {\n    load_tile<D, BQ>"),
+                ("    cp_async_wait<1>();  // Q has landed\n    __syncthreads();\n",
+                 "    cp_async_wait<1>();  // Q has landed\n    __syncthreads();\n" + _Q_SPLIT),
+                ("""      const float* qr = smem + T::Q + (16 * warp + g) * T::LDQ + 2 * t;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t qb[4], qs[4];
+        const float2 lo = *reinterpret_cast<const float2*>(qr + 8 * kk);
+        const float2 hi = *reinterpret_cast<const float2*>(qr + 8 * T::LDQ + 8 * kk);
+        split(lo.x, qb[0], qs[0]);
+        split(hi.x, qb[1], qs[1]);
+        split(lo.y, qb[2], qs[2]);
+        split(hi.y, qb[3], qs[3]);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const float2 kv = *reinterpret_cast<const float2*>(kr + 8 * j * T::LDK + 8 * kk);
+          mma_3xtf32(s[j], qb, qs, kv.x, kv.y);""",
+                 """#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const float2 kv = *reinterpret_cast<const float2*>(kr + 8 * j * T::LDK + 8 * kk);
+          mma_3xtf32(s[j], qb[kk], qs[kk], kv.x, kv.y);""")]
+# two shortcuts from the positions: each live tile's least live position and
+# greatest position (INT_MAX when it holds padding) kept beside the list; a
+# warp skips a tile whose least live position lies after its latest row, and
+# skips the live test on a tile without padding whose greatest position lies
+# at or before its least row
+_SHORTCUTS = [
+    ("  int* tiles = reinterpret_cast<int*>(smem + T::WORDS);\n",
+     "  int* tiles = reinterpret_cast<int*>(smem + T::WORDS);\n"
+     "  int* top = tiles + n_kt;\n  int* lows = top + n_kt;\n"),
+    ("  const int smem = 4 * (T::WORDS + n_kt);", "  const int smem = 4 * (T::WORDS + 3 * n_kt);"),
+    ("""    int least = INT_MAX;
+#pragma unroll
+    for (int i = 0; i < BK / 32; ++i) {
+      const int key = kt * BK + 32 * i + lane;
+      const int kp = key < Lk ? k_pos[key] : -1;
+      if (kp >= 0) least = min(least, kp);
+    }
+    least = __reduce_min_sync(0xffffffffu, least);
+    if (lane == 0) tiles[kt] = least;
+""", """    int least = INT_MAX, hi = INT_MIN;
+#pragma unroll
+    for (int i = 0; i < BK / 32; ++i) {
+      const int key = kt * BK + 32 * i + lane;
+      const int kp = key < Lk ? k_pos[key] : -1;
+      if (kp >= 0) least = min(least, kp);
+      hi = max(hi, kp >= 0 ? kp : INT_MAX);
+    }
+    least = __reduce_min_sync(0xffffffffu, least);
+    hi = __reduce_max_sync(0xffffffffu, hi);
+    if (lane == 0) {
+      tiles[kt] = least;
+      top[kt] = hi;
+    }
+"""),
+    ("  if (lane == 0) warp_last[warp] = last;\n",
+     "  if (lane == 0) warp_last[warp] = last;\n  int q_lo = INT_MAX;\n"
+     "  for (int r = 0; r < 2; ++r) if (r0 + g + 8 * r < Lq) q_lo = min(q_lo, qp[r]);\n"
+     "  q_lo = __reduce_min_sync(0xffffffffu, q_lo);\n"),
+    ("      const int least = kt < n_kt ? tiles[kt] : INT_MAX;\n",
+     "      const int least = kt < n_kt ? tiles[kt] : INT_MAX;\n"
+     "      const int hi = kt < n_kt ? top[kt] : INT_MAX;\n"),
+    ("      if (keep) tiles[n + __popc(kept & ((1u << lane) - 1u))] = kt;\n",
+     "      if (keep) {\n        const int at = n + __popc(kept & ((1u << lane) - 1u));\n"
+     "        tiles[at] = kt;\n        top[at] = hi;\n        lows[at] = least;\n      }\n"),
+    ("    if (rows) {\n",
+     "    if (rows && (!causal || lows[it] <= last)) {\n"
+     "      const bool all_live = top[it] != INT_MAX && (!causal || top[it] <= q_lo);\n"),
+    ("          if (!key_live_at(", "          if (!all_live && !key_live_at("),
+]
+# the fold's launch bound without its minimum of 4 blocks an SM
+_FOLD_UNCAPPED = ("__launch_bounds__(THREADS, 4)\n    flash_update_kernel(",
+                  "__launch_bounds__(THREADS)\n    flash_update_kernel(")
 _UNSPLIT_B = ("  b_big0 = __float_as_uint(b0);\n  b_big1 = __float_as_uint(b1);\n"
               "  b_small0 = b_small1 = 0u;\n")
 
@@ -135,6 +238,25 @@ SETS: Dict[str, List[Tuple[str, str, List[Tuple[str, str]]]]] = {
                  ("dq_grid_order", BWD_SRC, [(
                      "const int q0 = (gridDim.y - 1 - blockIdx.y) * ROWS;",
                      "const int q0 = blockIdx.y * ROWS;")])],
+    # the fp32 shard fold: the first design (Q split in registers, 167
+    # registers, 3 blocks an SM), and it capped for 4 blocks an SM; the tree
+    # without its launch bound's minimum of 4 blocks an SM (ptxas then takes
+    # fewer registers); 64-key tiles at D 64 (2 blocks an SM by shared memory,
+    # uncapped); with two shortcuts taken from the positions (a warp skips a
+    # tile none of its rows sees, and the live test where every key of the
+    # tile is live for every row of the warp); q tiles in grid order; the Q tile's copy queued before the position
+    # pre-pass (also on a dead fold); and the diagnostic of one TF32 product
+    "fold_fp32": [("q_in_registers", FOLD_SRC, _Q_REGISTERS + [_FOLD_UNCAPPED]),
+                  ("q_in_registers_capped", FOLD_SRC, _Q_REGISTERS),
+                  ("uncapped", FOLD_SRC, [_FOLD_UNCAPPED]),
+                  ("tile_64", FOLD_SRC, [(_FOLD_TILE, "static constexpr int BK = 64;"),
+                                         _FOLD_UNCAPPED]),
+                  ("position_shortcuts", FOLD_SRC, _SHORTCUTS),
+                  ("grid_order", FOLD_SRC, [(
+                      "const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;",
+                      "const int q0 = blockIdx.y * BQ;")]),
+                  ("q_first", FOLD_SRC, _Q_FIRST),
+                  ("one_product", FOLD_SRC, [(_TF32_H, _CORRECTIONS, "")])],
 }
 
 # clock64 probes at the steps of the bf16 forward's key loop
@@ -209,7 +331,7 @@ def _bind(source: str, lib: str = None) -> None:
     """Bind the tree's kernels, with ``source``'s library replaced by ``lib``."""
     from . import build
 
-    builds = dict(build.load().builds)
+    builds = build.build()  # the tree's libraries, built before
     if lib is not None:
         builds[source] = {"path": lib}
     build._LIBRARY[:] = [build.KernelLibrary(builds)]
@@ -224,12 +346,27 @@ def _inputs(B, L, H, D, dtype):
     return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
 
 
-def _calls(source, B, L, H, D, dtype, causal):
+def _fold_calls(case):
+    """[("fold", call, max |kernel - plain| of o)] at one of chip_smoke.py's
+    fold cases."""
+    import chip_smoke as cs
+
+    from . import flash_attention as fa
+
+    row = next(r for r in cs.FOLD_CASES if r[0] == case)
+    args = cs.fold_args(fa, *row[1:])
+    err = (fa.flash_shard_update_cuda(*args)[2] - fa.flash_shard_update_plain(*args)[2]).abs()
+    return [("fold", lambda: fa.flash_shard_update_cuda(*args), float(err.max()))]
+
+
+def _calls(source, case, B=None, L=None, H=None, D=None, dtype=None, causal=None):
     """[(kernel, call, max |kernel - plain|)] of a source's kernels at one case."""
     import torch
 
     from . import flash_attention as fa
 
+    if source == FOLD_SRC:
+        return _fold_calls(case)
     q, k, v = _inputs(B, L, H, D, dtype)
     if source != BWD_SRC:
         o, _ = fa.flash_forward_cuda(q, k, v, causal)
@@ -263,11 +400,11 @@ def time_variants(variants) -> list:
     rows = []
     for name, source, lib in order:
         _bind(source, lib)
-        for case, B, L, H, D, dtype, causal in CASES[source]:
-            for kernel, call, err in _calls(source, B, L, H, D, dtype, causal):
-                ms = cs.time_ms(call, 10 if L >= 1024 else 30)
-                rows.append((name, case, kernel, ms, err))
-                print(f"  {name:30s} {case:12s} {kernel:8s} {ms:.4f} ms  max |out - plain| "
+        for case in CASES[source]:
+            for kernel, call, err in _calls(source, *case):
+                ms = cs.time_ms(call, 10 if "bench" in case[0] else 30)
+                rows.append((name, case[0], kernel, ms, err))
+                print(f"  {name:30s} {case[0]:18s} {kernel:8s} {ms:.4f} ms  max |out - plain| "
                       f"{err:.3e}", flush=True)
             torch.cuda.empty_cache()
     _bind(sources[0])

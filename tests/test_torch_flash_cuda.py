@@ -7,10 +7,11 @@ machine with the card and without JAX, run it without the repo's conftest:
 In bf16 every kernel is a tensor-core (wgmma, TMA) kernel; the edge cases of
 test_kernels_match_plain and test_shard_update_kernel_matches_plain cover
 their 64-row tiles.
-The fp32 forward, dQ and dK/dV kernels are split-TF32 kernels (three TF32
-products per fp32 product on the tensor cores, csrc/flash_tf32.cuh);
-test_fp32_fwd_tolerance_fails_a_planted_fault and
-test_fp32_bwd_tolerance_fails_a_planted_fault show that one TF32 product
+The fp32 forward, dQ, dK/dV and shard-fold kernels are split-TF32 kernels
+(three TF32 products per fp32 product on the tensor cores,
+csrc/flash_tf32.cuh); test_fp32_fwd_tolerance_fails_a_planted_fault,
+test_fp32_bwd_tolerance_fails_a_planted_fault and
+test_fp32_fold_tolerance_fails_a_planted_fault show that one TF32 product
 fails their tolerances.
 Tolerances as chip_smoke.py states them: fp32 forward atol 2e-5 + rtol 1e-5,
 gradients atol 1e-4 + rtol 1e-4 (sums in another order); bf16 O atol 1e-3 +
@@ -409,15 +410,14 @@ def test_shard_update_kernel_matches_plain(cuda, dtype, D, name):
         assert torch.equal(m, args[5]) and torch.equal(l, args[6]) and torch.equal(o, args[7])
 
 
-@pytest.mark.parametrize("D", [32, 64])
-def test_bf16_dead_fold_passes_the_state_through_bit_for_bit(cuda, D):
-    """A bf16 fold with no live key (every key after the rows, or padding)
-    writes the carried state back bit for bit, every row of it: ragged Lq and
-    Lk, rows still at m = -inf, outputs allocated over NaN."""
+def _dead_fold_passes_the_state_through(cuda, dtype, D):
+    """A fold with no live key (every key after the rows, or padding) writes
+    the carried state back bit for bit, every row of it: ragged Lq and Lk,
+    rows still at m = -inf, outputs allocated over NaN."""
     gen = torch.Generator(device=cuda).manual_seed(3)
     Lq, Lk = 100, 70
-    q = torch.randn(2, Lq, 3, D, generator=gen, device=cuda).to(torch.bfloat16)
-    k, v = (torch.randn(2, Lk, 3, D, generator=gen, device=cuda).to(torch.bfloat16)
+    q = torch.randn(2, Lq, 3, D, generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn(2, Lk, 3, D, generator=gen, device=cuda).to(dtype)
             for _ in range(2))
     q_pos = torch.arange(Lq, dtype=torch.int32, device=cuda)
     idx = torch.arange(Lk, dtype=torch.int32, device=cuda)
@@ -428,10 +428,91 @@ def test_bf16_dead_fold_passes_the_state_through_bit_for_bit(cuda, D):
     m[:, :, ::5], l[:, :, ::5], o[:, ::5] = float("-inf"), 0.0, 0.0  # rows that saw no key
     blocks = [torch.full_like(t, float("nan")) for t in (m, l, o)]
     del blocks  # the outputs come from these NaN blocks
-    before = fa.LAUNCHES["flash_update_sm90"]
+    kernel = FOLD_KERNELS[dtype]
+    before = fa.LAUNCHES[kernel]
     m2, l2, o2 = fa.flash_shard_update_cuda(q, k, v, q_pos, k_pos, m, l, o, True)
-    assert fa.LAUNCHES["flash_update_sm90"] == before + 1
+    assert fa.LAUNCHES[kernel] == before + 1
     assert torch.equal(m2, m) and torch.equal(l2, l) and torch.equal(o2, o)
+
+
+@pytest.mark.parametrize("D", [32, 64])
+def test_bf16_dead_fold_passes_the_state_through_bit_for_bit(cuda, D):
+    _dead_fold_passes_the_state_through(cuda, torch.bfloat16, D)
+
+
+@pytest.mark.parametrize("D", [32, 64])
+def test_fp32_dead_fold_passes_the_state_through_bit_for_bit(cuda, D):
+    _dead_fold_passes_the_state_through(cuda, torch.float32, D)
+
+
+def _fold_least_atol(got, want, rtol):
+    """The least atol, in units of max(l, 1), with which the fold's o passes."""
+    scale = want[1].clamp_min(1.0).permute(0, 2, 1)[..., None]
+    return (((got[2] - want[2]).abs() - rtol * want[2].abs()) / scale).clamp_min(0.0).max().item()
+
+
+def test_fp32_fold_tolerance_fails_a_planted_fault(cuda, tmp_path, monkeypatch):
+    """At every fold case of FOLDS (D 64) the fp32 fold tolerance (m atol
+    1e-5 + rtol 1e-6, l 1e-5 + 1e-5, o 2e-5 + 1e-5 over max(l, 1)) passes the
+    split-TF32 fold and fails a copy of it that takes one TF32 product per
+    fp32 product (the two correction products removed from the shared
+    split), on the fold whose keys all lie before the rows; the dead fold,
+    which multiplies nothing, still passes its state through bit for bit.
+    Prints the least atol of o each needs."""
+    cases = {name: _fold_case(cuda, torch.float32, 64, name) for name in sorted(FOLDS)}
+    want = {name: fa.flash_shard_update_plain(*args, causal)
+            for name, (args, causal) in cases.items()}
+    atol, rtol = FOLD_TOL[torch.float32]
+
+    def folds():
+        got = {name: fa.flash_shard_update_cuda(*args, causal)
+               for name, (args, causal) in cases.items()}
+        torch.cuda.synchronize()
+        return got
+
+    sound = folds()
+    _plant_fault(monkeypatch, tmp_path, "flash_update.cu", SOUND_FWD, FAULT_FWD,
+                 edit="flash_tf32.cuh")
+    fault = folds()
+    least = {name: (_fold_least_atol(sound[name], want[name], rtol),
+                    _fold_least_atol(fault[name], want[name], rtol)) for name in cases}
+    print("\nfp32 fold, D 64: least atol of o over max(l, 1) at rtol "
+          f"{rtol} (split TF32, one TF32 product): "
+          + "; ".join(f"{n} {a:.3e}, {b:.3e}" for n, (a, b) in least.items()))
+    for name in cases:
+        m, l, _ = sound[name]
+        torch.testing.assert_close(m, want[name][0], atol=1e-5, rtol=1e-6)
+        torch.testing.assert_close(l, want[name][1], atol=1e-5, rtol=1e-5)
+        assert least[name][0] <= atol, name
+    assert least["past"][1] > atol
+    args = cases["dead"][0]
+    assert all(torch.equal(a, b) for a, b in zip(fault["dead"], args[5:]))
+
+
+def test_fp32_fold_rejects_what_cp_async_cannot_load(cuda):
+    """The fp32 fold loads K/V tiles with 16-byte cp.async copies and the
+    carried o two floats at a time: a head stride that is not a whole 16
+    bytes, or a base off a 16-byte boundary, in q, k or v raises, and so does
+    an o with an odd stride or a base off an 8-byte boundary; no kernel
+    launches.  Fused-qkv views load as they are."""
+    shape = (2, 70, 2, 64)
+    good = torch.randn(shape, device=cuda)
+    odd_stride = torch.zeros(2, 70, 2, 65, device=cuda)[..., :64]
+    odd_base = torch.zeros(good.numel() + 1, device=cuda)[1:].view(shape)
+    pos = torch.arange(70, dtype=torch.int32, device=cuda)
+    m = torch.zeros(2, 2, 70, device=cuda)
+    o = torch.zeros(shape, device=cuda)
+    before = dict(fa.LAUNCHES)
+    for bad in (odd_stride, odd_base):
+        for args in ((bad, good, good), (good, bad, good), (good, good, bad)):
+            with pytest.raises(ValueError, match="cp.async"):
+                fa.flash_shard_update_cuda(*args, pos, pos, m, m, o, True)
+        with pytest.raises(ValueError, match="two floats"):
+            fa.flash_shard_update_cuda(good, good, good, pos, pos, m, m, bad, True)
+    assert fa.LAUNCHES == before
+    qkv = torch.randn(2, 70, 3, 2, 64, device=cuda)
+    fa.flash_shard_update_cuda(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], pos, pos, m, m, o, True)
+    assert fa.LAUNCHES["flash_shard_update"] == before["flash_shard_update"] + 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

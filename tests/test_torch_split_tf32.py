@@ -1,5 +1,6 @@
 """The numerical design of the fp32 kernels (``csrc/flash_fwd.cu``,
-``csrc/flash_bwd.cu``, over ``csrc/flash_tf32.cuh``), emulated on the CPU:
+``csrc/flash_bwd.cu``, ``csrc/flash_update.cu``, over
+``csrc/flash_tf32.cuh``), emulated on the CPU:
 products on TF32 tensor cores, each fp32 operand split into a big and a small
 TF32 part, three products summed in fp32.
 
@@ -16,8 +17,14 @@ holds the kernel to (O atol 2e-5 + rtol 1e-5, LSE atol 1e-5 + rtol 1e-6);
 the same with one TF32 product (big . big) must fail it.  So must the
 backward's dQ, dK and dV, with S, dP, P^T.dO, dS.K and dS^T.Q so computed,
 to the gradient tolerance (atol 1e-4 + rtol 1e-4), and one TF32 product must
-fail it on dV.  That is why the kernels take three products and what planted
-single-TF32 copies of them show on the card (tests/test_torch_flash_cuda.py).
+fail it on dV.  So must ring attention's shard fold, with q.k^T and P.V so
+computed inside its online softmax: two folds in sequence (the diagonal shard
+with shuffled key positions, then a past shard with a padded key tail into
+the carried state) against a float64 fold, to the fold tolerance (m atol 1e-5
++ rtol 1e-6, l 1e-5 + 1e-5, o 2e-5 + 1e-5 with the atol scaled by max(l, 1));
+one TF32 product must fail it on o.  That is why the kernels take three
+products and what planted single-TF32 copies of them show on the card
+(tests/test_torch_flash_cuda.py).
 """
 
 import math
@@ -31,6 +38,7 @@ from fedml_tpu_torch.ops import flash_attention as fa
 O_TOL = (2e-5, 1e-5)
 LSE_TOL = (1e-5, 1e-6)
 GRAD_TOL = (1e-4, 1e-4)
+FOLD_TOL = {"m": (1e-5, 1e-6), "l": (1e-5, 1e-5), "o": (2e-5, 1e-5)}
 
 
 def tf32(x: torch.Tensor, rounding: str) -> torch.Tensor:
@@ -159,3 +167,61 @@ def test_split_tf32_backward_holds_the_fp32_grad_tolerance(grad_case, split, rou
             assert _within(got, want, GRAD_TOL)
     else:
         assert not _within(dv, dv_ref, GRAD_TOL)
+
+
+def fold(q, k, v, q_pos, k_pos, m, l, o, products):
+    """One causal shard fold of [B, L, H, D] inputs into the carried (m, l, o):
+    the scores and P.V by ``products`` (a matmul), the online softmax in the
+    inputs' type, liveness from the positions (``_live_at``)."""
+    qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))  # [B, H, L, D]
+    s = products(qh, kh.transpose(-1, -2)) * (1.0 / math.sqrt(q.shape[-1]))
+    live = fa._live_at(q_pos, k_pos, True)
+    s = s.masked_fill(~live, float("-inf"))
+    new_m = torch.maximum(m, s.amax(dim=-1))
+    safe_m = torch.where(torch.isfinite(new_m), new_m, torch.zeros_like(new_m))
+    p = torch.exp(s - safe_m[..., None]).masked_fill(~live, 0.0)
+    corr = torch.where(torch.isfinite(m), torch.exp(m - safe_m), torch.zeros_like(m))
+    pv = products(p, vh).permute(0, 2, 1, 3)
+    return new_m, l * corr + p.sum(dim=-1), o * corr.permute(0, 2, 1)[..., None] + pv
+
+
+@pytest.fixture(scope="module")
+def fold_case():
+    """q of shard 1 and two K/V shards at B 2, L 80, H 2, D 32: the diagonal
+    shard's key positions in a seeded order, and the past shard 0 with its
+    last 9 keys padding (position -1)."""
+    rs = np.random.RandomState(7)
+    q, k1, v1, k0, v0 = (torch.from_numpy(rs.randn(2, 80, 2, 32).astype(np.float32) * 0.5)
+                         for _ in range(5))
+    q_pos = torch.arange(80, 160, dtype=torch.int32)
+    k1_pos = q_pos[torch.from_numpy(rs.permutation(80))]
+    k0_pos = torch.where(torch.arange(80) < 71, torch.arange(80), -1).to(torch.int32)
+    return q, ((k1, v1, k1_pos), (k0, v0, k0_pos)), q_pos
+
+
+def _two_folds(case, products, dtype):
+    q, shards, q_pos = case
+    m = torch.full((2, 2, 80), float("-inf"), dtype=dtype)
+    l = torch.zeros(2, 2, 80, dtype=dtype)
+    o = torch.zeros(2, 80, 2, 32, dtype=dtype)
+    for k, v, k_pos in shards:
+        m, l, o = fold(q.to(dtype), k.to(dtype), v.to(dtype), q_pos, k_pos, m, l, o, products)
+    return m, l, o
+
+
+@pytest.mark.parametrize("rounding", [("rna", "trunc"), ("rna", "rna"), ("rne", "rne")],
+                         ids=["kernel", "rna", "rne"])
+@pytest.mark.parametrize("split", [True, False], ids=["split_tf32", "single_tf32"])
+def test_split_tf32_fold_holds_the_fp32_fold_tolerance(fold_case, split, rounding):
+    m_ref, l_ref, o_ref = _two_folds(fold_case, torch.matmul, torch.float64)
+    m, l, o = _two_folds(fold_case, lambda a, b: tf32_matmul(a, b, split, rounding),
+                         torch.float32)
+    o_scale = l_ref.clamp_min(1.0).permute(0, 2, 1)[..., None]
+    o_within = bool(((o.double() - o_ref).abs()
+                     <= FOLD_TOL["o"][0] * o_scale + FOLD_TOL["o"][1] * o_ref.abs()).all())
+    if split:
+        assert _within(m, m_ref, FOLD_TOL["m"])
+        assert _within(l, l_ref, FOLD_TOL["l"])
+        assert o_within
+    else:
+        assert not o_within

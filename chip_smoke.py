@@ -28,7 +28,9 @@
    rows of K1-K3 and their yardsticks are printed on a line of their own.
 3. Reference: one FedAvg round of a small TransformerLM on the card
    (kernels) and on the CPU (plain versions) from the same seed must agree;
-   so must one SGD step of a small sequence-parallel TransformerLM (sp 4).
+   so must one SGD step of a small sequence-parallel TransformerLM (sp 4),
+   and one packed FedAvg round of a ResNet-20 in fp32 with TF32 off (8
+   clients of 2 batches each, the same weights on both).
 4. Slice 1: FedAvg of the full-width hub TransformerLM on shakespeare
    (100 clients, 10 per round, 3 rounds) through fedml_tpu_torch.init ->
    data.load -> models.hub.create -> FedMLRunner(...).run(), with every
@@ -50,7 +52,22 @@
    make_optimizer: one warm and 3 timed steps, each launching exactly 8 K1,
    8 K2 and 8 K3 (the bf16 tensor-core kernels) and no K4, then one step
    under torch.profiler.
-8. The kernels line, the card line, and the last line
+8. Slice 3: bench.py's north-star configuration (_bench_args(1),
+   bench.py:97-128) through fedml_tpu_torch.init -> data.load ->
+   models.hub.create -> FedMLRunner(...).run(): FedAvg of ResNet-56
+   (GroupNorm, bf16 compute over fp32 params) on cifar10 (synthetic, 50,000
+   NHWC images stored in bf16), 100 Dirichlet(0.5) clients, 32 a round
+   through the packed round, batch 64, SGD lr 0.001.  Cut: 4 rounds instead
+   of 6.  It checks the bf16 storage bit for bit, logs each round's seconds,
+   real steps and bucket, throughput() and the peak memory, requires finite
+   losses, and asserts that no flash kernel launched.  Then a fixed cohort's
+   round is timed with cudnn.benchmark off and on (off, on, on, off), and
+   one round runs under torch.profiler: busy share, the top kernels, the
+   device time of convolutions, GroupNorm and elementwise kernels, and the
+   aten ops a step.  A lone F.group_norm on channels_last input shows
+   whether it copies to contiguous; the boundary flush is timed on its own
+   with CUDA events.
+9. The kernels line, the card line, and the last line
    {"ok": true, "device": {...}}.
 
 Any failure raises and the script exits non-zero with no result line.  It
@@ -170,6 +187,19 @@ SP_BATCH, SP_LEN, SP_SHARDS, SP_LR = 8, 1024, 4, 1e-3
 # sp logits (ring, K4) against single-card logits (K1), fp32 with TF32 off:
 # the two sum each row's keys in another order, through 8 layers
 SP_PARITY_ATOL = 1e-3
+# slice 3: bench.py's _bench_args(1) (bench.py:97-128), 4 rounds instead of 6
+BENCH_CONFIG = {
+    "common_args": {"training_type": "simulation", "random_seed": 0, "run_id": "bench"},
+    "data_args": {"dataset": "cifar10", "data_cache_dir": os.path.join(ROOT, "fedml_data"),
+                  "partition_method": "hetero", "partition_alpha": 0.5},
+    "model_args": {"model": "resnet56", "compute_dtype": "bf16"},
+    "train_args": {"federated_optimizer": "FedAvg", "client_num_in_total": 100,
+                   "client_num_per_round": 32, "xla_pack": True, "comm_round": 4, "epochs": 1,
+                   "batch_size": 64, "client_optimizer": "sgd", "learning_rate": 0.001},
+    "validation_args": {"frequency_of_the_test": 0},
+    "device_args": {"device_type": "gpu"},
+    "comm_args": {"backend": "XLA"},
+}
 SLICE_CONFIG = {
     "common_args": {"training_type": "simulation", "random_seed": 0},
     "data_args": {"dataset": "shakespeare", "partition_method": "hetero", "partition_alpha": 0.5},
@@ -558,6 +588,50 @@ def sp_reference_phase():
     return {"max_param_diff": worst, "loss_card": losses["cuda"], "loss_cpu": losses["cpu"]}
 
 
+def packed_reference_phase(ft):
+    """One packed FedAvg round of a ResNet-20 in fp32 on the card and on the
+    CPU: 8 clients of 32 cifar10 images, batch 16 (2 batches each), TF32 off
+    (the simulator pins it on the card), the CPU run's initial weights on
+    both.  The shuffles are host numpy, so the runs differ only by the
+    convolutions' sums."""
+    import copy
+
+    import torch
+
+    config = copy.deepcopy(BENCH_CONFIG)
+    config["data_args"].update(partition_method="homo", synthetic_train_size=256)
+    config["model_args"].update(model="resnet20", compute_dtype="fp32")
+    config["train_args"].update(client_num_in_total=8, client_num_per_round=8, comm_round=1,
+                                batch_size=16)
+    finals, init = {}, None
+    for dev_type in ("cpu", "gpu"):
+        config["device_args"]["device_type"] = dev_type
+        args = ft.init(ft.Arguments.from_dict(copy.deepcopy(config)), should_init_logs=False)
+        device = ft.device.get_device(args)
+        dataset, classes = ft.data.load(args)
+        runner = ft.FedMLRunner(args, device, dataset, ft.models.hub.create(args, classes))
+        sim = runner.runner.sim
+        if init is None:
+            init = {k: v.clone() for k, v in sim.variables.items()}
+        sim.variables = {k: v.to(device) for k, v in init.items()}
+        runner.run()
+        finals[dev_type] = ({k: v.float().cpu() for k, v in sim.variables.items()},
+                            sim.round_losses[0], int(sim._s_bucket))
+    worst = 0.0
+    for name, g in finals["gpu"][0].items():
+        err = (g - finals["cpu"][0][name]).abs().max().item()
+        if err > 1e-4:
+            raise AssertionError(f"packed reference: {name} differs card vs CPU by {err:.3e}")
+        worst = max(worst, err)
+    log(f"  packed ResNet-20 round card vs CPU ({finals['gpu'][2]} steps): loss "
+        f"{finals['gpu'][1]:.6f} vs {finals['cpu'][1]:.6f}; max |param diff| {worst:.3e} "
+        f"(atol 1e-4)")
+    return {"max_param_diff": worst, "loss_card": finals["gpu"][1],
+            "loss_cpu": finals["cpu"][1], "tf32": {
+                "cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+                "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32}}
+
+
 def slice_phase(ft, fa):
     import copy
 
@@ -763,6 +837,178 @@ def sp_slice_phase(fa):
                       "profile": {"wall_ms": wall_ms, "device_ms": device_ms, "fold_ms": fold_ms,
                                   "top": table}}
 
+# device-kernel families of the ResNet round, by substrings of kernel names
+KERNEL_FAMILIES = (
+    ("groupnorm", ("groupnorm", "group_norm", "rowwisemoments", "computefusedparams",
+                   "compute1dbackward", "computeinternalgradients", "computebackward",
+                   "gammabeta")),
+    ("convolution", ("cudnn", "xmma", "implicit_gemm", "wgrad", "dgrad", "fprop", "conv2d",
+                     "convolution", "nchwtonhwc", "nhwctonchw", "cutlass")),
+    ("elementwise and reductions", ("elementwise", "multi_tensor_apply", "reduce_kernel")),
+)
+
+
+def kernel_family(name: str) -> str:
+    low = name.lower()
+    for family, keys in KERNEL_FAMILIES:
+        if any(k in low for k in keys):
+            return family
+    return "other"
+
+
+def resnet_slice_phase(ft, fa):
+    """bench.py's north-star configuration through the port's entry points
+    (BENCH_CONFIG).  The counts are set to 0 before the run and read after:
+    this path launches no flash kernel."""
+    import copy
+
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    fa.reset_launches()
+    args = ft.init(ft.Arguments.from_dict(copy.deepcopy(BENCH_CONFIG)), should_init_logs=False)
+    device = ft.device.get_device(args)
+    t0 = time.perf_counter()
+    dataset, classes = ft.data.load(args)
+    data_s = time.perf_counter() - t0
+    model = ft.models.hub.create(args, classes)
+    t0 = time.perf_counter()
+    runner = ft.FedMLRunner(args, device, dataset, model)
+    sim = runner.runner.sim
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    n_params = sum(v.numel() for v in sim.variables.values())
+    log(f"  data: {dataset[0]} train / {dataset[1]} test images {dataset[2][0].shape[1:]} "
+        f"generated in {data_s:.2f} s (synthetic: {args.dataset_is_synthetic}); simulator built "
+        f"in {pack_s:.2f} s: x_all {tuple(sim.x_all.shape)} {sim.x_all.dtype}, "
+        f"{n_params:,} params, s_max {sim.s_max}")
+    if sim.x_all.dtype is not torch.bfloat16 or not sim.packed:
+        raise AssertionError(f"x_all {sim.x_all.dtype}, packed {sim.packed}")
+    # a gathered batch is the fp32 batch cast to bf16, bit for bit
+    for cid in (0, sim.num_clients // 2, sim.num_clients - 1):
+        k = min(64, int(sim.client_counts[cid]))
+        rows = torch.from_numpy(sim._client_rows[cid][:k].astype(np.int64)).to(device)
+        want = torch.from_numpy(dataset[5][cid][0][:k]).to(device=device, dtype=torch.bfloat16)
+        if not torch.equal(sim.x_all.index_select(0, rows).view(torch.int16),
+                           want.view(torch.int16)):
+            raise AssertionError(f"client {cid}: the bf16 rows are not the fp32 rows cast")
+
+    streams = []
+    packed_inputs = sim._packed_inputs
+
+    def recorded(ids, counts, round_idx):
+        sched = packed_inputs(ids, counts, round_idx)
+        streams.append({"round": round_idx, "steps": int(sched.n_steps),
+                        "s_bucket": int(sim._s_bucket), "clients": len(ids),
+                        "samples": int(counts.sum())})
+        return sched
+
+    sim._packed_inputs = recorded
+    before = dict(fa.LAUNCHES)
+    torch.cuda.reset_peak_memory_stats()
+    runner.run()
+    sim._packed_inputs = packed_inputs
+    launches = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    if any(launches.values()) or any(before.values()):
+        raise AssertionError(f"a flash kernel launched on slice 3's path: {launches}")
+    if len(sim.round_losses) != 4 or not all(math.isfinite(x) for x in sim.round_losses):
+        raise AssertionError(f"train losses {sim.round_losses}")
+    tp = sim.throughput()
+    for st, dt, loss in zip(streams, sim.round_times, sim.round_losses):
+        log(f"  round {st['round']}: {dt:.4f} s, {st['steps']} steps (bucket {st['s_bucket']}), "
+            f"{st['samples']} samples of {st['clients']} clients, loss {loss:.6f}")
+    log(f"  throughput {json.dumps(tp)}; peak memory {peak / 2**30:.3f} GiB; "
+        f"flash launches {launches}")
+
+    # cudnn.benchmark both ways, alternated, on one fixed cohort
+    sampled = sim._client_sampling(1)
+    ids, real = sim._schedule(sampled)
+    counts = np.where(real > 0, sim.client_counts[ids], 0)
+    bench_mode = torch.backends.cudnn.benchmark
+    cudnn_rounds = []
+    for mode in (False, True, True, False):
+        torch.backends.cudnn.benchmark = mode
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(sim._run_packed_round(1, ids, counts))
+        cudnn_rounds.append({"benchmark": mode, "seconds": time.perf_counter() - t0,
+                             "loss": loss})
+    torch.backends.cudnn.benchmark = bench_mode
+    log("  cudnn.benchmark off/on/on/off, round 1's cohort: "
+        + ", ".join(f"{r['benchmark']}: {r['seconds']:.4f} s" for r in cudnn_rounds))
+
+    # one round under the profiler; its ~10^6 events are summed from the raw
+    # kineto records (key_averages() takes minutes over that many)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        float(sim._run_packed_round(1, ids, counts))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels: dict = {}  # name -> [device ms, launches]
+    ops: dict = {}  # aten op -> calls
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            k = kernels.setdefault(e.name(), [0.0, 0])
+            k[0] += e.duration_ns() / 1e6
+            k[1] += 1
+        elif e.name().startswith("aten::"):
+            ops[e.name()] = ops.get(e.name(), 0) + 1
+    steps = streams[1]["steps"]
+    device_ms = sum(ms for ms, _ in kernels.values())
+    families: dict = {}
+    for name, (ms, _) in kernels.items():
+        families[kernel_family(name)] = families.get(kernel_family(name), 0.0) + ms
+    median_round_ms = 1e3 * tp["median_round_s"]
+    log(f"  one round under the profiler ({steps} steps): wall {wall_ms:.1f} ms, device busy "
+        f"{device_ms:.1f} ms ({100 * device_ms / wall_ms:.1f} %; "
+        f"{100 * device_ms / median_round_ms:.1f} % of the unprofiled median round); by family "
+        + json.dumps({k: round(v, 3) for k, v in sorted(families.items())}))
+    top = []
+    for name, (ms, calls) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:16]:
+        top.append({"name": name, "device_ms": ms, "calls": calls, "family": kernel_family(name)})
+        log(f"    {ms:9.3f} ms  {calls:7d}x  {name[:90]}")
+    op_table = sorted(ops.items(), key=lambda kv: -kv[1])[:16]
+    log(f"  aten ops a step: {sum(ops.values()) / steps:.0f}; the most called: " + ", ".join(
+        f"{name} {calls / steps:.0f}" for name, calls in op_table))
+
+    # GroupNorm on a channels_last input, as the model gives it: the ops it
+    # runs (a contiguous copy or not) and the layout of its output
+    xg = torch.randn(64, 16, 32, 32, device=device).contiguous(memory_format=torch.channels_last)
+    wg, bg = torch.ones(16, device=device), torch.zeros(16, device=device)
+    with profile(activities=[ProfilerActivity.CPU]) as gprof:
+        yg = F.group_norm(xg, 1, wg, bg, 1e-6)
+    gn = {"ops": [e.name() for e in gprof.profiler.kineto_results.events()
+                  if e.name().startswith("aten::") and e.name() not in ("aten::empty",
+                                                                         "aten::view")],
+          "output_channels_last": yg.is_contiguous(memory_format=torch.channels_last),
+          "output_contiguous": yg.is_contiguous()}
+    log(f"  group_norm on a channels_last [64, 16, 32, 32] input: {json.dumps(gn)}")
+
+    # the boundary flush (acc += w * params; params <- round start), alone
+    params = [p for p in model.parameters()]
+    acc = [torch.zeros_like(p) for p in params]
+    start = [p.detach().clone() for p in params]
+
+    def flush():
+        with torch.no_grad():
+            torch._foreach_add_(acc, params, alpha=3.0)
+            torch._foreach_copy_(params, start)
+
+    flush_ms = time_ms(flush)
+    log(f"  one boundary flush ({len(params)} tensors, {n_params:,} params): {flush_ms:.4f} ms; "
+        f"{len(ids)} a round: {flush_ms * len(ids):.3f} ms")
+    return {"params": n_params, "data_seconds": data_s, "build_seconds": pack_s,
+            "streams": streams, "round_times": list(sim.round_times),
+            "round_losses": list(sim.round_losses), "throughput": tp,
+            "peak_memory_bytes": peak, "launches": launches, "cudnn_benchmark": cudnn_rounds,
+            "profile": {"wall_ms": wall_ms, "device_ms": device_ms, "steps": steps,
+                        "families_ms": families, "top": top, "ops_per_round": dict(op_table)},
+            "group_norm": gn,
+            "flush_ms": flush_ms, "flushes_per_round": len(ids)}
+
 
 def ptxas_check(build, builds) -> dict:
     """Registers and spills of every kernel instantiation from ptxas's log;
@@ -935,9 +1181,11 @@ def main() -> int:
     rows = kernel_phase(fa)
     fold_rows = fold_phase(fa)
 
-    log("== phase 3: reference (card vs CPU: one FedAvg round; one sp SGD step)")
+    log("== phase 3: reference (card vs CPU: one FedAvg round; one sp SGD step; one packed "
+        "ResNet-20 round)")
     ref_err = reference_phase(ft)
     sp_ref = sp_reference_phase()
+    packed_ref = packed_reference_phase(ft)
 
     log("== phase 4: slice 1 (FedAvg, hub transformer, shakespeare, 3 rounds)")
     launches, final, tp, round_times, losses = slice_phase(ft, fa)
@@ -951,16 +1199,23 @@ def main() -> int:
     log("== phase 7: single card (bench.py's TransformerLM leg, bf16, B 8 x L 1024)")
     single_launches, single = single_card_phase(ft, fa)
 
+    log("== phase 8: slice 3 (bench.py's ResNet-56 packed FedAvg round, 4 rounds)")
+    resnet_slice = resnet_slice_phase(ft, fa)
+
+    log("== phase 9: results")
+
     kernels = kernels_line(rows + fold_rows, (launches, sp_launches, single_launches))
     bench = bench_bf16_summary(rows)
     with open(os.path.join(OUT_DIR, "results.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
                    "ptxas": ptxas, "cases": rows, "folds": fold_rows, "bench_bf16": bench,
                    "reference_max_param_diff": ref_err,
-                   "sp_reference": sp_ref, "launches": launches,
+                   "sp_reference": sp_ref, "packed_reference": packed_ref,
+                   "launches": launches,
                    "final_eval": final, "throughput": tp, "round_times": round_times,
                    "round_losses": losses, "kernels": kernels, "profile": prof,
                    "sp_slice": sp_slice, "single_card": single,
+                   "resnet_slice": resnet_slice,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"bench_bf16": bench}))

@@ -2,7 +2,7 @@
 ``fedml_tpu/core/population/policies.py``): the uniform policy with the
 simulator's ``mt19937`` schedule, ``RandomState(round_idx)`` drawing without
 replacement, so cohorts match the JAX package's bit for bit.  The stratified
-and importance policies are a later slice (ROADMAP.md queue A, item 6)."""
+and importance policies are a later slice (ROADMAP.md queue A, item 6b)."""
 
 from __future__ import annotations
 
@@ -34,6 +34,6 @@ def make_policy(name: str, registry: ClientRegistry, *, rng_style: str = "mt1993
         return UniformPolicy(registry, rng_style=rng_style)
     if name in ("stratified", "importance"):
         raise NotImplementedError(
-            f"selection_policy {name!r} is not ported yet (ROADMAP.md queue A, item 6)")
+            f"selection_policy {name!r} is not ported yet (ROADMAP.md queue A, item 6b)")
     raise ValueError(
         f"unknown selection_policy {name!r} (expected uniform|stratified|importance)")

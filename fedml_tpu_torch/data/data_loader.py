@@ -10,8 +10,10 @@ arrays and partition maps for the same config.  It returns the same 8-tuple::
 Data stay numpy ``(x, y)`` pairs; the simulator moves them to the device
 once (simulation/xla/fed_sim.py ``_pack_data``).  The whole dataset table is
 kept so names and class counts agree with the JAX package, but only the
-next-word-prediction generator is ported: other kinds raise
-``NotImplementedError`` naming the ROADMAP.md item that ports them.
+next-word-prediction and image kinds are ported: other kinds raise
+``NotImplementedError`` naming the ROADMAP.md item that ports them.  Images
+stay NHWC, as in the JAX package; the model's entry is the one place their
+layout changes.
 """
 
 from __future__ import annotations
@@ -118,16 +120,24 @@ DATASET_SPECS: Dict[str, Dict[str, Any]] = {
 }
 
 
+_PORTED_KINDS = ("nwp", "image")
+
+
 def _check_kind(name: str, spec: Dict[str, Any]) -> None:
-    if spec["kind"] != "nwp":
+    if spec["kind"] not in _PORTED_KINDS:
         raise NotImplementedError(
             f"dataset {name!r} (kind {spec['kind']!r}) is not ported yet: the "
-            "port has the next-word-prediction data only (ROADMAP.md queue A, item 2)")
+            f"port has the {'/'.join(_PORTED_KINDS)} data only (ROADMAP.md queue A, item 2)")
 
 
 def _generate(spec: Dict[str, Any], n: int, seed: int, scale_override: int = 0,
               proto_seed: int = 0):
+    kind = spec["kind"]
     n = int(scale_override or n)
+    if kind == "image":
+        return synthetic.make_classification(
+            n, spec["classes"], tuple(spec["shape"]), seed=seed, proto_seed=proto_seed
+        )
     return synthetic.make_next_token_corpus(
         n, int(spec["shape"][0]), spec["vocab"], seed=seed, proto_seed=proto_seed
     )

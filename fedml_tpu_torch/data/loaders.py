@@ -1,15 +1,17 @@
 """Parsers for locally cached real dataset files (no downloads).
 
-The part of ``fedml_tpu/data/loaders.py`` that the ported slice reaches: the
-LEAF json layout the next-word-prediction datasets are published in.  The
-image, tabular and volume parsers are ported with the slices that train on
-those datasets (ROADMAP.md queue A, item 2).
+The part of ``fedml_tpu/data/loaders.py`` that the ported slices reach: the
+LEAF json layout the next-word-prediction datasets are published in, and the
+CIFAR python pickles.  The other image, tabular and volume parsers are
+ported with the slices that train on those datasets (ROADMAP.md queue A,
+item 2).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import pickle
 from typing import Optional, Tuple
 
 import numpy as np
@@ -17,6 +19,7 @@ import numpy as np
 Arrays = Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]
 
 LEAF_DATASETS = ("shakespeare", "fed_shakespeare", "stackoverflow_nwp", "stackoverflow_lr")
+CIFAR_DATASETS = ("cifar10", "cifar100", "fed_cifar100")
 
 
 def load_leaf_json(root: str) -> Optional[Arrays]:
@@ -52,18 +55,51 @@ def load_leaf_json(root: str) -> Optional[Arrays]:
     return xt, yt, xe, ye
 
 
+def load_cifar_pickle(root: str) -> Optional[Arrays]:
+    """The CIFAR-10/100 python release (``data_batch_*``/``test_batch`` or
+    ``train``/``test`` pickles) -> NHWC float32 in [0, 1], int32 labels (the
+    fine labels of CIFAR-100)."""
+    batches = []
+    test = None
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            if f.startswith("data_batch") or f in ("train",):
+                batches.append(os.path.join(dirpath, f))
+            elif f in ("test_batch", "test"):
+                test = os.path.join(dirpath, f)
+    if not batches or test is None:
+        return None
+
+    def _load(path):
+        with open(path, "rb") as fh:
+            d = pickle.load(fh, encoding="bytes")
+        x = d[b"data"].reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1).astype(np.float32) / 255.0
+        key = b"fine_labels" if b"fine_labels" in d else b"labels"
+        y = np.asarray(d[key], dtype=np.int32)
+        return x, y
+
+    xs, ys = zip(*[_load(b) for b in sorted(batches)])
+    xt, yt = np.concatenate(xs), np.concatenate(ys)
+    xe, ye = _load(test)
+    return xt, yt, xe, ye
+
+
 def try_load_real(name: str, cache_dir: str) -> Optional[Arrays]:
     """Real files for ``name`` under ``cache_dir`` (or its ``name``
     subdirectory), else None and the caller falls back to synthetic data."""
     if not cache_dir or not os.path.isdir(cache_dir):
         return None
-    if name not in LEAF_DATASETS:
+    if name in LEAF_DATASETS:
+        parse = load_leaf_json
+    elif name in CIFAR_DATASETS:
+        parse = load_cifar_pickle
+    else:
         raise NotImplementedError(
             f"no parser for cached {name!r} files in the port yet "
             "(ROADMAP.md queue A, item 2)")
     for root in (os.path.join(cache_dir, name), cache_dir):
         if os.path.isdir(root):
-            out = load_leaf_json(root)
+            out = parse(root)
             if out is not None:
                 return out
     return None

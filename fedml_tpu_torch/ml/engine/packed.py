@@ -1,0 +1,192 @@
+"""Packed ragged-client round of the port: counterpart of
+``fedml_tpu/ml/engine/packed.py``.
+
+The padded round trains every client to the global maximum client size;
+with Dirichlet-skewed clients about half its steps are padding.  The packed
+round lays the round out as ONE stream of batches instead:
+
+* each client contributes ceil(n_i/B) batches per epoch (its own padding is
+  at most B-1 samples), clients back to back in the schedule's order;
+* the stream is walked step by step: an ordinary optimizer step each, and at
+  each client BOUNDARY the client's parameters are added into the fp32
+  weighted sum and the parameters and optimizer are reset to the round start.
+
+``PackedSchedule``, ``pack_round`` and ``s_max_for`` are verbatim copies
+(numpy): the shuffles come from ``np.random.default_rng((seed, round, cid,
+e))`` on the host, so the port trains on the same batches as the JAX package,
+bit for bit.
+
+The JAX package runs the stream as one compiled ``while_loop`` (or ``scan``)
+per device.  Here it is an eager loop on one card, and every per-step scalar
+the loop needs (boundary, weight, the batch's valid count) is read from the
+numpy schedule: the loop never waits for the card, and the round syncs once,
+when its caller reads the result.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, NamedTuple, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from .train import build_loss_fn, load_variables, make_optimizer
+
+Variables = Dict[str, torch.Tensor]
+
+
+class PackedSchedule(NamedTuple):
+    """Per-device packed batch stream (leading axis n_dev, then S_max)."""
+
+    idx: np.ndarray       # [n_dev, S_max, B] int32 rows into x_all/y_all
+    mask: np.ndarray      # [n_dev, S_max, B] f32 valid-sample mask
+    boundary: np.ndarray  # [n_dev, S_max] f32 1.0 on a client's last step
+    weight: np.ndarray    # [n_dev, S_max] f32 client sample count (at boundary)
+    slot: np.ndarray      # [n_dev, S_max] i32 schedule-slot of the running client
+    n_steps: np.ndarray   # [n_dev] i32 real steps this round
+
+
+def pack_round(
+    ids2d: np.ndarray,
+    counts2d: np.ndarray,
+    client_rows: Callable[[int], np.ndarray],
+    batch_size: int,
+    epochs: int,
+    seed: int,
+    round_idx: int,
+    s_max: int,
+) -> PackedSchedule:
+    """Build the packed stream for one round.
+
+    ``ids2d``/``counts2d``: [n_dev, slots] scheduled client ids and their
+    real sample counts (0 = dummy slot).  ``client_rows(cid)`` returns the
+    client's row indices into the global data arrays.  Slot numbering is
+    DEVICE-LOCAL (the cex/outs arrays are sharded over the client axis, so
+    each device sees its own [slots, ...] shard).
+    """
+    n_dev, slots = ids2d.shape
+    B = batch_size
+    idx = np.zeros((n_dev, s_max, B), np.int32)
+    mask = np.zeros((n_dev, s_max, B), np.float32)
+    boundary = np.zeros((n_dev, s_max), np.float32)
+    weight = np.zeros((n_dev, s_max), np.float32)
+    slot = np.zeros((n_dev, s_max), np.int32)
+    n_steps = np.zeros((n_dev,), np.int32)
+    for d in range(n_dev):
+        cursor = 0
+        for ls in range(slots):
+            n_i = int(counts2d[d, ls])
+            if n_i <= 0:
+                continue
+            cid = int(ids2d[d, ls])
+            rows = np.asarray(client_rows(cid))[:n_i]
+            steps_per_epoch = -(-n_i // B)
+            total = steps_per_epoch * epochs
+            if cursor + total > s_max:
+                raise ValueError(
+                    f"packed stream overflow: device {d} needs {cursor + total} "
+                    f"steps > s_max {s_max}"
+                )
+            for e in range(epochs):
+                rng = np.random.default_rng((seed, round_idx, cid, e))
+                perm = rng.permutation(rows)
+                padded = np.resize(perm, steps_per_epoch * B)
+                m = np.zeros(steps_per_epoch * B, np.float32)
+                m[:n_i] = 1.0
+                sl = np.s_[cursor : cursor + steps_per_epoch]
+                idx[d, sl] = padded.reshape(steps_per_epoch, B)
+                mask[d, sl] = m.reshape(steps_per_epoch, B)
+                slot[d, sl] = ls
+                cursor += steps_per_epoch
+            boundary[d, cursor - 1] = 1.0
+            weight[d, cursor - 1] = float(n_i)
+        n_steps[d] = cursor
+    return PackedSchedule(idx, mask, boundary, weight, slot, n_steps)
+
+
+def s_max_for(max_client_n: int, slots: int, batch_size: int, epochs: int) -> int:
+    """Static worst-case stream length per device (buffer size only — the
+    traced trip count is the real length)."""
+    return slots * (-(-max_client_n // batch_size)) * epochs
+
+
+def build_packed_device_fn(
+    module: nn.Module,
+    args,
+    loss: str = "ce",
+    pregather: bool = False,
+    stream: str = "while",
+    post_train=None,
+    capture_updates: bool = False,
+) -> Callable[..., Tuple[Variables, float, torch.Tensor, float]]:
+    """The one-card round body.
+
+    Returns ``fn(variables, x_all, y_all, sched) -> (acc, wsum, lsum, cnt)``:
+    ``sched`` is one device's ``PackedSchedule`` (numpy, device axis
+    dropped); ``acc`` the fp32 sum of ``n_i * variables_i`` over the clients,
+    ``wsum`` the sum of ``n_i`` (a float), ``lsum`` the summed per-sample loss
+    (a 0-d tensor on the card) and ``cnt`` the number of samples it sums
+    (a float), over every epoch.  These are the FedAvg outputs of the JAX
+    device function; its per-client contributions and outputs (``ext``,
+    ``outs``) come with the algorithms that read them (ROADMAP.md queue A,
+    item 12).
+
+    ``stream`` ``"while"`` and ``"scan"`` run the same loop here.  In the JAX
+    package scan also runs the bucket's tail past ``n_steps``, whose steps
+    carry all-zero masks and change nothing, so on one card both compute the
+    same thing.  ``pregather`` gathers the whole stream's rows with one
+    ``index_select`` before the loop instead of one gather a step.
+    """
+    if stream not in ("while", "scan"):
+        raise ValueError(f"xla_stream must be while|scan (got {stream!r})")
+    if post_train is not None or capture_updates:
+        raise NotImplementedError(
+            "per-client update hooks (local DP, the security layer's update stack) are "
+            "not ported yet (ROADMAP.md queue A, item 12: core/security and core/dp)")
+    make_opt = make_optimizer(args)
+    loss_fn = build_loss_fn(module, loss)
+
+    def device_fn(variables: Variables, x_all: torch.Tensor, y_all: torch.Tensor,
+                  sched: PackedSchedule):
+        dev = x_all.device
+        n_steps = int(sched.n_steps)
+        idx = torch.from_numpy(sched.idx[:n_steps].astype(np.int64)).to(dev)
+        mask = torch.from_numpy(sched.mask[:n_steps]).to(dev)
+        valid = sched.mask[:n_steps].sum(axis=1)  # host: each step's valid count
+        if pregather:
+            flat = idx.reshape(-1)
+            bx_stream = x_all.index_select(0, flat).reshape(idx.shape + x_all.shape[1:])
+            by_stream = y_all.index_select(0, flat).reshape(idx.shape + y_all.shape[1:])
+        load_variables(module, variables)
+        module.train()
+        params = list(module.parameters())
+        params0 = [variables[name] for name, _ in module.named_parameters()]
+        opt = make_opt(params)
+        acc = {k: torch.zeros_like(v, dtype=torch.float32) for k, v in variables.items()}
+        acc_list = [acc[name] for name, _ in module.named_parameters()]
+        lsum = torch.zeros((), dtype=torch.float32, device=dev)
+        wsum = cnt = 0.0
+        for step in range(n_steps):
+            if pregather:
+                bx, by = bx_stream[step], by_stream[step]
+            else:
+                bx, by = x_all.index_select(0, idx[step]), y_all.index_select(0, idx[step])
+            step_loss = loss_fn(bx, by, mask[step])
+            opt.zero_grad(set_to_none=True)
+            step_loss.backward()
+            opt.step()
+            lsum.add_(step_loss.detach(), alpha=float(valid[step]))
+            cnt += float(valid[step])
+            if sched.boundary[step] > 0:
+                # the client's last step: add w * its params, then reset the
+                # params and the optimizer to the round start
+                w = float(sched.weight[step])
+                with torch.no_grad():
+                    torch._foreach_add_(acc_list, [p.float() for p in params], alpha=w)
+                    torch._foreach_copy_(params, params0)
+                wsum += w
+                opt = make_opt(params)
+        return acc, wsum, lsum, cnt
+
+    return device_fn

@@ -1,8 +1,8 @@
-"""Weights carried across: the JAX package's TransformerLM variables onto the
-port's module.
+"""Weights carried across: the JAX package's TransformerLM and ResNet
+variables onto the port's modules.
 
 The flax variables arrive as a nested dict of numpy arrays (``{"params":
-{...}}`` or the bare params dict).  The mapping:
+{...}}`` or the bare params dict).  The TransformerLM's mapping:
 
 ==========================================  ==========================================
 flax leaf                                   torch parameter
@@ -15,6 +15,21 @@ flax leaf                                   torch parameter
 ``attn_norm``, ``mlp_norm``,                the RMSNorm ``weight``
 ``final_norm`` ``scale``
 ==========================================  ==========================================
+
+The ResNets' (``CifarResNet``, ``ResNet18``), ``{c}`` a convolution and ``{n}``
+its GroupNorm:
+
+=================================================  ======================================
+flax leaf                                          torch parameter
+=================================================  ======================================
+``conv_init/kernel``,                              ``{c}.weight`` [O, I, H, W]
+``stage{s}_block{b}/{conv1,conv2,proj}/kernel``
+[H, W, I, O]
+``norm_init``, ``stage{s}_block{b}/{norm1,norm2,   ``{n}.weight``, ``{n}.bias``
+norm_proj}`` ``scale``, ``bias``
+``classifier/kernel`` [in, out], ``classifier/     ``classifier.weight`` (transposed),
+bias``                                             ``classifier.bias``
+=================================================  ======================================
 """
 
 from __future__ import annotations
@@ -55,11 +70,40 @@ def transformer_state_from_flax(variables: Mapping[str, Any]) -> Dict[str, np.nd
     return out
 
 
+def resnet_state_from_flax(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """{torch parameter name: numpy array} for a flax ResNet (GroupNorm) tree."""
+    params = variables.get("params", variables)
+    out: Dict[str, np.ndarray] = {}
+    for module, leaves in params.items():
+        if module == "classifier":
+            out["classifier.weight"] = np.asarray(leaves["kernel"]).T
+            out["classifier.bias"] = np.asarray(leaves["bias"])
+            continue
+        # the stem's conv_init/norm_init, or a block's convolutions and norms
+        layers = {module: leaves} if module in ("conv_init", "norm_init") else {
+            f"{module}.{name}": leaf for name, leaf in leaves.items()}
+        for name, leaf in layers.items():
+            if "kernel" in leaf:  # HWIO -> OIHW
+                out[f"{name}.weight"] = np.asarray(leaf["kernel"]).transpose(3, 2, 0, 1)
+            else:
+                out[f"{name}.weight"] = np.asarray(leaf["scale"])
+                out[f"{name}.bias"] = np.asarray(leaf["bias"])
+    return out
+
+
+def state_from_flax(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """The mapping of either model family, told apart by its stem's leaf."""
+    params = variables.get("params", variables)
+    if "conv_init" in params:
+        return resnet_state_from_flax(params)
+    return transformer_state_from_flax(params)
+
+
 def variables_from_flax(variables: Mapping[str, Any], module: nn.Module,
                         device: torch.device) -> Dict[str, torch.Tensor]:
     """The port's variables dict (parameter name -> tensor on ``device``) for
     ``module`` from a flax tree; raises on any missing or misshapen leaf."""
-    state = transformer_state_from_flax(variables)
+    state = state_from_flax(variables)
     out = {}
     for name, p in module.named_parameters():
         if name not in state:

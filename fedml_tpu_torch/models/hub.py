@@ -4,9 +4,9 @@
 ``create`` returns the module built on the ``meta`` device: a description with
 shapes and no storage, as the flax hub returns an uninitialised module.  The
 engine materialises it on the run's device and fills it from a seeded
-generator (``ml.engine.train.init_variables``).  Only the ``transformer`` key
-is ported; the other keys raise ``NotImplementedError`` naming the ROADMAP.md
-item that ports them.
+generator (``ml.engine.train.init_variables``).  The ``transformer`` and the
+ResNet keys are ported; the other keys raise ``NotImplementedError`` naming
+the ROADMAP.md item that ports them.
 """
 
 from __future__ import annotations
@@ -23,6 +23,14 @@ logger = logging.getLogger(__name__)
 _RESNETS = {"resnet20", "resnet56", "resnet18", "resnet18_gn"}
 
 
+def _in_channels(dataset: str) -> int:
+    """Input channels of an image dataset (flax infers them at init)."""
+    from ..data.data_loader import DATASET_SPECS
+
+    shape = DATASET_SPECS.get(dataset, {}).get("shape", (32, 32, 3))
+    return int(shape[-1]) if len(shape) == 3 else 1
+
+
 def create(args: Any, output_dim: int) -> nn.Module:
     name = str(getattr(args, "model", "lr")).lower()
     dataset = str(getattr(args, "dataset", "")).lower()
@@ -37,11 +45,20 @@ def create(args: Any, output_dim: int) -> nn.Module:
 
         return TransformerLM(TransformerConfig(vocab_size=max(output_dim, 256)), device="meta")
     if name in _RESNETS:
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet (ROADMAP.md queue A, item 3: ResNet model)")
+        from . import resnet
+
+        kw = dict(dtype=_dtype(args), in_channels=_in_channels(dataset), device="meta")
+        if name in ("resnet18", "resnet18_gn"):
+            return resnet.ResNet18(num_classes=output_dim, norm="gn", **kw)
+        blocks = {"resnet20": 3, "resnet56": 9}[name]
+        return resnet.CifarResNet(blocks, num_classes=output_dim, norm=_norm(args), **kw)
     raise NotImplementedError(
         f"model {name!r} for dataset {dataset!r} is not ported yet "
         "(ROADMAP.md queue A, item 14: model zoo and trainers)")
+
+
+def _norm(args: Any) -> str:
+    return str(getattr(args, "model_norm", "gn")).lower()
 
 
 def _parse_dtype(name: str, arg_name: str) -> torch.dtype:
@@ -57,3 +74,23 @@ def _dtype(args: Any) -> torch.dtype:
     return _parse_dtype(
         str(getattr(args, "compute_dtype", "fp32") or "fp32").lower(), "compute_dtype"
     )
+
+
+def data_storage_dtype(args: Any, module: Any = None) -> torch.dtype:
+    """Storage dtype of the simulator's packed float dataset (fed_sim
+    ``_pack_data``).  When the model casts its input to bf16 at its entry
+    (``compute_dtype`` bf16 and a ResNet), storing bf16 halves the per-step
+    gather's bytes and gives the model the same input bit for bit:
+    bf16(gather(x_fp32)) == gather(bf16(x_fp32)).  ``args.xla_data_dtype`` in
+    {auto, fp32, bf16} overrides; ``auto`` (the default) stores bf16 exactly
+    when the numerics cannot change, which is checked on the module itself:
+    a module that does not compute in bf16 keeps fp32 data."""
+    req = str(getattr(args, "xla_data_dtype", "auto") or "auto").lower()
+    if req != "auto":
+        return _parse_dtype(req, "xla_data_dtype")
+    name = str(getattr(args, "model", "lr")).lower()
+    if _dtype(args) is not torch.bfloat16 or name not in _RESNETS:
+        return torch.float32
+    if module is not None and getattr(module, "dtype", None) is not torch.bfloat16:
+        return torch.float32
+    return torch.bfloat16

@@ -1,18 +1,24 @@
-"""The port's round simulator: the padded round of
+"""The port's round simulator: the padded and the packed rounds of
 ``fedml_tpu/simulation/xla/fed_sim.py`` (``XLASimulator``) on one CUDA card.
 
 The JAX simulator compiles a round into one XLA program over a device mesh:
-the sampled clients are sharded over a ``client`` axis, each device scans
-its clients through the compiled local-training engine, and a ``psum``
-reduces the weighted sums.  On one card the ``client`` axis and its ``psum``
-become a loop over the sampled clients, in cohort order:
+the sampled clients are sharded over a ``client`` axis, each device trains
+its clients through the compiled engine, and a ``psum`` reduces the weighted
+sums.  On one card the ``client`` axis and its ``psum`` become a loop over
+the round's clients, in the order ``_schedule`` gives them (the LPT scheduler
+of ``core/schedule`` at one slot: heaviest first, as the JAX package lays
+them out):
 
 * the whole dataset is uploaded once (``_pack_data``) with a per-client
   index table padded to ``padded_n`` rows, so a client's data is one
-  on-device gather;
-* each client trains from the round's global variables
-  (``ml.engine.train.build_local_train``) and adds ``n_i * variables`` into an
-  fp32 accumulator;
+  on-device gather; float data are stored in ``data_storage_dtype`` (bf16
+  when a ResNet computes in bf16);
+* the padded round (default) trains each client from the round's global
+  variables (``ml.engine.train.build_local_train``) and adds
+  ``n_i * variables`` into an fp32 accumulator;
+* the packed round (``xla_pack``) streams the clients' batches back to back
+  (``ml.engine.packed``), flushing into the accumulator at each client's
+  last step;
 * the algorithm's server step turns the accumulator into the next global
   variables.
 
@@ -27,15 +33,18 @@ from __future__ import annotations
 
 import logging
 import time
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
 
 from ...core.population import PopulationManager
+from ...core.schedule import RuntimeEstimator, SeqTrainScheduler
 from ...ml.aggregator.aggregator_creator import create_server_aggregator
+from ...ml.engine.packed import PackedSchedule, build_packed_device_fn, pack_round, s_max_for
 from ...ml.engine.train import build_local_train, init_variables
 from ...ml.trainer.trainer_creator import _TAG_DATASETS, loss_kind_for_dataset
+from ...models.hub import data_storage_dtype
 from ...utils.metrics import MetricsLogger
 from .algorithms import create_inmesh_algorithm
 
@@ -54,9 +63,8 @@ _UNPORTED_KNOBS = (
     ("enable_attack", _is_set, "queue A, item 12: core/security"),
     ("enable_defense", _is_set, "queue A, item 12: core/security"),
     ("enable_dp", _is_set, "queue A, item 12: core/dp"),
-    ("xla_pack", _is_set, "queue A, item 6: packed simulator"),
-    ("xla_client_chunk", _is_set, "queue A, item 6: packed simulator"),
-    ("population_stacked", _is_set, "queue A, item 6: population"),
+    ("xla_client_chunk", _is_set, "queue A, item 6d: xla_client_chunk"),
+    ("population_stacked", _is_set, "queue A, item 6c: population_stacked"),
     ("fl_mode", lambda a, k: str(getattr(a, k, "sync") or "sync").lower() != "sync",
      "queue A, item 12: async algorithms"),
     ("server_state", lambda a, k: str(getattr(a, k, "replicated") or "replicated").lower()
@@ -112,6 +120,7 @@ class XLASimulator:
         self.clients_per_round = int(args.client_num_per_round)
         self.batch_size = int(getattr(args, "batch_size", 32))
         self.epochs = int(getattr(args, "epochs", 1))
+        self.seed = int(getattr(args, "random_seed", 0))
         ds = str(getattr(args, "dataset", "")).lower()
         if ds in _TAG_DATASETS:
             raise NotImplementedError(
@@ -119,12 +128,24 @@ class XLASimulator:
         self.loss_kind = loss_kind_for_dataset(ds)
 
         self._pack_data()
-        self.variables = init_variables(model, self.device,
-                                        seed=int(getattr(args, "random_seed", 0)))
+        self.variables = init_variables(model, self.device, seed=self.seed)
         self.algo = create_inmesh_algorithm(args)
         self.server_state = self.algo.init_server_state(self.variables)
-        self._local_train = build_local_train(
-            self.module, self.args, self.batch_size, self.padded_n, loss=self.loss_kind)
+        self.packed = bool(getattr(args, "xla_pack", False))
+        if self.packed:
+            # one card: one stream whose slots are the whole cohort
+            self.slots = self.clients_per_round
+            self.s_max = s_max_for(self.max_client_n, self.slots, self.batch_size, self.epochs)
+            self._device_fn = build_packed_device_fn(
+                self.module, self.args, loss=self.loss_kind,
+                pregather=bool(getattr(args, "xla_pregather", False)),
+                stream=str(getattr(args, "xla_stream", "while")))
+        else:
+            self._local_train = build_local_train(
+                self.module, self.args, self.batch_size, self.padded_n, loss=self.loss_kind)
+        self.runtime_estimator = RuntimeEstimator(1, uniform_devices=True)
+        self.scheduler = SeqTrainScheduler(1, estimator=self.runtime_estimator)
+        self._seen_buckets: set = set()
         self.population = PopulationManager.from_args(
             self.args, np.arange(self.num_clients), rng_style="mt19937")
         self.aggregator = create_server_aggregator(model, args)
@@ -141,8 +162,8 @@ class XLASimulator:
         """Concatenate client shards into one device-resident array pair and
         record each client's contiguous row range in an index table padded to
         ``padded_n`` (padding rows repeat the client's first row and are
-        masked out by its count).  Integer inputs (token ids) keep their
-        dtype."""
+        masked out by its count).  Float inputs are stored in
+        ``data_storage_dtype``; integer inputs (token ids) keep their dtype."""
         b = self.batch_size
         counts = np.array([self.local_num_dict[i] for i in range(self.num_clients)], np.int64)
         self.max_client_n = int(counts.max())
@@ -160,8 +181,12 @@ class XLASimulator:
                 idx[i, n:] = cursor
             cursor += n
         self.client_counts = counts
+        self._client_rows = idx  # host copy: the packed round's schedule reads it
         self.client_idx = torch.from_numpy(idx).to(self.device)
-        self.x_all = torch.from_numpy(np.concatenate(xs, 0)).to(self.device)
+        x_all = torch.from_numpy(np.concatenate(xs, 0))
+        if x_all.is_floating_point():
+            x_all = x_all.to(data_storage_dtype(self.args, self.module))
+        self.x_all = x_all.to(self.device)
         self.y_all = torch.from_numpy(np.concatenate(ys, 0)).to(self.device)
         logger.info("packed %d clients (max_n=%d padded_n=%d) data %s (%s) onto %s",
                     self.num_clients, self.max_client_n, self.padded_n,
@@ -174,21 +199,57 @@ class XLASimulator:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _run_round(self, round_idx: int, sampled: np.ndarray):
-        """Train the cohort from the current global variables and apply the
-        server step.  Returns (mean loss tensor, per-client sample counts)."""
-        counts = self.client_counts[sampled]
+    def _client_steps(self, n: int) -> int:
+        """A client's cost in the packed round's unit: its steps, ceil(n/B)
+        per epoch."""
+        if n <= 0:
+            return 0
+        return -(-int(n) // self.batch_size) * self.epochs
+
+    def _schedule(self, sampled: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """Lay the cohort out through the scheduler (one slot: the order in
+        which the round trains its clients).  Costs are what each round runs:
+        steps for the packed round, samples for the padded one.  Returns
+        (client ids, is real)."""
+        if self.packed:
+            sizes = [self._client_steps(self.local_num_dict[int(c)]) for c in sampled]
+        else:
+            sizes = [self.local_num_dict[int(c)] for c in sampled]
+        ids2d, mask2d, _ = self.scheduler.schedule(sampled, sizes)
+        return ids2d.reshape(-1), mask2d.reshape(-1)
+
+    def _packed_inputs(self, ids: np.ndarray, counts: np.ndarray,
+                       round_idx: int) -> PackedSchedule:
+        """The round's packed stream (one device), trimmed to a bucket of its
+        real steps: quantum s_max/8, so at most 8 buffer shapes a run."""
+        sched = pack_round(ids.reshape(1, -1), counts.reshape(1, -1),
+                           lambda cid: self._client_rows[cid], self.batch_size,
+                           self.epochs, self.seed, round_idx, self.s_max)
+        s_used = max(int(sched.n_steps.max()), 1)
+        quantum = max(1, -(-self.s_max // 8))
+        s_bucket = min(-(-s_used // quantum) * quantum, self.s_max)
+        # the first round at a new bucket shape stays out of the runtime
+        # model's fit, as in the JAX package (where that round compiles)
+        self._bucket_compiling = s_bucket not in self._seen_buckets
+        self._seen_buckets.add(s_bucket)
+        self._s_bucket = s_bucket
+        return PackedSchedule(sched.idx[0, :s_bucket], sched.mask[0, :s_bucket],
+                              sched.boundary[0, :s_bucket], sched.weight[0, :s_bucket],
+                              sched.slot[0, :s_bucket], sched.n_steps[0])
+
+    def _run_round(self, round_idx: int, ids: np.ndarray, counts: np.ndarray):
+        """Train the scheduled clients, in order, from the current global
+        variables, and apply the server step.  Returns the mean loss tensor."""
         acc = {k: torch.zeros_like(v, dtype=torch.float32) for k, v in self.variables.items()}
         wsum = 0.0
         lsum = torch.zeros((), dtype=torch.float32, device=self.device)
-        seed = int(getattr(self.args, "random_seed", 0))
-        for cid, n_i in zip(sampled.tolist(), counts.tolist()):
+        for cid, n_i in zip(ids.tolist(), counts.tolist()):
             if n_i <= 0:
                 continue  # contributes nothing, as a weight-0 slot in the mesh round
             rows = self.client_idx[cid]
             result = self._local_train(self.variables, self.x_all.index_select(0, rows),
                                        self.y_all.index_select(0, rows), n_i,
-                                       seed=(seed, round_idx, cid))
+                                       seed=(self.seed, round_idx, cid))
             for k, p in result.variables.items():
                 acc[k].add_(p.float(), alpha=float(n_i))
             wsum += float(n_i)
@@ -196,7 +257,17 @@ class XLASimulator:
         mean_loss = lsum / max(wsum, 1e-9)
         self.variables, self.server_state = self.algo.server_update(
             acc, wsum, self.variables, self.server_state)
-        return mean_loss, counts
+        return mean_loss
+
+    def _run_packed_round(self, round_idx: int, ids: np.ndarray, counts: np.ndarray):
+        """The packed stream of the scheduled clients, then the server step.
+        Returns the mean per-sample loss tensor."""
+        acc, wsum, lsum, cnt = self._device_fn(
+            self.variables, self.x_all, self.y_all,
+            self._packed_inputs(ids, counts, round_idx))
+        self.variables, self.server_state = self.algo.server_update(
+            acc, wsum, self.variables, self.server_state)
+        return lsum / max(cnt, 1.0)
 
     def train(self) -> Dict[str, Any]:
         comm_round = int(self.args.comm_round)
@@ -205,10 +276,20 @@ class XLASimulator:
         for round_idx in range(comm_round):
             t0 = time.time()
             sampled = self._client_sampling(round_idx)
-            mean_loss, counts = self._run_round(round_idx, sampled)
+            ids, real = self._schedule(sampled)
+            counts = np.where(real > 0, self.client_counts[ids], 0)
+            run = self._run_packed_round if self.packed else self._run_round
+            mean_loss = run(round_idx, ids, counts)
             self._sync()
             dt = time.time() - t0
             self.round_times.append(dt)
+            if round_idx > 0:  # round 0 pays the first launches
+                # the runtime model, in the unit _schedule passes as costs
+                if not self.packed:
+                    self.runtime_estimator.record(0, int(counts.sum()), dt)
+                elif not self._bucket_compiling:
+                    steps = -(-counts // self.batch_size) * self.epochs
+                    self.runtime_estimator.record(0, int(steps.sum()), dt)
             self.samples_per_round.append(int(counts.sum()) * self.epochs)
             self.samples_trained += int(counts.sum()) * self.epochs
             self.round_losses.append(float(mean_loss))

@@ -31,13 +31,16 @@ SLICE_MODULES = [
     "fedml_tpu_torch.data.synthetic",
     "fedml_tpu_torch.core.data.noniid_partition",
     "fedml_tpu_torch.core.population",
+    "fedml_tpu_torch.core.schedule",
     "fedml_tpu_torch.core.alg_frame.server_aggregator",
     "fedml_tpu_torch.ml.engine.train",
+    "fedml_tpu_torch.ml.engine.packed",
     "fedml_tpu_torch.ml.trainer.trainer_creator",
     "fedml_tpu_torch.ml.aggregator.aggregator_creator",
     "fedml_tpu_torch.ml.aggregator.default_aggregator",
     "fedml_tpu_torch.models.hub",
     "fedml_tpu_torch.models.transformer",
+    "fedml_tpu_torch.models.resnet",
     "fedml_tpu_torch.models.convert",
     "fedml_tpu_torch.ops.build",
     "fedml_tpu_torch.ops.flash_attention",
@@ -101,5 +104,7 @@ def test_cuda_entry_refuses_cpu_tensors(entry):
 def test_unported_model_raises_with_its_roadmap_item():
     from fedml_tpu_torch.models import hub
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A, item 3"):
-        hub.create(types.SimpleNamespace(model="resnet56", dataset="cifar10"), 10)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A, item 3b"):
+        hub.create(types.SimpleNamespace(model="resnet56", dataset="cifar10", model_norm="bn"), 10)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A, item 14"):
+        hub.create(types.SimpleNamespace(model="cnn", dataset="femnist"), 62)

@@ -5,7 +5,9 @@ package's XLASimulator.
 Both start from the same global model (the JAX init, transplanted), train 2
 rounds of 4 of 8 clients for 2 epochs with one full batch per epoch (so the
 engines' different shuffles cannot matter), and must pick identical cohorts
-each round.  On the CPU the JAX simulator attends through
+each round, laid out in the same order: the JAX round lays its cohort out
+through the LPT scheduler (heaviest first) and the port's padded round
+trains the clients in that order.  On the CPU the JAX simulator attends through
 ``reference_attention``, the Pallas kernels' own oracle; the port through its
 kernels' plain versions.  Tolerances: global parameters after each round
 atol 5e-5 (fp32, two epochs of SGD at lr 0.1 with sums in other orders);
@@ -41,10 +43,16 @@ CFG = dict(vocab_size=96, d_model=32, n_heads=2, n_layers=1, d_ff=64)
 
 
 def _record(sim, variables_of):
-    """Wrap the simulator's cohort draw and per-round eval to record the
-    cohort, the global variables after the round, and the eval dict."""
-    log = {"cohorts": [], "variables": [], "evals": []}
-    sample, test = sim._client_sampling, sim._test_global
+    """Wrap the simulator's cohort draw, its layout and per-round eval to
+    record the cohort, the clients in layout order, the global variables
+    after the round, and the eval dict."""
+    log = {"cohorts": [], "orders": [], "trained": [], "variables": [], "evals": []}
+    sample, schedule, test = sim._client_sampling, sim._schedule, sim._test_global
+
+    def scheduled(sampled):
+        ids, real = schedule(sampled)
+        log["orders"].append([int(c) for c, r in zip(ids, real) if r])
+        return ids, real
 
     def sampling(round_idx):
         ids = sample(round_idx)
@@ -57,7 +65,7 @@ def _record(sim, variables_of):
         log["evals"].append(out)
         return out
 
-    sim._client_sampling, sim._test_global = sampling, test_global
+    sim._client_sampling, sim._schedule, sim._test_global = sampling, scheduled, test_global
     return log
 
 
@@ -84,6 +92,13 @@ def runs():
     jlog = _record(jsim, lambda s: convert.transformer_state_from_flax(
         jax.tree_util.tree_map(np.asarray, s.variables)))
     tlog = _record(tsim, lambda s: {k: v.numpy().copy() for k, v in s.variables.items()})
+    local_train = tsim._local_train
+
+    def trained(variables, x, y, n_valid, seed):
+        tlog["trained"].append(int(seed[2]))  # seed = (run seed, round, client)
+        return local_train(variables, x, y, n_valid, seed=seed)
+
+    tsim._local_train = trained
     jfinal, tfinal = jrun.run(), trun.run()
     return jlog, tlog, jfinal, tfinal, tsim
 
@@ -92,6 +107,17 @@ def test_cohorts_are_identical(runs):
     jlog, tlog, *_ = runs
     assert len(tlog["cohorts"]) == 2
     assert tlog["cohorts"] == jlog["cohorts"]
+
+
+def test_padded_round_trains_in_the_reference_layout_order(runs):
+    """The JAX layout on its 8-device mesh puts the k-th heaviest client on
+    device k, so its real slots read heaviest first, as the port's one slot."""
+    jlog, tlog, *_, tsim = runs
+    assert len(tlog["orders"]) == 2 and tlog["orders"] == jlog["orders"]
+    assert tlog["trained"] == [c for order in tlog["orders"] for c in order]
+    for cohort, order in zip(tlog["cohorts"], tlog["orders"]):
+        sizes = [tsim.local_num_dict[c] for c in order]
+        assert sorted(order) == sorted(cohort) and sizes == sorted(sizes, reverse=True)
 
 
 def test_global_params_agree_after_each_round(runs):
@@ -121,7 +147,8 @@ def test_throughput_reports_tokens(runs):
 
 
 def test_unported_knobs_raise():
-    for knob, value in (("xla_pack", True), ("fl_mode", "async"), ("server_state", "sharded"),
+    for knob, value in (("xla_client_chunk", 4), ("population_stacked", True),
+                        ("fl_mode", "async"), ("server_state", "sharded"),
                         ("checkpoint_dir", "ckpt"), ("obs_trace", True)):
         config = copy.deepcopy(CONFIG)
         config["train_args"][knob] = value

@@ -30,7 +30,9 @@
    (kernels) and on the CPU (plain versions) from the same seed must agree;
    so must one SGD step of a small sequence-parallel TransformerLM (sp 4),
    and one packed FedAvg round of a ResNet-20 in fp32 with TF32 off (8
-   clients of 2 batches each, the same weights on both).
+   clients of 2 batches each, the same weights on both); then 2 packed
+   rounds of SCAFFOLD and of FedNova on that ResNet-20, whose params,
+   server state and client-state table must agree with the CPU's.
 4. Slice 1: FedAvg of the full-width hub TransformerLM on shakespeare
    (100 clients, 10 per round, 3 rounds) through fedml_tpu_torch.init ->
    data.load -> models.hub.create -> FedMLRunner(...).run(), with every
@@ -68,7 +70,20 @@
    whether it copies to contiguous; the boundary flush is timed on its own
    with CUDA events.
 9. The kernels line, the card line, and the last line
-   {"ok": true, "device": {...}}.
+   {"ok": true, "device": {...}}, printed after phase 10.
+10. The algorithm zoo.  (a) At the north-star width: BENCH_CONFIG with only
+   the algorithm's knobs changed (ZOO: FedProx, FedOpt/adam, FedNova,
+   SCAFFOLD, FedDyn, AsyncFedAvg, FedBuff with a buffer of 16), 2 rounds
+   each, through the entry points, on one cifar10 dataset made once: round
+   seconds, throughput(), losses, finite params, the server state's norm,
+   SCAFFOLD's and FedDyn's mean invariant (c = mean_i c_i, h = mean_i h_i),
+   FedBuff's flushes.  Then FedAvg's round and SCAFFOLD's alternated on one
+   fixed cohort (FedAvg, SCAFFOLD, SCAFFOLD, FedAvg), and the aten ops a step
+   of FedAvg, FedProx, SCAFFOLD and FedDyn under torch.profiler over a
+   2-client stream.  No flash kernel launches on this path.  (b) The grad
+   hooks under the flash kernels: SCAFFOLD and FedDyn, 2 rounds each, on
+   slice 1's configuration (hub transformer, fp32), with the counts set to 0
+   before and read after: K1-K3 must have launched.
 
 Any failure raises and the script exits non-zero with no result line.  It
 exits 2 when no CUDA device is visible.  Full details go to
@@ -200,6 +215,24 @@ BENCH_CONFIG = {
     "device_args": {"device_type": "gpu"},
     "comm_args": {"backend": "XLA"},
 }
+# phase 10a: the algorithm zoo on BENCH_CONFIG, only the algorithm's knobs
+# changed, 2 rounds each
+ZOO_ROUNDS = 2
+ZOO = [
+    ("FedProx", {"federated_optimizer": "FedProx", "proximal_mu": 0.01}),
+    ("FedOpt", {"federated_optimizer": "FedOpt", "server_optimizer": "adam",
+                "server_lr": 0.01}),
+    ("FedNova", {"federated_optimizer": "FedNova"}),
+    ("SCAFFOLD", {"federated_optimizer": "SCAFFOLD"}),
+    ("FedDyn", {"federated_optimizer": "FedDyn", "feddyn_alpha": 0.01}),
+    ("AsyncFedAvg", {"federated_optimizer": "Async_FedAvg"}),
+    ("FedBuff", {"fl_mode": "async", "async_buffer_size": 16, "async_max_staleness": 2,
+                 "async_staleness_policy": "polynomial"}),
+]
+# SCAFFOLD's c and FedDyn's h are the mean of their client tables, up to the
+# fp32 sums that build each (32 clients a round, the table by index_add_):
+# max |c - mean_i c_i| <= ZOO_MEAN_RTOL * max |c_i|
+ZOO_MEAN_RTOL = 1e-5
 SLICE_CONFIG = {
     "common_args": {"training_type": "simulation", "random_seed": 0},
     "data_args": {"dataset": "shakespeare", "partition_method": "hetero", "partition_alpha": 0.5},
@@ -1010,6 +1043,253 @@ def resnet_slice_phase(ft, fa):
             "flush_ms": flush_ms, "flushes_per_round": len(ids)}
 
 
+def packed_zoo_reference_phase(ft):
+    """2 packed rounds of SCAFFOLD and of FedNova on phase 3's ResNet-20
+    (fp32, TF32 off) on the card and on the CPU, the CPU run's initial
+    weights on both: params, server state and client-state table agree
+    within 1e-4 in the units of the params.  A control variate is a params
+    delta over K * lr (K 2 steps a client here, lr 0.001), so its
+    difference is held to 1e-4 / (K * lr): 1e-4 once multiplied back."""
+    import copy
+
+    import torch
+
+    config = copy.deepcopy(BENCH_CONFIG)
+    config["data_args"].update(partition_method="homo", synthetic_train_size=256)
+    config["model_args"].update(model="resnet20", compute_dtype="fp32")
+    config["train_args"].update(client_num_in_total=8, client_num_per_round=8, comm_round=2,
+                                batch_size=16)
+    # 256 images over 8 clients at batch 16: every client takes 2 steps
+    k_lr = 2 * float(config["train_args"]["learning_rate"])
+    atol = {"params": 1e-4, "server state": 1e-4 / k_lr, "client state": 1e-4 / k_lr}
+    out = {}
+    for name in ("SCAFFOLD", "FedNova"):
+        config["train_args"]["federated_optimizer"] = name
+        finals, init = {}, None
+        for dev_type in ("cpu", "gpu"):
+            config["device_args"]["device_type"] = dev_type
+            args = ft.init(ft.Arguments.from_dict(copy.deepcopy(config)), should_init_logs=False)
+            device = ft.device.get_device(args)
+            dataset, classes = ft.data.load(args)
+            runner = ft.FedMLRunner(args, device, dataset, ft.models.hub.create(args, classes))
+            sim = runner.runner.sim
+            if init is None:
+                init = {k: v.clone() for k, v in sim.variables.items()}
+            sim.variables = {k: v.to(device) for k, v in init.items()}
+            runner.run()
+            finals[dev_type] = {
+                "params": {k: v.float().cpu() for k, v in sim.variables.items()},
+                "server state": {k: v.cpu() for k, v in dict(sim.server_state).items()},
+                "client state": {k: v.cpu() for k, v in (sim.client_state or {}).items()},
+                "losses": list(sim.round_losses)}
+        worst = {}
+        for what in ("params", "server state", "client state"):
+            worst[what] = 0.0
+            for k, g in finals["gpu"][what].items():
+                err = (g - finals["cpu"][what][k]).abs().max().item()
+                if err > atol[what]:
+                    raise AssertionError(f"packed {name} reference: {what} {k} differs card vs "
+                                         f"CPU by {err:.3e} > {atol[what]:.3g}")
+                worst[what] = max(worst[what], err)
+        if name == "SCAFFOLD" and not (finals["gpu"]["server state"]
+                                       and finals["gpu"]["client state"]):
+            raise AssertionError("SCAFFOLD kept no server or client state")
+        log(f"  packed ResNet-20 {name}, 2 rounds, card vs CPU: losses "
+            f"{finals['gpu']['losses']} vs {finals['cpu']['losses']}; max |diff| "
+            + ", ".join(f"{w} {e:.3e} (atol {atol[w]:.3g})" for w, e in worst.items()))
+        if any(int(n) != 32 for n in dataset[4].values()):
+            raise AssertionError(f"the clients do not take 2 steps each: {dataset[4]}")
+        out[name] = {"max_diff": worst, "atol": atol, "losses_card": finals["gpu"]["losses"],
+                     "losses_cpu": finals["cpu"]["losses"]}
+    return out
+
+
+def _norm(tree) -> float:
+    """The 2-norm over every tensor of a (nested) state; 0 for ()."""
+    import torch
+
+    if isinstance(tree, dict):
+        return math.sqrt(sum(_norm(v) ** 2 for v in tree.values()))
+    return float(torch.linalg.vector_norm(tree.float())) if hasattr(tree, "float") else 0.0
+
+
+def _zoo_runner(ft, config, knobs, dataset, classes):
+    import copy
+
+    config = copy.deepcopy(config)
+    config["train_args"].update(knobs)
+    args = ft.init(ft.Arguments.from_dict(config), should_init_logs=False)
+    device = ft.device.get_device(args)
+    return ft.FedMLRunner(args, device, dataset, ft.models.hub.create(args, classes))
+
+
+def _mean_invariant(sim) -> dict:
+    """max |s - mean_i s_i| of the server state against the client table
+    (SCAFFOLD's c, FedDyn's h), the mean taken in float64."""
+    err = scale = 0.0
+    for k, table in sim.client_state.items():
+        mean = table.double().mean(0)
+        err = max(err, (sim.server_state[k].double() - mean).abs().max().item())
+        scale = max(scale, table.abs().max().item())
+    if not err <= ZOO_MEAN_RTOL * scale:
+        raise AssertionError(f"{type(sim.algo).__name__}: max |state - mean of the table| "
+                             f"{err:.3e} > {ZOO_MEAN_RTOL} * {scale:.3e}")
+    return {"max_abs_diff": err, "table_max_abs": scale}
+
+
+def _aten_ops_per_step(sim, ids, counts) -> dict:
+    """aten ops a step, by op, of one packed round of the sim over the given
+    clients, from torch.profiler's raw records (phase 8's count)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    cex = sim.algo.gather_client_extras(sim.client_state, ids, (counts > 0).astype(np.float32), 1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        float(sim._run_packed_round(1, ids, counts, cex))
+    steps = int(sim._packed_inputs(ids, counts, 1).n_steps)
+    ops: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.name().startswith("aten::"):
+            ops[e.name()] = ops.get(e.name(), 0) + 1 / steps
+    return ops
+
+
+def zoo_phase(ft, fa):
+    """Phase 10a: every zoo member at the north-star width, 2 rounds each
+    through the entry points; FedAvg's round and SCAFFOLD's alternated on
+    one cohort; the aten ops a step of the hooked members."""
+    import copy
+
+    import torch
+
+    fa.reset_launches()
+    config = copy.deepcopy(BENCH_CONFIG)
+    config["train_args"]["comm_round"] = ZOO_ROUNDS
+    args = ft.init(ft.Arguments.from_dict(copy.deepcopy(config)), should_init_logs=False)
+    t0 = time.perf_counter()
+    dataset, classes = ft.data.load(args)
+    log(f"  cifar10 ({dataset[0]} images) made once in {time.perf_counter() - t0:.2f} s")
+    members, sims = {}, {}
+    for name, knobs in ZOO:
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()  # the sims kept from earlier members
+        runner = _zoo_runner(ft, config, knobs, dataset, classes)
+        sim = runner.runner.sim
+        runner.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        finite = all(bool(torch.isfinite(v).all()) for v in sim.variables.values())
+        if not finite or len(sim.round_losses) != ZOO_ROUNDS or not all(
+                math.isfinite(x) for x in sim.round_losses):
+            raise AssertionError(f"{name}: losses {sim.round_losses}, finite params {finite}")
+        entry = {"algorithm": type(sim.algo).__name__, "round_seconds": list(sim.round_times),
+                 "throughput": sim.throughput(), "losses": list(sim.round_losses),
+                 "samples_per_round": list(sim.samples_per_round),
+                 "server_state_norm": _norm(sim.server_state), "wall_seconds": wall,
+                 "peak_memory_bytes": torch.cuda.max_memory_allocated() - base}
+        if sim.client_state is not None:
+            entry["mean_invariant"] = _mean_invariant(sim)
+        if sim.async_mode:
+            entry["flushes"] = [{"clients": len(stal), "staleness": sorted(stal.values())}
+                                for stal in sim.async_flushes]
+            entry["dropped_stale"] = sim._async_dropped_stale
+        members[name] = entry
+        log(f"  {name} ({entry['algorithm']}): rounds "
+            f"{[round(t, 4) for t in sim.round_times]} s, {sim.samples_per_round} samples, "
+            f"{entry['throughput']['samples_per_sec']:.1f} samples/s, peak memory "
+            f"{entry['peak_memory_bytes'] / 2**30:.3f} GiB; losses "
+            f"{[round(x, 6) for x in sim.round_losses]}; params finite; server state norm "
+            f"{entry['server_state_norm']:.6g}"
+            + (f"; mean invariant {entry['mean_invariant']}" if "mean_invariant" in entry else "")
+            + (f"; flushes {entry['flushes']}, {entry['dropped_stale']} arrivals dropped as "
+               "too stale" if "flushes" in entry else ""))
+        if name in ("FedProx", "SCAFFOLD", "FedDyn"):
+            sims[name] = sim
+        del runner, sim  # the next member's base holds only the kept sims
+    launches = dict(fa.LAUNCHES)
+    if any(launches.values()):
+        raise AssertionError(f"a flash kernel launched on the zoo's ResNet-56 path: {launches}")
+
+    # FedAvg's round against SCAFFOLD's on one cohort, in turns
+    sims["FedAvg"] = _zoo_runner(ft, config, {"comm_round": 1}, dataset, classes).runner.sim
+    sampled = sims["FedAvg"]._client_sampling(1)
+    ids, real = sims["FedAvg"]._schedule(sampled)
+    counts = np.where(real > 0, sims["FedAvg"].client_counts[ids], 0)
+    turns = []
+    for name in ("FedAvg", "FedAvg", "SCAFFOLD", "SCAFFOLD", "FedAvg"):  # the first warms
+        sim = sims[name]
+        cex = sim.algo.gather_client_extras(sim.client_state, ids,
+                                            (counts > 0).astype(np.float32), 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(sim._run_packed_round(1, ids, counts, cex))
+        turns.append({"algorithm": name, "seconds": time.perf_counter() - t0, "loss": loss})
+    turns = turns[1:]
+    fedavg_s = statistics.mean(t["seconds"] for t in turns if t["algorithm"] == "FedAvg")
+    scaffold_s = statistics.mean(t["seconds"] for t in turns if t["algorithm"] == "SCAFFOLD")
+    log(f"  one cohort ({int(counts.sum())} samples), in turns: " + ", ".join(
+        f"{t['algorithm']} {t['seconds']:.4f} s" for t in turns)
+        + f"; SCAFFOLD over FedAvg {scaffold_s / fedavg_s:.4f}")
+
+    # aten ops a step over a 2-client stream, FedAvg against the hooked members
+    by_op = {name: _aten_ops_per_step(sims[name], ids[:2], counts[:2])
+             for name in ("FedAvg", "FedProx", "SCAFFOLD", "FedDyn")}
+    ops, added = {}, {}
+    for name, counts_ in by_op.items():
+        ops[name] = sum(counts_.values())
+        delta = {op: counts_.get(op, 0) - by_op["FedAvg"].get(op, 0)
+                 for op in set(counts_) | set(by_op["FedAvg"])}
+        added[name] = dict(sorted(delta.items(), key=lambda kv: -abs(kv[1]))[:6])
+    log("  aten ops a step (2 clients): " + "; ".join(
+        f"{name} {ops[name]:.1f} ({ops[name] - ops['FedAvg']:+.1f}: "
+        + ", ".join(f"{op} {d:+.1f}" for op, d in added[name].items() if abs(d) >= 0.05) + ")"
+        for name in ops))
+    return {"members": members, "turns": turns, "scaffold_over_fedavg": scaffold_s / fedavg_s,
+            "aten_ops_per_step": ops, "aten_ops_added": added, "flash_launches": launches}
+
+
+def zoo_hooks_phase(ft, fa):
+    """Phase 10b: SCAFFOLD and FedDyn, 2 rounds each, on slice 1's
+    configuration: the grad hooks run inside steps that launch K1-K3 (fp32).
+    The counts are set to 0 before and read after both runs."""
+    import copy
+
+    import torch
+
+    config = copy.deepcopy(SLICE_CONFIG)
+    config["train_args"]["comm_round"] = ZOO_ROUNDS
+    config["validation_args"]["frequency_of_the_test"] = 0
+    args = ft.init(ft.Arguments.from_dict(copy.deepcopy(config)), should_init_logs=False)
+    dataset, classes = ft.data.load(args)
+    fa.reset_launches()
+    out = {}
+    for name, knobs in ZOO:
+        if name not in ("SCAFFOLD", "FedDyn"):
+            continue
+        runner = _zoo_runner(ft, config, knobs, dataset, classes)
+        sim = runner.runner.sim
+        runner.run()
+        torch.cuda.synchronize()
+        if not all(math.isfinite(x) for x in sim.round_losses) or not all(
+                bool(torch.isfinite(v).all()) for v in sim.variables.values()):
+            raise AssertionError(f"{name} on slice 1: losses {sim.round_losses}")
+        out[name] = {"round_seconds": list(sim.round_times), "losses": list(sim.round_losses),
+                     "mean_invariant": _mean_invariant(sim)}
+        log(f"  {name} on slice 1: rounds {[round(t, 4) for t in sim.round_times]} s, losses "
+            f"{[round(x, 6) for x in sim.round_losses]}, mean invariant "
+            f"{out[name]['mean_invariant']}")
+    launches = dict(fa.LAUNCHES)
+    for name in SLICE1_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched under the grad hooks")
+    if any(launches[name] for name in launches if name not in SLICE1_KERNELS):
+        raise AssertionError(f"a bf16 kernel or the ring's fold launched: {launches}")
+    log(f"  launches {launches}")
+    return launches, out
+
+
 def ptxas_check(build, builds) -> dict:
     """Registers and spills of every kernel instantiation from ptxas's log;
     raises if an instantiation of a kernel of NO_SPILL spills."""
@@ -1182,10 +1462,11 @@ def main() -> int:
     fold_rows = fold_phase(fa)
 
     log("== phase 3: reference (card vs CPU: one FedAvg round; one sp SGD step; one packed "
-        "ResNet-20 round)")
+        "ResNet-20 round; 2 packed rounds of SCAFFOLD and of FedNova)")
     ref_err = reference_phase(ft)
     sp_ref = sp_reference_phase()
     packed_ref = packed_reference_phase(ft)
+    packed_zoo_ref = packed_zoo_reference_phase(ft)
 
     log("== phase 4: slice 1 (FedAvg, hub transformer, shakespeare, 3 rounds)")
     launches, final, tp, round_times, losses = slice_phase(ft, fa)
@@ -1202,20 +1483,28 @@ def main() -> int:
     log("== phase 8: slice 3 (bench.py's ResNet-56 packed FedAvg round, 4 rounds)")
     resnet_slice = resnet_slice_phase(ft, fa)
 
+    log("== phase 10a: the algorithm zoo at the north-star width (ResNet-56, 2 rounds each)")
+    zoo = zoo_phase(ft, fa)
+    log("== phase 10b: the grad hooks under the flash kernels (SCAFFOLD, FedDyn on slice 1)")
+    zoo_launches, zoo["slice1_hooks"] = zoo_hooks_phase(ft, fa)
+
     log("== phase 9: results")
 
-    kernels = kernels_line(rows + fold_rows, (launches, sp_launches, single_launches))
+    kernels = kernels_line(rows + fold_rows,
+                           (launches, sp_launches, single_launches, zoo_launches))
     bench = bench_bf16_summary(rows)
     with open(os.path.join(OUT_DIR, "results.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
                    "ptxas": ptxas, "cases": rows, "folds": fold_rows, "bench_bf16": bench,
                    "reference_max_param_diff": ref_err,
                    "sp_reference": sp_ref, "packed_reference": packed_ref,
+                   "packed_zoo_reference": packed_zoo_ref,
                    "launches": launches,
                    "final_eval": final, "throughput": tp, "round_times": round_times,
                    "round_losses": losses, "kernels": kernels, "profile": prof,
                    "sp_slice": sp_slice, "single_card": single,
-                   "resnet_slice": resnet_slice,
+                   "resnet_slice": resnet_slice, "zoo": zoo,
+                   "zoo_launches": zoo_launches,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"bench_bf16": bench}))

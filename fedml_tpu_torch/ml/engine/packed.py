@@ -7,9 +7,11 @@ round lays the round out as ONE stream of batches instead:
 
 * each client contributes ceil(n_i/B) batches per epoch (its own padding is
   at most B-1 samples), clients back to back in the schedule's order;
-* the stream is walked step by step: an ordinary optimizer step each, and at
-  each client BOUNDARY the client's parameters are added into the fp32
-  weighted sum and the parameters and optimizer are reset to the round start.
+* the stream is walked step by step: an ordinary optimizer step each (with
+  the algorithm's grad hook), and at each client BOUNDARY the client's
+  parameters are added into the fp32 weighted sum, its contribution into
+  ``ext``, its output into its slot, and the parameters and optimizer are
+  reset to the round start.
 
 ``PackedSchedule``, ``pack_round`` and ``s_max_for`` are verbatim copies
 (numpy): the shuffles come from ``np.random.default_rng((seed, round, cid,
@@ -18,20 +20,22 @@ bit for bit.
 
 The JAX package runs the stream as one compiled ``while_loop`` (or ``scan``)
 per device.  Here it is an eager loop on one card, and every per-step scalar
-the loop needs (boundary, weight, the batch's valid count) is read from the
+the loop needs (boundary, weight, slot, the batch's valid count) is read from the
 numpy schedule: the loop never waits for the card, and the round syncs once,
 when its caller reads the result.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from .train import build_loss_fn, load_variables, make_optimizer
+from ...simulation.xla.algorithms import out_buffer, split_slots, store_out, tree_add_
+from .train import (LocalTrainResult, build_loss_fn, load_variables, make_optimizer,
+                    param_list, resolve_grad_hook)
 
 Variables = Dict[str, torch.Tensor]
 
@@ -114,23 +118,32 @@ def s_max_for(max_client_n: int, slots: int, batch_size: int, epochs: int) -> in
 def build_packed_device_fn(
     module: nn.Module,
     args,
+    algo,
     loss: str = "ce",
     pregather: bool = False,
     stream: str = "while",
     post_train=None,
     capture_updates: bool = False,
-) -> Callable[..., Tuple[Variables, float, torch.Tensor, float]]:
-    """The one-card round body.
+) -> Callable[..., Tuple[Variables, float, torch.Tensor, float, Any, Any]]:
+    """The one-card round body of ``algo`` (an ``InMeshAlgorithm``).
 
-    Returns ``fn(variables, x_all, y_all, sched) -> (acc, wsum, lsum, cnt)``:
-    ``sched`` is one device's ``PackedSchedule`` (numpy, device axis
-    dropped); ``acc`` the fp32 sum of ``n_i * variables_i`` over the clients,
-    ``wsum`` the sum of ``n_i`` (a float), ``lsum`` the summed per-sample loss
-    (a 0-d tensor on the card) and ``cnt`` the number of samples it sums
-    (a float), over every epoch.  These are the FedAvg outputs of the JAX
-    device function; its per-client contributions and outputs (``ext``,
-    ``outs``) come with the algorithms that read them (ROADMAP.md queue A,
-    item 12).
+    Returns ``fn(variables, server_state, x_all, y_all, sched, cex, slots) ->
+    (acc, wsum, lsum, cnt, ext, outs)``: ``sched`` is one device's
+    ``PackedSchedule`` (numpy, device axis dropped) over the round's
+    ``slots`` schedule slots and ``cex`` the round's client extras
+    (``algo.gather_client_extras``, leading axis ``slots``);
+    ``acc`` the fp32 sum of ``n_i * variables_i`` over the clients, ``wsum``
+    the sum of ``n_i`` (a float), ``lsum`` the summed per-sample loss (a 0-d
+    tensor on the card) and ``cnt`` the number of samples it sums (a float),
+    over every epoch; ``ext`` the sum of ``algo.client_contrib`` and
+    ``outs`` each slot's ``algo.client_out`` (``{name: [slots, ...]}``, or
+    None when the strategy has no output).
+
+    Per step, the grad hook (``algo.grad_hook()``, or FedProx's from
+    ``args.proximal_mu``) rewrites the gradients before the optimizer step;
+    its extra (``algo.engine_extra``) is taken once per client, at its first
+    step.  A client's step count ``tau`` counts its steps whose mask holds a
+    valid sample, read from the schedule.
 
     ``stream`` ``"while"`` and ``"scan"`` run the same loop here.  In the JAX
     package scan also runs the bucket's tail past ``n_steps``, whose steps
@@ -146,9 +159,11 @@ def build_packed_device_fn(
             "not ported yet (ROADMAP.md queue A, item 12: core/security and core/dp)")
     make_opt = make_optimizer(args)
     loss_fn = build_loss_fn(module, loss)
+    grad_hook = resolve_grad_hook(args, algo.grad_hook())
+    names = [name for name, _ in module.named_parameters()]
 
-    def device_fn(variables: Variables, x_all: torch.Tensor, y_all: torch.Tensor,
-                  sched: PackedSchedule):
+    def device_fn(variables: Variables, server_state, x_all: torch.Tensor,
+                  y_all: torch.Tensor, sched: PackedSchedule, cex, slots: int):
         dev = x_all.device
         n_steps = int(sched.n_steps)
         idx = torch.from_numpy(sched.idx[:n_steps].astype(np.int64)).to(dev)
@@ -161,13 +176,23 @@ def build_packed_device_fn(
         load_variables(module, variables)
         module.train()
         params = list(module.parameters())
-        params0 = [variables[name] for name, _ in module.named_parameters()]
+        params0 = param_list(variables, names)
         opt = make_opt(params)
         acc = {k: torch.zeros_like(v, dtype=torch.float32) for k, v in variables.items()}
-        acc_list = [acc[name] for name, _ in module.named_parameters()]
+        acc_list = param_list(acc, names)
+        ext = algo.zero_contrib(variables)
+        outs = out_buffer(algo, variables, slots)
+        cex_rows, out_rows = split_slots(cex, slots), split_slots(outs, slots)
         lsum = torch.zeros((), dtype=torch.float32, device=dev)
-        wsum = cnt = 0.0
+        wsum = cnt = c_steps = c_cnt = 0.0
         for step in range(n_steps):
+            if step == 0 or sched.boundary[step - 1] > 0:
+                # a client's first step: its slot's extras, taken once
+                s = int(sched.slot[step])
+                cex_i = cex_rows[s]
+                if grad_hook is not None:
+                    with torch.no_grad():
+                        extra = param_list(algo.engine_extra(cex_i, server_state), names)
             if pregather:
                 bx, by = bx_stream[step], by_stream[step]
             else:
@@ -175,18 +200,31 @@ def build_packed_device_fn(
             step_loss = loss_fn(bx, by, mask[step])
             opt.zero_grad(set_to_none=True)
             step_loss.backward()
+            if grad_hook is not None:
+                with torch.no_grad():
+                    grad_hook([p.grad for p in params], params, params0, extra)
             opt.step()
             lsum.add_(step_loss.detach(), alpha=float(valid[step]))
             cnt += float(valid[step])
+            c_cnt += float(valid[step])
+            c_steps += float(valid[step] > 0)
             if sched.boundary[step] > 0:
-                # the client's last step: add w * its params, then reset the
-                # params and the optimizer to the round start
+                # the client's last step: add w * its params and its
+                # contribution, store its output, then reset the params and
+                # the optimizer to the round start
                 w = float(sched.weight[step])
+                real = float(w > 0)
+                result = LocalTrainResult(dict(zip(names, params)), None, c_cnt, c_steps)
                 with torch.no_grad():
                     torch._foreach_add_(acc_list, [p.float() for p in params], alpha=w)
+                    contrib, out = algo.client_result(variables, result, w, real, cex_i,
+                                                      server_state)
+                    ext = tree_add_(ext, contrib)
+                    store_out(out_rows[s], out)
                     torch._foreach_copy_(params, params0)
                 wsum += w
                 opt = make_opt(params)
-        return acc, wsum, lsum, cnt
+                c_steps = c_cnt = 0.0
+        return acc, wsum, lsum, cnt, ext, outs
 
     return device_fn

@@ -12,7 +12,12 @@ optimizer step.  Semantics follow the JAX engine:
   parameters AND the optimizer state are left as they were (the JAX engine's
   ``jnp.where(any_valid, ...)``);
 * the loss is a masked mean over tokens, and the run's loss the mean of the
-  step losses weighted by each batch's valid examples.
+  step losses weighted by each batch's valid examples;
+* a grad hook (FedProx, SCAFFOLD, FedDyn: ``resolve_grad_hook``) rewrites
+  each step's gradients after ``backward()`` and before the optimizer step,
+  where the JAX engine calls it between ``value_and_grad`` and
+  ``tx.update``; torch's coupled weight decay is then added inside the step,
+  as optax's ``add_decayed_weights`` is after the hook.
 
 The shuffle uses a ``torch.Generator`` seeded from (seed..., epoch); its
 permutations are not ``jax.random``'s, so tests compare the two engines
@@ -21,7 +26,7 @@ where the shuffle cannot matter (one full batch per epoch).
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -29,6 +34,12 @@ import torch.nn.functional as F
 from torch import nn
 
 Variables = Dict[str, torch.Tensor]
+Tensors = List[torch.Tensor]
+# hook(grads, params, anchor, extra): rewrites ``grads`` in place.  Every list
+# is in ``module.named_parameters()`` order; ``anchor`` holds the round-start
+# params and ``extra`` the client's ``engine_extra`` laid out the same way
+# (or None).  It runs under ``torch.no_grad()``.
+GradHook = Callable[[Tensors, Tensors, Tensors, Optional[Tensors]], None]
 
 
 class LocalTrainResult(NamedTuple):
@@ -61,6 +72,25 @@ def make_optimizer(args) -> Callable[[Sequence[torch.Tensor]], torch.optim.Optim
         return lambda params: torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
                                                 weight_decay=wd)
     raise ValueError(f"unknown client_optimizer {name!r}")
+
+
+def resolve_grad_hook(args, grad_hook: Optional[GradHook]) -> Optional[GradHook]:
+    """Shared grad-hook resolution for both engines: an explicit hook wins;
+    otherwise ``args.proximal_mu`` > 0 installs FedProx's ``g + mu*(p -
+    anchor)``."""
+    mu = float(getattr(args, "proximal_mu", 0.0) or 0.0)
+    if grad_hook is None and mu > 0:
+        def grad_hook(grads, params, anchor, extra):
+            # g + mu*p - mu*a: in place, where p - a would allocate a tensor
+            # a param every step
+            torch._foreach_add_(grads, params, alpha=mu)
+            torch._foreach_add_(grads, anchor, alpha=-mu)
+    return grad_hook
+
+
+def param_list(tree: Optional[Variables], names: Sequence[str]) -> Optional[Tensors]:
+    """A ``{name: tensor}`` dict as a list in ``names``' order (None stays None)."""
+    return None if tree is None else [tree[n] for n in names]
 
 
 def softmax_ce_loss(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor):
@@ -117,22 +147,29 @@ def build_local_train(
     padded_n: int,
     epochs: Optional[int] = None,
     loss: str = "ce",
+    grad_hook: Optional[GradHook] = None,
 ) -> Callable[..., LocalTrainResult]:
     """Returned fn: ``(variables, x [padded_n, ...], y [padded_n, ...],
-    n_valid, seed) -> LocalTrainResult``.  ``x``/``y`` lie on the module's
-    device; ``seed`` is a tuple of ints that fixes the shuffles."""
+    n_valid, seed, extra=None) -> LocalTrainResult``.  ``x``/``y`` lie on the
+    module's device; ``seed`` is a tuple of ints that fixes the shuffles;
+    ``extra`` is the client's ``{name: tensor}`` input to the grad hook.
+    ``args.proximal_mu`` > 0 installs the FedProx hook when none is given."""
     if padded_n < batch_size:
         raise ValueError(f"padded_n ({padded_n}) must be >= batch_size ({batch_size})")
     make_opt = make_optimizer(args)
     epochs = int(epochs if epochs is not None else getattr(args, "epochs", 1))
     steps_per_epoch = max(1, -(-padded_n // batch_size))
     loss_fn = build_loss_fn(module, loss)
+    grad_hook = resolve_grad_hook(args, grad_hook)
+    names = [name for name, _ in module.named_parameters()]
 
     def train(variables: Variables, x: torch.Tensor, y: torch.Tensor, n_valid: int,
-              seed: Sequence[int] = (0,)) -> LocalTrainResult:
+              seed: Sequence[int] = (0,), extra: Optional[Variables] = None) -> LocalTrainResult:
         load_variables(module, variables)
         module.train()
-        opt = make_opt(list(module.parameters()))
+        params = list(module.parameters())
+        anchor, extra_l = param_list(variables, names), param_list(extra, names)
+        opt = make_opt(params)
         n_valid = int(n_valid)
         loss_sum = torch.zeros((), dtype=torch.float32, device=x.device)
         seen = steps = 0.0
@@ -151,6 +188,9 @@ def build_local_train(
                 step_loss = loss_fn(x.index_select(0, idx), y.index_select(0, idx), bmask)
                 opt.zero_grad(set_to_none=True)
                 step_loss.backward()
+                if grad_hook is not None:
+                    with torch.no_grad():
+                        grad_hook([p.grad for p in params], params, anchor, extra_l)
                 opt.step()
                 loss_sum += step_loss.detach() * n_b
                 seen += n_b

@@ -1,5 +1,5 @@
-"""Weights carried across: the JAX package's TransformerLM and ResNet
-variables onto the port's modules.
+"""Weights carried across: the JAX package's TransformerLM, ResNet and
+LogisticRegression variables onto the port's modules.
 
 The flax variables arrive as a nested dict of numpy arrays (``{"params":
 {...}}`` or the bare params dict).  The TransformerLM's mapping:
@@ -30,6 +30,9 @@ norm_proj}`` ``scale``, ``bias``
 ``classifier/kernel`` [in, out], ``classifier/     ``classifier.weight`` (transposed),
 bias``                                             ``classifier.bias``
 =================================================  ======================================
+
+The ``LogisticRegression``'s one layer: ``linear/kernel`` [in, out] to
+``linear.weight`` (transposed), ``linear/bias`` to ``linear.bias``.
 """
 
 from __future__ import annotations
@@ -91,9 +94,18 @@ def resnet_state_from_flax(variables: Mapping[str, Any]) -> Dict[str, np.ndarray
     return out
 
 
-def state_from_flax(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
-    """The mapping of either model family, told apart by its stem's leaf."""
+def linear_state_from_flax(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """{torch parameter name: numpy array} for a flax LogisticRegression tree."""
     params = variables.get("params", variables)
+    return {"linear.weight": np.asarray(params["linear"]["kernel"]).T,
+            "linear.bias": np.asarray(params["linear"]["bias"])}
+
+
+def state_from_flax(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """The mapping of any model family, told apart by its first layer's leaf."""
+    params = variables.get("params", variables)
+    if set(params) == {"linear"}:
+        return linear_state_from_flax(params)
     if "conv_init" in params:
         return resnet_state_from_flax(params)
     return transformer_state_from_flax(params)

@@ -4,14 +4,15 @@
 ``create`` returns the module built on the ``meta`` device: a description with
 shapes and no storage, as the flax hub returns an uninitialised module.  The
 engine materialises it on the run's device and fills it from a seeded
-generator (``ml.engine.train.init_variables``).  The ``transformer`` and the
-ResNet keys are ported; the other keys raise ``NotImplementedError`` naming
-the ROADMAP.md item that ports them.
+generator (``ml.engine.train.init_variables``).  The ``lr`` (the default),
+``transformer`` and ResNet keys are ported; the other keys raise
+``NotImplementedError`` naming the ROADMAP.md item that ports them.
 """
 
 from __future__ import annotations
 
 import logging
+import math
 from typing import Any
 
 import torch
@@ -23,11 +24,16 @@ logger = logging.getLogger(__name__)
 _RESNETS = {"resnet20", "resnet56", "resnet18", "resnet18_gn"}
 
 
-def _in_channels(dataset: str) -> int:
-    """Input channels of an image dataset (flax infers them at init)."""
+def _in_shape(dataset: str) -> tuple:
+    """The shape of one sample of the dataset (flax infers it at init)."""
     from ..data.data_loader import DATASET_SPECS
 
-    shape = DATASET_SPECS.get(dataset, {}).get("shape", (32, 32, 3))
+    return tuple(DATASET_SPECS.get(dataset, {}).get("shape", (32, 32, 3)))
+
+
+def _in_channels(dataset: str) -> int:
+    """Input channels of an image dataset (flax infers them at init)."""
+    shape = _in_shape(dataset)
     return int(shape[-1]) if len(shape) == 3 else 1
 
 
@@ -40,6 +46,10 @@ def create(args: Any, output_dim: int) -> nn.Module:
             "compute_dtype=%s is only plumbed into %s; model %r runs fp32",
             getattr(args, "compute_dtype", None), sorted(_RESNETS), name,
         )
+    if name in ("lr", "logistic_regression"):
+        from .linear import LogisticRegression
+
+        return LogisticRegression(math.prod(_in_shape(dataset)), output_dim, device="meta")
     if name in ("transformer", "fedtransformer"):
         from .transformer import TransformerConfig, TransformerLM
 

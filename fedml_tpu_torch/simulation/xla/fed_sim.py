@@ -14,17 +14,24 @@ them out):
   on-device gather; float data are stored in ``data_storage_dtype`` (bf16
   when a ResNet computes in bf16);
 * the padded round (default) trains each client from the round's global
-  variables (``ml.engine.train.build_local_train``) and adds
-  ``n_i * variables`` into an fp32 accumulator;
+  variables (``ml.engine.train.build_local_train``, with the algorithm's
+  grad hook) and adds ``n_i * variables`` into an fp32 accumulator, the
+  algorithm's contribution into ``ext`` and its output into the client's
+  slot;
 * the packed round (``xla_pack``) streams the clients' batches back to back
-  (``ml.engine.packed``), flushing into the accumulator at each client's
-  last step;
-* the algorithm's server step turns the accumulator into the next global
-  variables.
+  (``ml.engine.packed``), flushing the same three at each client's last
+  step;
+* the algorithm's server step turns the accumulator and ``ext`` into the
+  next global variables, and the slots' outputs are scatter-added into the
+  algorithm's client-state table (SCAFFOLD's c_i, FedDyn's h_i).
 
 The cohort of each round is the population manager's ``mt19937`` draw, the
-same clients as the JAX package picks.  Knobs of subsystems the port does not
-have yet raise ``NotImplementedError`` when set; none is ignored.
+same clients as the JAX package picks.  With ``fl_mode: async`` each round is
+one buffer flush instead: a virtual arrival queue, seeded from
+``random_seed``, decides the flush's clients and their staleness, over the
+cohort drawn once at construction, as in the JAX package.  Knobs of
+subsystems the port does not have yet raise ``NotImplementedError`` when set;
+none is ignored.
 
 The class keeps the JAX name so a reader finds its counterpart.
 """
@@ -38,6 +45,7 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 import torch
 
+from ...core.async_fl import VirtualArrivalQueue
 from ...core.population import PopulationManager
 from ...core.schedule import RuntimeEstimator, SeqTrainScheduler
 from ...ml.aggregator.aggregator_creator import create_server_aggregator
@@ -46,7 +54,7 @@ from ...ml.engine.train import build_local_train, init_variables
 from ...ml.trainer.trainer_creator import _TAG_DATASETS, loss_kind_for_dataset
 from ...models.hub import data_storage_dtype
 from ...utils.metrics import MetricsLogger
-from .algorithms import create_inmesh_algorithm
+from .algorithms import create_inmesh_algorithm, out_buffer, split_slots, store_out, tree_add_
 
 logger = logging.getLogger(__name__)
 
@@ -65,15 +73,11 @@ _UNPORTED_KNOBS = (
     ("enable_dp", _is_set, "queue A, item 12: core/dp"),
     ("xla_client_chunk", _is_set, "queue A, item 6d: xla_client_chunk"),
     ("population_stacked", _is_set, "queue A, item 6c: population_stacked"),
-    ("fl_mode", lambda a, k: str(getattr(a, k, "sync") or "sync").lower() != "sync",
-     "queue A, item 12: async algorithms"),
     ("server_state", lambda a, k: str(getattr(a, k, "replicated") or "replicated").lower()
      != "replicated", "queue A, item 15: server planes"),
     ("agg_plane", lambda a, k: str(getattr(a, k, "host") or "host").lower() != "host",
      "queue A, item 15: server planes"),
     ("checkpoint_dir", _is_set, "queue A, item 16: checkpointing"),
-    ("proximal_mu", lambda a, k: float(getattr(a, k, 0) or 0) > 0,
-     "queue A, item 12: FedProx grad hook"),
     ("obs_trace", _is_set, "queue A, item 16: obs/telemetry"),
     ("obs_telemetry", _is_set, "queue A, item 16: obs/telemetry"),
     ("obs_health", _is_set, "queue A, item 16: obs/telemetry"),
@@ -131,23 +135,28 @@ class XLASimulator:
         self.variables = init_variables(model, self.device, seed=self.seed)
         self.algo = create_inmesh_algorithm(args)
         self.server_state = self.algo.init_server_state(self.variables)
+        self.client_state = self.algo.init_client_state(self.num_clients, self.variables)
         self.packed = bool(getattr(args, "xla_pack", False))
         if self.packed:
             # one card: one stream whose slots are the whole cohort
             self.slots = self.clients_per_round
             self.s_max = s_max_for(self.max_client_n, self.slots, self.batch_size, self.epochs)
             self._device_fn = build_packed_device_fn(
-                self.module, self.args, loss=self.loss_kind,
+                self.module, self.args, self.algo, loss=self.loss_kind,
                 pregather=bool(getattr(args, "xla_pregather", False)),
                 stream=str(getattr(args, "xla_stream", "while")))
         else:
             self._local_train = build_local_train(
-                self.module, self.args, self.batch_size, self.padded_n, loss=self.loss_kind)
+                self.module, self.args, self.batch_size, self.padded_n, loss=self.loss_kind,
+                grad_hook=self.algo.grad_hook())
         self.runtime_estimator = RuntimeEstimator(1, uniform_devices=True)
         self.scheduler = SeqTrainScheduler(1, estimator=self.runtime_estimator)
         self._seen_buckets: set = set()
         self.population = PopulationManager.from_args(
             self.args, np.arange(self.num_clients), rng_style="mt19937")
+        self.async_mode = str(getattr(args, "fl_mode", "sync") or "sync").lower() == "async"
+        if self.async_mode:
+            self._async_init()
         self.aggregator = create_server_aggregator(model, args)
         self.metrics = MetricsLogger(args)
         self.round_times: List[float] = []
@@ -237,37 +246,122 @@ class XLASimulator:
                               sched.boundary[0, :s_bucket], sched.weight[0, :s_bucket],
                               sched.slot[0, :s_bucket], sched.n_steps[0])
 
-    def _run_round(self, round_idx: int, ids: np.ndarray, counts: np.ndarray):
+    # ------------------------------------------------------------------
+    # buffered-async virtual arrival queue (fl_mode=async)
+    # ------------------------------------------------------------------
+    def _async_init(self):
+        """Deterministic virtual-time schedule: per-client durations drawn
+        once from ``random_seed``, a fixed cohort (the round-0 population
+        draw: async cycles re-dispatch the same pool, and the population is
+        never drawn again), and a flush size of ``async_buffer_size``
+        arrivals.  Each round is one flush."""
+        cap = int(getattr(self.args, "async_buffer_size", 0) or 0) or self.clients_per_round
+        if cap > self.clients_per_round:
+            logger.warning("async_buffer_size=%d exceeds the cohort (%d): clamping",
+                           cap, self.clients_per_round)
+            cap = self.clients_per_round
+        self._async_cap = cap
+        self._async_max_staleness = int(getattr(self.args, "async_max_staleness", 0) or 0)
+        rng = np.random.RandomState(self.seed)
+        self._async_durations = 0.5 + rng.exponential(1.0, size=self.num_clients)
+        self._async_cohort = [int(c) for c in self._client_sampling(0)]
+        self._async_version = 0
+        self._async_dispatched = {c: 0 for c in self._async_cohort}
+        self._async_queue = VirtualArrivalQueue()
+        for c in self._async_cohort:
+            self._async_queue.push(c, float(self._async_durations[c]))
+        self._async_t = 0.0
+        self._async_dropped_stale = 0
+        self.async_flushes: List[Dict[int, int]] = []  # each flush's staleness by client
+
+    def _async_next_flush(self) -> Tuple[np.ndarray, Dict[int, int]]:
+        """Pop arrivals off the virtual queue until one buffer's worth
+        accrues; returns (cohort sorted by id, staleness by id)."""
+        picked: List[int] = []
+        stal: Dict[int, int] = {}
+        v = self._async_version
+        while len(picked) < self._async_cap:
+            t, cid = self._async_queue.pop()
+            self._async_t = t
+            s = v - self._async_dispatched[cid]
+            if s > self._async_max_staleness:
+                # too stale to aggregate: fresh work beats idling
+                self._async_dropped_stale += 1
+                self._async_dispatched[cid] = v
+                self._async_queue.push(cid, t + float(self._async_durations[cid]))
+                continue
+            picked.append(cid)
+            stal[cid] = int(s)
+            if self._async_max_staleness >= 1 and len(picked) < self._async_cap:
+                # FedBuff: the client keeps training while its delta waits
+                self._async_dispatched[cid] = v
+                self._async_queue.push(cid, t + float(self._async_durations[cid]))
+        return np.asarray(sorted(picked), np.int64), stal
+
+    def _async_round_end(self):
+        """The flush applied: bump the version and re-dispatch every idle
+        cohort member on the fresh global at the flush's virtual time."""
+        self._async_version += 1
+        in_flight = set(self._async_queue.clients())
+        for c in self._async_cohort:
+            if c not in in_flight:
+                self._async_dispatched[c] = self._async_version
+                self._async_queue.push(c, self._async_t + float(self._async_durations[c]))
+
+    # ------------------------------------------------------------------
+    # the round
+    # ------------------------------------------------------------------
+    def _run_round(self, round_idx: int, ids: np.ndarray, counts: np.ndarray, cex=None):
         """Train the scheduled clients, in order, from the current global
-        variables, and apply the server step.  Returns the mean loss tensor."""
+        variables, apply the server step and fold the clients' outputs into
+        the client state.  ``cex`` is the round's client extras
+        (``algo.gather_client_extras``).  Returns the mean loss tensor."""
+        algo = self.algo
         acc = {k: torch.zeros_like(v, dtype=torch.float32) for k, v in self.variables.items()}
+        ext = algo.zero_contrib(self.variables)
+        outs = out_buffer(algo, self.variables, len(ids))
+        cex_rows, out_rows = split_slots(cex, len(ids)), split_slots(outs, len(ids))
         wsum = 0.0
         lsum = torch.zeros((), dtype=torch.float32, device=self.device)
-        for cid, n_i in zip(ids.tolist(), counts.tolist()):
+        for s, (cid, n_i) in enumerate(zip(ids.tolist(), counts.tolist())):
             if n_i <= 0:
                 continue  # contributes nothing, as a weight-0 slot in the mesh round
+            cex_i = cex_rows[s]
             rows = self.client_idx[cid]
+            with torch.no_grad():
+                extra = algo.engine_extra(cex_i, self.server_state)
             result = self._local_train(self.variables, self.x_all.index_select(0, rows),
                                        self.y_all.index_select(0, rows), n_i,
-                                       seed=(self.seed, round_idx, cid))
-            for k, p in result.variables.items():
-                acc[k].add_(p.float(), alpha=float(n_i))
-            wsum += float(n_i)
-            lsum += result.loss * float(n_i)
+                                       seed=(self.seed, round_idx, cid), extra=extra)
+            w = float(n_i)
+            with torch.no_grad():
+                for k, p in result.variables.items():
+                    acc[k].add_(p.float(), alpha=w)
+                contrib, out = algo.client_result(self.variables, result, w, 1.0, cex_i,
+                                                  self.server_state)
+                ext = tree_add_(ext, contrib)
+                store_out(out_rows[s], out)
+            wsum += w
+            lsum += result.loss * w
         mean_loss = lsum / max(wsum, 1e-9)
-        self.variables, self.server_state = self.algo.server_update(
-            acc, wsum, self.variables, self.server_state)
+        self._server_step(acc, wsum, ext, ids, outs)
         return mean_loss
 
-    def _run_packed_round(self, round_idx: int, ids: np.ndarray, counts: np.ndarray):
-        """The packed stream of the scheduled clients, then the server step.
-        Returns the mean per-sample loss tensor."""
-        acc, wsum, lsum, cnt = self._device_fn(
-            self.variables, self.x_all, self.y_all,
-            self._packed_inputs(ids, counts, round_idx))
-        self.variables, self.server_state = self.algo.server_update(
-            acc, wsum, self.variables, self.server_state)
+    def _run_packed_round(self, round_idx: int, ids: np.ndarray, counts: np.ndarray, cex=None):
+        """The packed stream of the scheduled clients, then the server step
+        and the clients' outputs into the client state.  Returns the mean
+        per-sample loss tensor."""
+        acc, wsum, lsum, cnt, ext, outs = self._device_fn(
+            self.variables, self.server_state, self.x_all, self.y_all,
+            self._packed_inputs(ids, counts, round_idx), cex, len(ids))
+        self._server_step(acc, wsum, ext, ids, outs)
         return lsum / max(cnt, 1.0)
+
+    def _server_step(self, acc, wsum: float, ext, ids: np.ndarray, outs) -> None:
+        with torch.no_grad():
+            self.variables, self.server_state = self.algo.server_update(
+                acc, wsum, ext, self.variables, self.server_state)
+            self.client_state = self.algo.apply_client_outs(self.client_state, ids, outs)
 
     def train(self) -> Dict[str, Any]:
         comm_round = int(self.args.comm_round)
@@ -275,11 +369,22 @@ class XLASimulator:
         last: Dict[str, Any] = {}
         for round_idx in range(comm_round):
             t0 = time.time()
-            sampled = self._client_sampling(round_idx)
+            if self.async_mode:
+                sampled, stal_map = self._async_next_flush()
+                self.algo.set_staleness(stal_map)
+                self.async_flushes.append(stal_map)
+            else:
+                sampled = self._client_sampling(round_idx)
             ids, real = self._schedule(sampled)
             counts = np.where(real > 0, self.client_counts[ids], 0)
+            # a sampled client with no samples contributes nothing
+            participated = (counts > 0).astype(np.float32)
+            cex = self.algo.gather_client_extras(self.client_state, ids, participated, round_idx)
             run = self._run_packed_round if self.packed else self._run_round
-            mean_loss = run(round_idx, ids, counts)
+            mean_loss = run(round_idx, ids, counts, cex)
+            self.algo.host_round_end(ids, participated, round_idx)
+            if self.async_mode:
+                self._async_round_end()
             self._sync()
             dt = time.time() - t0
             self.round_times.append(dt)

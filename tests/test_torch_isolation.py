@@ -29,6 +29,7 @@ SLICE_MODULES = [
     "fedml_tpu_torch.data.data_loader",
     "fedml_tpu_torch.data.loaders",
     "fedml_tpu_torch.data.synthetic",
+    "fedml_tpu_torch.core.async_fl",
     "fedml_tpu_torch.core.data.noniid_partition",
     "fedml_tpu_torch.core.population",
     "fedml_tpu_torch.core.schedule",
@@ -39,6 +40,7 @@ SLICE_MODULES = [
     "fedml_tpu_torch.ml.aggregator.aggregator_creator",
     "fedml_tpu_torch.ml.aggregator.default_aggregator",
     "fedml_tpu_torch.models.hub",
+    "fedml_tpu_torch.models.linear",
     "fedml_tpu_torch.models.transformer",
     "fedml_tpu_torch.models.resnet",
     "fedml_tpu_torch.models.convert",
@@ -50,6 +52,7 @@ SLICE_MODULES = [
     "fedml_tpu_torch.parallel.ring_attention",
     "fedml_tpu_torch.parallel.seq_parallel",
     "fedml_tpu_torch.simulation.simulator",
+    "fedml_tpu_torch.simulation.sp.fedopt.fedopt_api",
     "fedml_tpu_torch.simulation.xla.algorithms",
     "fedml_tpu_torch.simulation.xla.fed_sim",
     "fedml_tpu_torch.utils.metrics",

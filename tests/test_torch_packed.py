@@ -34,6 +34,7 @@ from fedml_tpu_torch.core.schedule import RuntimeEstimator, SeqTrainScheduler
 from fedml_tpu_torch.ml.engine import packed as tpacked
 from fedml_tpu_torch.models import convert
 from fedml_tpu_torch.models.resnet import resnet20
+from fedml_tpu_torch.simulation.xla.algorithms import create_inmesh_algorithm as talgo
 
 COUNTS = np.array([13, 0, 37, 3, 21, 8, 16], np.int64)  # one dummy slot
 BATCH, EPOCHS = 8, 2
@@ -110,8 +111,11 @@ def device_rounds():
     one = tpacked.PackedSchedule(*(a[0] for a in sched))
     touts = {}
     for pregather in (False, True):
-        tfn = tpacked.build_packed_device_fn(module, args, pregather=pregather)
-        touts[pregather] = tfn(variables, torch.from_numpy(x), torch.from_numpy(y), one)
+        tfn = tpacked.build_packed_device_fn(module, args, talgo(args), pregather=pregather)
+        acc, wsum, lsum, cnt, ext, outs = tfn(variables, (), torch.from_numpy(x),
+                                              torch.from_numpy(y), one, None, len(ids))
+        assert ext == 0.0 and outs is None  # FedAvg: no contribution, no output
+        touts[pregather] = (acc, wsum, lsum, cnt)
     return jout, touts
 
 
@@ -144,9 +148,9 @@ def test_device_fn_refuses_unported_hooks():
     module = resnet20(device="meta")
     args = types.SimpleNamespace(client_optimizer="sgd", learning_rate=0.1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpacked.build_packed_device_fn(module, args, capture_updates=True)
+        tpacked.build_packed_device_fn(module, args, talgo(args), capture_updates=True)
     with pytest.raises(ValueError, match="xla_stream"):
-        tpacked.build_packed_device_fn(module, args, stream="fori")
+        tpacked.build_packed_device_fn(module, args, talgo(args), stream="fori")
 
 
 BENCH_CONFIG = {  # bench.py's _bench_args(1), cut: 8 clients, 4 a round, 2 rounds

@@ -94,9 +94,9 @@ def runs():
     tlog = _record(tsim, lambda s: {k: v.numpy().copy() for k, v in s.variables.items()})
     local_train = tsim._local_train
 
-    def trained(variables, x, y, n_valid, seed):
+    def trained(variables, x, y, n_valid, seed, extra=None):
         tlog["trained"].append(int(seed[2]))  # seed = (run seed, round, client)
-        return local_train(variables, x, y, n_valid, seed=seed)
+        return local_train(variables, x, y, n_valid, seed=seed, extra=extra)
 
     tsim._local_train = trained
     jfinal, tfinal = jrun.run(), trun.run()
@@ -148,7 +148,8 @@ def test_throughput_reports_tokens(runs):
 
 def test_unported_knobs_raise():
     for knob, value in (("xla_client_chunk", 4), ("population_stacked", True),
-                        ("fl_mode", "async"), ("server_state", "sharded"),
+                        ("enable_dp", True), ("agg_plane", "compiled"),
+                        ("server_state", "sharded"),
                         ("checkpoint_dir", "ckpt"), ("obs_trace", True)):
         config = copy.deepcopy(CONFIG)
         config["train_args"][knob] = value
@@ -158,8 +159,8 @@ def test_unported_knobs_raise():
         with pytest.raises(NotImplementedError, match=knob):
             refuse_unported_knobs(args)
     config = copy.deepcopy(CONFIG)
-    config["train_args"]["federated_optimizer"] = "FedOpt"
-    with pytest.raises(NotImplementedError, match="FedOpt"):
+    config["train_args"]["federated_optimizer"] = "FedGKT"
+    with pytest.raises(NotImplementedError, match="fedgkt"):
         from fedml_tpu_torch.simulation.xla.algorithms import create_inmesh_algorithm
 
         create_inmesh_algorithm(fedml_tpu_torch.Arguments.from_dict(config))

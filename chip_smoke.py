@@ -70,7 +70,7 @@
    whether it copies to contiguous; the boundary flush is timed on its own
    with CUDA events.
 9. The kernels line, the card line, and the last line
-   {"ok": true, "device": {...}}, printed after phase 10.
+   {"ok": true, "device": {...}}, printed after phase 11.
 10. The algorithm zoo.  (a) At the north-star width: BENCH_CONFIG with only
    the algorithm's knobs changed (ZOO: FedProx, FedOpt/adam, FedNova,
    SCAFFOLD, FedDyn, AsyncFedAvg, FedBuff with a buffer of 16), 2 rounds
@@ -84,6 +84,22 @@
    hooks under the flash kernels: SCAFFOLD and FedDyn, 2 rounds each, on
    slice 1's configuration (hub transformer, fp32), with the counts set to 0
    before and read after: K1-K3 must have launched.
+11. The trust path.  (a) At the north-star width (BENCH_CONFIG,
+   byzantine_client_num 10, on phase 8's dataset), 7 runs of 2 rounds
+   through the entry points (TRUST: byzantine random + krum, label flipping
+   + trimmed mean, model replacement + norm clipping, FedNova + backdoor +
+   foolsgold, padded SCAFFOLD + bulyan with f 7, LDP Gaussian with a budget
+   spent exactly, central DP Laplace): round seconds, the security tail's
+   ms a round (CUDA events), peak memory over a FedAvg round's, finite
+   losses and params, the malicious set and the poisoned clients against
+   get_byzantine_idxs, foolsgold's history, the accountant's spends; then
+   FedAvg's round and byzantine + krum's alternated on one cohort.  (b) One
+   captured round's [32, 855,770] fp32 stack through every stacked defense
+   and attack on the card and on the CPU with the same draws, within
+   TRUST_TOL (selections and foolsgold's weights within their own bounds,
+   below), each card call timed.  (c) Krum + local DP on slice 1's
+   configuration, 2 rounds, counts set to 0 before and read after: K1-K3
+   must have launched.
 
 Any failure raises and the script exits non-zero with no result line.  It
 exits 2 when no CUDA device is visible.  Full details go to
@@ -1040,7 +1056,7 @@ def resnet_slice_phase(ft, fa):
             "profile": {"wall_ms": wall_ms, "device_ms": device_ms, "steps": steps,
                         "families_ms": families, "top": top, "ops_per_round": dict(op_table)},
             "group_norm": gn,
-            "flush_ms": flush_ms, "flushes_per_round": len(ids)}
+            "flush_ms": flush_ms, "flushes_per_round": len(ids)}, (dataset, classes)
 
 
 def packed_zoo_reference_phase(ft):
@@ -1155,10 +1171,11 @@ def _aten_ops_per_step(sim, ids, counts) -> dict:
     return ops
 
 
-def zoo_phase(ft, fa):
+def zoo_phase(ft, fa, dataset, classes):
     """Phase 10a: every zoo member at the north-star width, 2 rounds each
-    through the entry points; FedAvg's round and SCAFFOLD's alternated on
-    one cohort; the aten ops a step of the hooked members."""
+    through the entry points, on phase 8's dataset; FedAvg's round and
+    SCAFFOLD's alternated on one cohort; the aten ops a step of the hooked
+    members."""
     import copy
 
     import torch
@@ -1166,10 +1183,6 @@ def zoo_phase(ft, fa):
     fa.reset_launches()
     config = copy.deepcopy(BENCH_CONFIG)
     config["train_args"]["comm_round"] = ZOO_ROUNDS
-    args = ft.init(ft.Arguments.from_dict(copy.deepcopy(config)), should_init_logs=False)
-    t0 = time.perf_counter()
-    dataset, classes = ft.data.load(args)
-    log(f"  cifar10 ({dataset[0]} images) made once in {time.perf_counter() - t0:.2f} s")
     members, sims = {}, {}
     for name, knobs in ZOO:
         t0 = time.perf_counter()
@@ -1287,6 +1300,397 @@ def zoo_hooks_phase(ft, fa):
     if any(launches[name] for name in launches if name not in SLICE1_KERNELS):
         raise AssertionError(f"a bf16 kernel or the ring's fold launched: {launches}")
     log(f"  launches {launches}")
+    return launches, out
+
+
+# phase 11: the trust path on BENCH_CONFIG (byzantine_client_num 10), 2
+# rounds a run: (name, the knobs changed)
+TRUST_ROUNDS = 2
+TRUST_BASE = {"byzantine_client_num": 10}
+TRUST = [
+    ("byzantine_random_krum", {"enable_attack": True, "attack_type": "byzantine",
+                               "attack_mode": "random", "enable_defense": True,
+                               "defense_type": "krum"}),
+    ("label_flipping_trimmed_mean", {"enable_attack": True, "attack_type": "label_flipping",
+                                     "enable_defense": True,
+                                     "defense_type": "coordinate_wise_trimmed_mean"}),
+    ("model_replacement_clipping", {"enable_attack": True, "attack_type": "model_replacement",
+                                    "enable_defense": True, "defense_type": "norm_diff_clipping"}),
+    ("fednova_backdoor_foolsgold", {"federated_optimizer": "FedNova", "enable_attack": True,
+                                    "attack_type": "backdoor", "enable_defense": True,
+                                    "defense_type": "foolsgold"}),
+    # bulyan needs n >= 4f + 3 (32 >= 31): f 7; with 10 its trimmed set is 1 row
+    ("padded_scaffold_bulyan", {"federated_optimizer": "SCAFFOLD", "xla_pack": False,
+                                "enable_defense": True, "defense_type": "bulyan",
+                                "byzantine_client_num": 7}),
+    # 2 rounds x 32 clients x epsilon 10: the budget ends exactly with the run
+    ("ldp_gaussian", {"enable_dp": True, "dp_type": "ldp", "mechanism_type": "gaussian",
+                      "epsilon": 10.0, "delta": 1e-5, "sensitivity": 0.1,
+                      "privacy_budget": [640.0, 1.0]}),
+    ("cdp_laplace", {"enable_dp": True, "dp_type": "cdp", "mechanism_type": "laplace",
+                     "epsilon": 10.0, "sensitivity": 0.01}),
+]
+# phase 11b: every stacked rule on one captured round's stack, card against
+# CPU on the same inputs and draws.  fp32 both sides; the two sum 32 rows and
+# 855,770 coordinates in other orders (relative roundoff ~1e-7 a sum, up to
+# 32 * 2^-24 = 1.9e-6 over the rows), and the outputs are params of |x| <~ 1:
+# |card - cpu| <= 1e-5 + 1e-5 |cpu| leaves 5x room over the worst case.
+# krum's scores take the Gram form |a|^2 + |b|^2 - 2 a.b of the raw params,
+# whose fp32 roundoff scales with |a|^2, not with the distance: each
+# distance carries up to ~20 * 2^-24 * 4 max_i |x_i|^2 (a blocked sum of
+# 855,770 terms), a score of k of them k times that.  Scores are held to
+# TRUST_SCORE_RTOL * k * max_i |x_i|^2; where the two sides' selections
+# differ, each card pick must score within that of the CPU's best, and the
+# rule's arithmetic after the selection is held to TRUST_TOL on the card's
+# selection.
+# foolsgold's trust weights are a logit of 1 - the largest cosine
+# similarity, whose slope 1 / (w (1 - w)) reaches 101 at its cap w = 0.99:
+# a cosine's roundoff (~20 * 2^-24 over 855,770 terms, 1.2e-6) becomes
+# 1.2e-4 in a weight.  The weights are held to that bound, the aggregate to
+# TRUST_TOL on the card's weights.
+TRUST_TOL = (1e-5, 1e-5)
+TRUST_SCORE_RTOL = 5e-6
+TRUST_FOOLSGOLD_WEIGHT_TOL = (2e-4, 0.0)
+TRUST_DEFENSES = [
+    ("krum", {}), ("multi_krum", {"krum_param_m": 16}), ("norm_diff_clipping", {}),
+    ("3sigma", {}), ("wbc", {}), ("geometric_median", {}), ("rfa", {}), ("cclip", {}),
+    ("slsgd", {}), ("foolsgold", {}), ("robust_learning_rate", {}),
+    ("coordinate_wise_median", {}), ("coordinate_wise_trimmed_mean", {}),
+    ("bulyan", {"byzantine_client_num": 7}), ("weak_dp", {}),
+    ("soteria", {"soteria_layer": ("classifier", "kernel")}),
+]
+TRUST_ATTACKS = [
+    ("byzantine", {"attack_mode": "zero"}), ("byzantine", {"attack_mode": "random"}),
+    ("byzantine", {"attack_mode": "flip"}), ("model_replacement", {}),
+    ("backdoor", {"attack_mode": "craft"}), ("backdoor", {"attack_mode": "clip"}),
+    ("edge_case_backdoor", {}),
+]
+
+
+def _trust_runner(ft, knobs, dataset, classes):
+    import copy
+
+    config = copy.deepcopy(BENCH_CONFIG)
+    config["train_args"].update(TRUST_BASE, comm_round=TRUST_ROUNDS)
+    return _zoo_runner(ft, config, knobs, dataset, classes)
+
+
+def trust_phase(ft, fa, dataset, classes):
+    """Phase 11a: each trust run through the entry points at the north-star
+    width, 2 rounds, its peak memory against a FedAvg round's; FedAvg's round
+    and the defended one (byzantine + krum) alternated on one cohort.  Phase
+    11b: one captured round's stack through every stacked rule, card against
+    CPU."""
+    import torch
+
+    from fedml_tpu_torch.core.dp.fedml_differential_privacy import FedMLDifferentialPrivacy
+    from fedml_tpu_torch.core.security.fedml_attacker import FedMLAttacker
+
+    fa.reset_launches()
+    # FedAvg's sim (no knob of the trust path) and its peak over one round
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fedavg = _zoo_runner(ft, BENCH_CONFIG, {"comm_round": 1}, dataset, classes).runner.sim
+    sampled = fedavg._client_sampling(1)
+    ids, real = fedavg._schedule(sampled)
+    counts = np.where(real > 0, fedavg.client_counts[ids], 0)
+    float(fedavg._run_packed_round(1, ids, counts))  # also warms the turns below
+    torch.cuda.synchronize()
+    fedavg_peak = torch.cuda.max_memory_allocated() - base
+    log(f"  FedAvg: one round's peak {fedavg_peak / 2**30:.3f} GiB")
+    runs, sims, captured = {}, {}, {}
+    for name, knobs in TRUST:
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()  # the sims kept from earlier runs
+        runner = _trust_runner(ft, knobs, dataset, classes)
+        sim = runner.runner.sim
+        cohorts = []
+        sampling = sim._client_sampling
+
+        def sampled(round_idx, sampling=sampling, cohorts=cohorts):
+            ids = sampling(round_idx)
+            cohorts.append(sorted(int(c) for c in ids))
+            return ids
+
+        sim._client_sampling = sampled
+        if name == "byzantine_random_krum":
+            security = sim._security_round
+
+            def capture(round_idx, mat_all, taus, ids, counts, cex, ext, security=security):
+                real = np.where(counts > 0)[0]
+                captured.update(
+                    mat=mat_all[torch.as_tensor(real, device=mat_all.device)].clone(),
+                    w=counts[real].astype(np.float32),
+                    mal=np.array([float(int(ids[i]) in sim._byzantine) for i in real],
+                                 np.float32),
+                    variables={k: v.clone() for k, v in sim.variables.items()})
+                return security(round_idx, mat_all, taus, ids, counts, cex, ext)
+
+            sim._security_round = capture
+        runner.run()
+        torch.cuda.synchronize()
+        sim.__dict__.pop("_security_round", None)
+        peak = torch.cuda.max_memory_allocated() - base
+        finite = all(bool(torch.isfinite(v).all()) for v in sim.variables.values())
+        if not finite or len(sim.round_losses) != TRUST_ROUNDS or not all(
+                math.isfinite(x) for x in sim.round_losses):
+            raise AssertionError(f"{name}: losses {sim.round_losses}, finite params {finite}")
+        attacker = FedMLAttacker.get_instance()
+        entry = {"algorithm": type(sim.algo).__name__, "packed": sim.packed,
+                 "round_seconds": list(sim.round_times), "losses": list(sim.round_losses),
+                 "samples_per_round": list(sim.samples_per_round),
+                 "peak_memory_bytes": peak, "peak_over_fedavg_bytes": peak - fedavg_peak,
+                 "wall_seconds": time.perf_counter() - t0}
+        if sim.needs_stack:
+            entry["security_ms"] = list(sim.security_ms)
+            if len(sim.security_ms) != TRUST_ROUNDS:
+                raise AssertionError(f"{name}: the security tail ran {sim.security_ms}")
+        if attacker.is_attack_enabled():
+            bad = attacker.get_byzantine_idxs(sim.num_clients)
+            entry["byzantine_idxs"] = bad
+            if attacker.is_data_poisoning_attack() and sim.poisoned_clients != bad:
+                raise AssertionError(f"{name}: poisoned {sim.poisoned_clients} != {bad}")
+            if attacker.is_model_attack():
+                want = [sorted(set(c) & set(bad)) for c in cohorts]
+                if sim.malicious_per_round != want or not any(want):
+                    raise AssertionError(f"{name}: malicious {sim.malicious_per_round} != "
+                                         f"get_byzantine_idxs in the cohort {want}")
+                entry["malicious_per_round"] = sim.malicious_per_round
+        if sim.defended and sim._defense.t == "foolsgold":
+            hist = sim._defense_state["fg_hist"]
+            dim = sum(v.numel() for v in sim.variables.values())
+            if tuple(hist.shape) != (sim.clients_per_round, dim) or not bool(
+                    torch.isfinite(hist).all()) or float(hist.abs().sum()) == 0.0:
+                raise AssertionError(f"{name}: foolsgold history {tuple(hist.shape)}")
+            entry["foolsgold_history_norm"] = float(torch.linalg.vector_norm(hist))
+        dp = FedMLDifferentialPrivacy.get_instance()
+        if dp.is_dp_enabled:
+            entry["dp"] = {"type": dp.dp_type, "noise_scale": dp.noise_scale(),
+                           "spends": len(dp.accountant), "spent": dp.accountant.total(),
+                           "remaining": dp.accountant.remaining}
+            if dp.is_local_dp_enabled() and (
+                    len(dp.accountant) != TRUST_ROUNDS * sim.clients_per_round
+                    or abs(dp.accountant.remaining[0] - (640.0 - 10.0 * len(dp.accountant)))
+                    > 1e-9):
+                raise AssertionError(f"{name}: the accountant spent {entry['dp']}")
+            if dp.is_global_dp_enabled() and len(dp.accountant) != TRUST_ROUNDS:
+                raise AssertionError(f"{name}: central DP spent {entry['dp']}")
+        runs[name] = entry
+        log(f"  {name} ({entry['algorithm']}, {'packed' if sim.packed else 'padded'}): rounds "
+            f"{[round(t, 4) for t in sim.round_times]} s, {sim.samples_per_round} samples; "
+            f"security tail {[round(t, 3) for t in entry.get('security_ms', [])]} ms; peak "
+            f"{peak / 2**30:.3f} GiB ({(peak - fedavg_peak) / 2**20:+.1f} MiB over FedAvg); "
+            f"losses {[round(x, 6) for x in sim.round_losses]}"
+            + (f"; malicious {entry['malicious_per_round']}" if "malicious_per_round" in entry
+               else "")
+            + (f"; dp {entry['dp']}" if "dp" in entry else ""))
+        if name == "byzantine_random_krum":
+            sims[name] = sim
+        del runner, sim
+    launches = dict(fa.LAUNCHES)
+    if any(launches.values()):
+        raise AssertionError(f"a flash kernel launched on the trust path's ResNet-56: {launches}")
+
+    # FedAvg's round and the defended round, in turns on one cohort
+    defended = sims["byzantine_random_krum"]
+    turns = []
+    for label, sim in (("krum", defended), ("FedAvg", fedavg), ("krum", defended),
+                       ("krum", defended), ("FedAvg", fedavg)):  # the first warms
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(sim._run_packed_round(1, ids, counts))
+        torch.cuda.synchronize()
+        turn = {"run": label, "seconds": time.perf_counter() - t0, "loss": loss}
+        if sim is defended and sim._tail_events is not None:
+            turn["security_ms"] = sim._tail_events[0].elapsed_time(sim._tail_events[1])
+            sim._tail_events = None
+        turns.append(turn)
+    turns = turns[1:]
+    fedavg_s = statistics.mean(t["seconds"] for t in turns if t["run"] == "FedAvg")
+    krum_s = statistics.mean(t["seconds"] for t in turns if t["run"] == "krum")
+    log(f"  one cohort ({int(counts.sum())} samples), in turns: " + ", ".join(
+        f"{t['run']} {t['seconds']:.4f} s" + (f" (tail {t['security_ms']:.2f} ms)"
+                                             if "security_ms" in t else "") for t in turns)
+        + f"; byzantine + krum over FedAvg {krum_s / fedavg_s:.4f}")
+    del fedavg, defended, sims
+    log("== phase 11b: every stacked defense and attack on one round's stack, card vs CPU")
+    rules = trust_rules_phase(captured)
+    return {"fedavg_peak_bytes": fedavg_peak, "runs": runs, "turns": turns,
+            "krum_over_fedavg": krum_s / fedavg_s, "flash_launches": launches, "rules": rules}
+
+
+def trust_rules_phase(captured):
+    """Phase 11b: the captured round's [32, 855,770] fp32 stack through every
+    stacked defense (tree mode; rows mode too where a rows-mode strategy
+    would read it) and attack, on the card and on the CPU with the same
+    draws; each card call timed (CUDA events, median of 5)."""
+    import types
+
+    import torch
+
+    from fedml_tpu_torch.core.security import stacked as S
+    from fedml_tpu_torch.models.convert import FlatLayout
+    from fedml_tpu_torch.utils.rng import seeded_generator
+
+    card = captured["mat"].device
+    cpu = torch.device("cpu")
+    mats = {card: captured["mat"], cpu: captured["mat"].cpu()}
+    ws = {d: torch.from_numpy(captured["w"]).to(d) for d in (card, cpu)}
+    mals = {d: torch.from_numpy(captured["mal"]).to(d) for d in (card, cpu)}
+    gvars = {d: {k: v.to(d) for k, v in captured["variables"].items()} for d in (card, cpu)}
+    layout = FlatLayout.of(gvars[cpu])
+    gvecs = {d: layout.ravel(gvars[d]) for d in (card, cpu)}
+    n, dim = mats[cpu].shape
+    log(f"  captured stack [{n}, {dim}] fp32 ({n * dim * 4 / 1e6:.1f} MB), "
+        f"{int(captured['mal'].sum())} malicious rows")
+
+    def timed(fn):
+        fn()
+        per = []
+        for _ in range(5):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            per.append(start.elapsed_time(end))
+        return statistics.median(per)
+
+    out = {}
+    for name, extra in TRUST_DEFENSES:
+        args = types.SimpleNamespace(**{**TRUST_BASE, **extra})
+        defense = S.build_stacked_defense(args, name)
+        noise = defense.draw(n, dim, seeded_generator((0, 11), cpu), cpu)
+        state = S.init_defense_state(name, n, dim, cpu)
+        if name == "wbc":  # a previous round's rows, so the noise applies
+            state = {"wbc_prev": mats[cpu] + 1e-4 * torch.randn(
+                n, dim, generator=torch.Generator().manual_seed(5)), "wbc_has": torch.ones(())}
+        res, t_cpu = {}, {}
+        for d in (cpu, card):
+            st = {k: v.to(d) for k, v in state.items()}
+            nz = None if noise is None else noise.to(d)
+            t0 = time.perf_counter()
+            res[d] = defense.rows_fn(mats[d], ws[d], gvecs[d], None, st, nz, layout=layout)
+            if d == card:
+                torch.cuda.synchronize()
+            t_cpu[d] = time.perf_counter() - t0
+        want, selection, errs = res[cpu], None, {}
+        if name in ("krum", "multi_krum", "bulyan"):
+            want, selection = _forced_selection(name, defense, mats, ws, res, card, cpu)
+        if name == "foolsgold":
+            errs["weights"] = check_close(f"11b {name} weights", res[card][1].cpu(), want[1],
+                                          TRUST_FOOLSGOLD_WEIGHT_TOL)
+            want = (want[0], res[card][1].cpu(), want[2])
+        for i, what in enumerate(("rows", "weights")):
+            if what not in errs:
+                errs[what] = check_close(f"11b {name} {what}", res[card][i].cpu(), want[i],
+                                         TRUST_TOL)
+        agg = S._wmean(res[card][0], res[card][1]).cpu()
+        errs["aggregate"] = check_close(f"11b {name} aggregate", agg,
+                                        S._wmean(want[0], want[1]), TRUST_TOL)
+        st_card = {k: v.to(card) for k, v in state.items()}
+        nz_card = None if noise is None else noise.to(card)
+        ms = timed(lambda: defense.rows_fn(mats[card], ws[card], gvecs[card], None, st_card,
+                                           nz_card, layout=layout))
+        out[f"defense/{name}"] = {"ms": ms, "cpu_s": t_cpu[cpu], "max_abs_err": {
+            k: e[0] for k, e in errs.items()}, "least_atol": {k: e[1] for k, e in errs.items()},
+            "selection": selection}
+        log(f"    {name:30s} card {ms:8.3f} ms, CPU {t_cpu[cpu]:7.3f} s; max |card - CPU| "
+            + ", ".join(f"{k} {e[0]:.2e}" for k, e in errs.items())
+            + (f"; selection {json.dumps(selection)}" if selection else ""))
+    gen = seeded_generator((0, 12), cpu)
+    for name, extra in TRUST_ATTACKS:
+        args = types.SimpleNamespace(**extra)
+        attack = S.build_stacked_attack(args, name)
+        noise = attack.draw((n, dim), gen, cpu)
+        res = {}
+        for d in (cpu, card):
+            res[d] = attack(mats[d], ws[d], gvecs[d], mals[d],
+                            noise=None if noise is None else noise.to(d))
+        err = check_close(f"11b {name} {extra}", res[card].cpu(), res[cpu], TRUST_TOL)
+        nz_card = None if noise is None else noise.to(card)
+        ms = timed(lambda: attack(mats[card], ws[card], gvecs[card], mals[card], noise=nz_card))
+        label = f"attack/{name}" + (f"/{extra['attack_mode']}" if extra else "")
+        out[label] = {"ms": ms, "max_abs_err": err[0], "least_atol": err[1]}
+        log(f"    {label:37s} card {ms:8.3f} ms; max |card - CPU| {err[0]:.2e}")
+    return out
+
+
+def _forced_selection(name, defense, mats, ws, res, card, cpu):
+    """krum's scores on both sides held to the Gram form's roundoff; the
+    CPU's result of the rule on the card's selection (its own where the two
+    pick the same rows), and what the selections were."""
+    from fedml_tpu_torch.core.security import defense_funcs as F
+
+    n = mats[cpu].shape[0]
+    byz = defense.byz
+    k = max(n - byz - 2, 1)
+    scores = {d: F.krum_scores(mats[d], byz).cpu() for d in (cpu, card)}
+    sq_max = float((mats[cpu].double() ** 2).sum(1).max())
+    tol = TRUST_SCORE_RTOL * k * sq_max
+    err = float((scores[card] - scores[cpu]).abs().max())
+    if err > tol:
+        raise AssertionError(f"11b {name}: krum scores differ by {err:.3e} > {tol:.3e}")
+    m = min(n, {"krum": 1, "multi_krum": defense.krum_m, "bulyan": max(n - 2 * byz, 1)}[name])
+    pick = {d: F.argsort(scores[d])[:m] for d in (cpu, card)}
+    best = float(scores[cpu].sort().values[m - 1])
+    worst_pick = float(scores[cpu][pick[card]].max())
+    if worst_pick > best + tol:
+        raise AssertionError(f"11b {name}: the card picked a row scoring {worst_pick:.6e} on the "
+                             f"CPU, over the CPU's {m}-th best {best:.6e} + {tol:.3e}")
+    same = sorted(pick[card].tolist()) == sorted(pick[cpu].tolist())
+    selection = {"same": same, "score_err": err, "score_tol": tol,
+                 "score_err_over_k_sq_max": err / (k * sq_max),
+                 "card": sorted(pick[card].tolist()), "cpu": sorted(pick[cpu].tolist())}
+    if same:
+        return res[cpu], selection
+    mat = mats[cpu]
+    if name == "bulyan":
+        agg = F.bulyan_trim(mat[pick[card]], byz, m)
+        return (agg[None, :].expand(mat.shape), ws[cpu], {}), selection
+    sel = ws[cpu].new_zeros(n)
+    sel[pick[card]] = 1.0
+    return (mat, ws[cpu] * sel, {}), selection
+
+
+def trust_hooks_phase(ft, fa):
+    """Phase 11c: slice 1's TransformerLM, 2 rounds with krum and local DP,
+    no eval: the security tail and the noise around rounds that launch K1-K3
+    (fp32).  The counts are set to 0 before and read after."""
+    import copy
+
+    import torch
+
+    config = copy.deepcopy(SLICE_CONFIG)
+    config["train_args"].update(comm_round=TRUST_ROUNDS, enable_defense=True, defense_type="krum",
+                                byzantine_client_num=1, enable_dp=True, dp_type="ldp",
+                                mechanism_type="gaussian", epsilon=50.0, sensitivity=0.01)
+    config["validation_args"]["frequency_of_the_test"] = 0
+    args = ft.init(ft.Arguments.from_dict(copy.deepcopy(config)), should_init_logs=False)
+    dataset, classes = ft.data.load(args)
+    fa.reset_launches()
+    runner = ft.FedMLRunner(args, ft.device.get_device(args), dataset,
+                            ft.models.hub.create(args, classes))
+    sim = runner.runner.sim
+    runner.run()
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    if not all(math.isfinite(x) for x in sim.round_losses) or not all(
+            bool(torch.isfinite(v).all()) for v in sim.variables.values()):
+        raise AssertionError(f"krum + LDP on slice 1: losses {sim.round_losses}")
+    for name in SLICE1_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched under the trust path")
+    if any(launches[name] for name in launches if name not in SLICE1_KERNELS):
+        raise AssertionError(f"a bf16 kernel or the ring's fold launched: {launches}")
+    out = {"round_seconds": list(sim.round_times), "losses": list(sim.round_losses),
+           "security_ms": list(sim.security_ms), "launches": launches}
+    log(f"  krum + LDP on slice 1: rounds {[round(t, 4) for t in sim.round_times]} s, tail "
+        f"{[round(t, 3) for t in sim.security_ms]} ms, losses "
+        f"{[round(x, 6) for x in sim.round_losses]}; launches {launches}")
     return launches, out
 
 
@@ -1481,17 +1885,23 @@ def main() -> int:
     single_launches, single = single_card_phase(ft, fa)
 
     log("== phase 8: slice 3 (bench.py's ResNet-56 packed FedAvg round, 4 rounds)")
-    resnet_slice = resnet_slice_phase(ft, fa)
+    resnet_slice, (cifar, classes) = resnet_slice_phase(ft, fa)
 
     log("== phase 10a: the algorithm zoo at the north-star width (ResNet-56, 2 rounds each)")
-    zoo = zoo_phase(ft, fa)
+    zoo = zoo_phase(ft, fa, cifar, classes)
     log("== phase 10b: the grad hooks under the flash kernels (SCAFFOLD, FedDyn on slice 1)")
     zoo_launches, zoo["slice1_hooks"] = zoo_hooks_phase(ft, fa)
+
+    log("== phase 11a: the trust path at the north-star width (ResNet-56, 2 rounds a run)")
+    trust = trust_phase(ft, fa, cifar, classes)
+    del cifar
+    log("== phase 11c: the trust path under the flash kernels (krum + LDP on slice 1)")
+    trust_launches, trust["slice1"] = trust_hooks_phase(ft, fa)
 
     log("== phase 9: results")
 
     kernels = kernels_line(rows + fold_rows,
-                           (launches, sp_launches, single_launches, zoo_launches))
+                           (launches, sp_launches, single_launches, zoo_launches, trust_launches))
     bench = bench_bf16_summary(rows)
     with open(os.path.join(OUT_DIR, "results.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -1504,7 +1914,8 @@ def main() -> int:
                    "round_losses": losses, "kernels": kernels, "profile": prof,
                    "sp_slice": sp_slice, "single_card": single,
                    "resnet_slice": resnet_slice, "zoo": zoo,
-                   "zoo_launches": zoo_launches,
+                   "zoo_launches": zoo_launches, "trust": trust,
+                   "trust_launches": trust_launches,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"bench_bf16": bench}))

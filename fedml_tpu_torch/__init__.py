@@ -24,14 +24,14 @@ from . import data, device, models  # noqa: E402,F401
 
 _logger = logging.getLogger(__name__)
 
-# switches whose subsystems (attack, defense, DP, MLOps) are not ported yet
-_REFUSED = (("enable_attack", "queue A, item 12"), ("enable_defense", "queue A, item 12"),
-            ("enable_dp", "queue A, item 12"), ("using_mlops", "queue A, item 16"))
+# switches whose subsystems are not ported yet
+_REFUSED = (("using_mlops", "queue A, item 16"),)
 
 
 def init(args: Arguments | None = None, should_init_logs: bool = True) -> Arguments:
     """Bootstrap: load and validate the config, refuse the subsystems the port
-    does not have, and seed ``random``, numpy and torch from ``random_seed``."""
+    does not have, seed ``random``, numpy and torch from ``random_seed``, and
+    initialise the attacker, defender and DP singletons from the config."""
     if args is None:
         args = load_arguments()
     if hasattr(args, "validate"):
@@ -46,6 +46,15 @@ def init(args: Arguments | None = None, should_init_logs: bool = True) -> Argume
     _random.seed(seed)
     _np.random.seed(seed)
     _torch.manual_seed(seed)
+
+    from .core.dp.fedml_differential_privacy import FedMLDifferentialPrivacy
+    from .core.security.fedml_attacker import FedMLAttacker
+    from .core.security.fedml_defender import FedMLDefender
+
+    FedMLAttacker.get_instance().init(args)
+    FedMLDefender.get_instance().init(args)
+    FedMLDifferentialPrivacy.get_instance().init(args)
+
     if not hasattr(args, "client_id_list"):
         n = int(getattr(args, "client_num_in_total", 0) or 0)
         args.client_id_list = list(range(1, n + 1))

@@ -1,8 +1,9 @@
 """Parsers for locally cached real dataset files (no downloads).
 
 The part of ``fedml_tpu/data/loaders.py`` that the ported slices reach: the
-LEAF json layout the next-word-prediction datasets are published in, and the
-CIFAR python pickles.  The other image, tabular and volume parsers are
+LEAF json layout the next-word-prediction datasets are published in, the
+CIFAR python pickles, and the edge-case example pools of the edge-case
+backdoor.  The other image, tabular and volume parsers are
 ported with the slices that train on those datasets (ROADMAP.md queue A,
 item 2).
 """
@@ -103,3 +104,33 @@ def try_load_real(name: str, cache_dir: str) -> Optional[Arrays]:
             if out is not None:
                 return out
     return None
+
+
+def load_edge_case_pool(root: str) -> Optional[dict]:
+    """Edge-case backdoor example pools (reference
+    ``data/edge_case_examples/data_loader.py``: ARDIS '7's for MNIST,
+    Southwest airliners for CIFAR — pickles of image arrays).  Accepts any
+    ``*.pkl`` under ``root`` holding an ndarray [N, ...] or a dict with a
+    'data' entry.  A mounted dir typically mixes sample shapes (MNIST-shaped
+    ARDIS next to CIFAR-shaped Southwest), so pools are grouped BY SAMPLE
+    SHAPE: returns ``{sample_shape_tuple: float_images_in_[0,1]}``."""
+    import glob as _glob
+
+    groups: dict = {}
+    for p in sorted(_glob.glob(os.path.join(root, "*.pkl"))):
+        try:
+            with open(p, "rb") as f:
+                obj = pickle.load(f)
+        except Exception:
+            continue
+        if isinstance(obj, dict):
+            obj = obj.get("data")
+        arr = np.asarray(obj)
+        if arr.ndim >= 2 and len(arr):
+            arr = arr.astype(np.float32)
+            if arr.max() > 1.5:  # uint8-coded images
+                arr = arr / 255.0
+            groups.setdefault(tuple(arr.shape[1:]), []).append(arr)
+    if not groups:
+        return None
+    return {shape: np.concatenate(pools, axis=0) for shape, pools in groups.items()}

@@ -11,7 +11,9 @@ round lays the round out as ONE stream of batches instead:
   the algorithm's grad hook), and at each client BOUNDARY the client's
   parameters are added into the fp32 weighted sum, its contribution into
   ``ext``, its output into its slot, and the parameters and optimizer are
-  reset to the round start.
+  reset to the round start.  On the trust path the boundary first noises the
+  client's parameters (local DP) and, with an attack or a defense on, writes
+  them into the client's row of the round's stack instead of the sum.
 
 ``PackedSchedule``, ``pack_round`` and ``s_max_for`` are verbatim copies
 (numpy): the shuffles come from ``np.random.default_rng((seed, round, cid,
@@ -34,8 +36,9 @@ import torch
 from torch import nn
 
 from ...simulation.xla.algorithms import out_buffer, split_slots, store_out, tree_add_
+from ...models.convert import FlatLayout
 from .train import (LocalTrainResult, build_loss_fn, load_variables, make_optimizer,
-                    param_list, resolve_grad_hook)
+                    param_list, post_train_generator, resolve_grad_hook)
 
 Variables = Dict[str, torch.Tensor]
 
@@ -145,6 +148,16 @@ def build_packed_device_fn(
     step.  A client's step count ``tau`` counts its steps whose mask holds a
     valid sample, read from the schedule.
 
+    ``post_train(variables, gen)`` rewrites a client's final variables at its
+    boundary (local DP), drawing from ``post_train_generator((seed, round,
+    client), device)`` with ``seed_round`` = (seed, round) given per call.
+    ``capture_updates`` also writes each client's final fp32 variables into
+    row ``slot`` of a ``[slots, D]`` matrix in ``ravel_pytree`` order and its
+    step count into ``tau``; ``outs`` is then ``{"algo": outs, "update":
+    matrix, "tau": [slots] numpy}``, and the weighted sum ``acc`` is not
+    kept (None): the security tail aggregates from the matrix.  With neither
+    hook the boundary flush runs as it always has.
+
     ``stream`` ``"while"`` and ``"scan"`` run the same loop here.  In the JAX
     package scan also runs the bucket's tail past ``n_steps``, whose steps
     carry all-zero masks and change nothing, so on one card both compute the
@@ -153,17 +166,14 @@ def build_packed_device_fn(
     """
     if stream not in ("while", "scan"):
         raise ValueError(f"xla_stream must be while|scan (got {stream!r})")
-    if post_train is not None or capture_updates:
-        raise NotImplementedError(
-            "per-client update hooks (local DP, the security layer's update stack) are "
-            "not ported yet (ROADMAP.md queue A, item 12: core/security and core/dp)")
     make_opt = make_optimizer(args)
     loss_fn = build_loss_fn(module, loss)
     grad_hook = resolve_grad_hook(args, algo.grad_hook())
     names = [name for name, _ in module.named_parameters()]
 
     def device_fn(variables: Variables, server_state, x_all: torch.Tensor,
-                  y_all: torch.Tensor, sched: PackedSchedule, cex, slots: int):
+                  y_all: torch.Tensor, sched: PackedSchedule, cex, slots: int,
+                  seed_round: Tuple[int, int] = (0, 0), ids=None):
         dev = x_all.device
         n_steps = int(sched.n_steps)
         idx = torch.from_numpy(sched.idx[:n_steps].astype(np.int64)).to(dev)
@@ -178,8 +188,16 @@ def build_packed_device_fn(
         params = list(module.parameters())
         params0 = param_list(variables, names)
         opt = make_opt(params)
-        acc = {k: torch.zeros_like(v, dtype=torch.float32) for k, v in variables.items()}
-        acc_list = param_list(acc, names)
+        if capture_updates:
+            acc = None
+            layout = FlatLayout.of(variables)
+            update = torch.zeros((slots, layout.dim), dtype=torch.float32, device=dev)
+            views = layout.views(update)  # {name: [slots, ...]}, each row its parameter
+            update_rows = [[views[k][s] for k in names] for s in range(slots)]
+            taus = np.zeros((slots,), np.float32)
+        else:
+            acc = {k: torch.zeros_like(v, dtype=torch.float32) for k, v in variables.items()}
+            acc_list = param_list(acc, names)
         ext = algo.zero_contrib(variables)
         outs = out_buffer(algo, variables, slots)
         cex_rows, out_rows = split_slots(cex, slots), split_slots(outs, slots)
@@ -214,9 +232,18 @@ def build_packed_device_fn(
                 # the optimizer to the round start
                 w = float(sched.weight[step])
                 real = float(w > 0)
-                result = LocalTrainResult(dict(zip(names, params)), None, c_cnt, c_steps)
+                final = dict(zip(names, params))
                 with torch.no_grad():
-                    torch._foreach_add_(acc_list, [p.float() for p in params], alpha=w)
+                    if post_train is not None:
+                        final = post_train(final, post_train_generator(
+                            (*seed_round, int(ids[s])), dev))
+                    result = LocalTrainResult(final, None, c_cnt, c_steps)
+                    if capture_updates:
+                        torch._foreach_copy_(update_rows[s], [final[k] for k in names])
+                        taus[s] = c_steps
+                    else:
+                        torch._foreach_add_(acc_list, [final[k].float() for k in names],
+                                            alpha=w)
                     contrib, out = algo.client_result(variables, result, w, real, cex_i,
                                                       server_state)
                     ext = tree_add_(ext, contrib)
@@ -225,6 +252,8 @@ def build_packed_device_fn(
                 wsum += w
                 opt = make_opt(params)
                 c_steps = c_cnt = 0.0
+        if capture_updates:
+            outs = {"algo": outs, "update": update, "tau": taus}
         return acc, wsum, lsum, cnt, ext, outs
 
     return device_fn

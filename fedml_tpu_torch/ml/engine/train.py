@@ -28,10 +28,11 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ...utils.rng import seeded_generator
 
 Variables = Dict[str, torch.Tensor]
 Tensors = List[torch.Tensor]
@@ -40,6 +41,18 @@ Tensors = List[torch.Tensor]
 # params and ``extra`` the client's ``engine_extra`` laid out the same way
 # (or None).  It runs under ``torch.no_grad()``.
 GradHook = Callable[[Tensors, Tensors, Tensors, Optional[Tensors]], None]
+# post_train(variables, gen) -> variables: a client's final variables before
+# they leave it (local DP noise), drawn from ``gen``
+PostTrain = Callable[[Variables, torch.Generator], Variables]
+# the salt of a client's post-train generator, the JAX package's
+# fold_in(rng, 104729)
+POST_TRAIN_SALT = 104729
+
+
+def post_train_generator(seed: Sequence[int], device) -> torch.Generator:
+    """The generator of a client's ``post_train``: (seed, round, client,
+    104729) on the device of its variables."""
+    return seeded_generator((*seed, POST_TRAIN_SALT), device)
 
 
 class LocalTrainResult(NamedTuple):
@@ -136,8 +149,7 @@ def get_variables(module: nn.Module) -> Variables:
 def shuffle_generator(seed: Sequence[int]) -> torch.Generator:
     """A CPU generator seeded from a tuple of ints (e.g. run seed, round,
     client, epoch) through numpy's SeedSequence."""
-    state = np.random.SeedSequence([int(s) for s in seed]).generate_state(2, np.uint32)
-    return torch.Generator().manual_seed(int(state[0]) << 32 | int(state[1]))
+    return seeded_generator(seed)
 
 
 def build_local_train(
@@ -148,12 +160,15 @@ def build_local_train(
     epochs: Optional[int] = None,
     loss: str = "ce",
     grad_hook: Optional[GradHook] = None,
+    post_train: Optional[PostTrain] = None,
 ) -> Callable[..., LocalTrainResult]:
     """Returned fn: ``(variables, x [padded_n, ...], y [padded_n, ...],
     n_valid, seed, extra=None) -> LocalTrainResult``.  ``x``/``y`` lie on the
     module's device; ``seed`` is a tuple of ints that fixes the shuffles;
     ``extra`` is the client's ``{name: tensor}`` input to the grad hook.
-    ``args.proximal_mu`` > 0 installs the FedProx hook when none is given."""
+    ``args.proximal_mu`` > 0 installs the FedProx hook when none is given.
+    ``post_train`` rewrites the client's final variables after its last step
+    (local DP), drawing from ``post_train_generator(seed, device)``."""
     if padded_n < batch_size:
         raise ValueError(f"padded_n ({padded_n}) must be >= batch_size ({batch_size})")
     make_opt = make_optimizer(args)
@@ -195,7 +210,11 @@ def build_local_train(
                 loss_sum += step_loss.detach() * n_b
                 seen += n_b
                 steps += 1
-        return LocalTrainResult(get_variables(module), loss_sum / max(seen, 1.0), seen, steps,
+        final = get_variables(module)
+        if post_train is not None:
+            with torch.no_grad():
+                final = post_train(final, post_train_generator(seed, x.device))
+        return LocalTrainResult(final, loss_sum / max(seen, 1.0), seen, steps,
                                 opt.state_dict()["state"])
 
     return train

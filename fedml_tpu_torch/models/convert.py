@@ -33,11 +33,23 @@ bias``                                             ``classifier.bias``
 
 The ``LogisticRegression``'s one layer: ``linear/kernel`` [in, out] to
 ``linear.weight`` (transposed), ``linear/bias`` to ``linear.bias``.
+
+The way back, one rule for the three families (``flax_leaf``): a parameter
+``a.b.weight`` is the leaf ``a/b/kernel`` (a 4-D convolution weight
+permuted OIHW -> HWIO, a 2-D dense weight transposed), ``a/b/embedding``
+(the embedding, unchanged) or ``a/b/scale`` (a norm's 1-D weight); ``.bias``
+is ``bias``; ``layers.{i}`` is ``layer{i}``.  A kernel that flax keeps in
+more axes ([d, 3, H, Dh], [H, Dh, d]) has the same row-major order as the
+transposed weight.  ``FlatLayout`` lays a variables dict out as one vector
+in the order of ``jax.flatten_util.ravel_pytree`` over the flax tree (keys
+sorted at every level), so a row of the port's client matrix matches the
+JAX package's column for column.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from functools import lru_cache
+from typing import Any, Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -127,3 +139,90 @@ def variables_from_flax(variables: Mapping[str, Any], module: nn.Module,
     if state:
         raise KeyError(f"flax leaves with no parameter: {sorted(state)}")
     return out
+
+
+def flax_leaf(name: str, ndim: int) -> Tuple[Tuple[str, ...], Tuple[int, ...]]:
+    """(flax path under ``params``, permutation of the torch parameter's
+    axes into the flax leaf's row-major order) of the parameter ``name``."""
+    parts = name.split(".")
+    if parts[0] == "layers":
+        parts = [f"layer{parts[1]}"] + parts[2:]
+    module, leaf = tuple(parts[:-1]), parts[-1]
+    if leaf == "bias":
+        return module + ("bias",), tuple(range(ndim))
+    if leaf != "weight":
+        raise KeyError(f"no flax leaf for parameter {name}")
+    if ndim == 4:  # OIHW -> HWIO
+        return module + ("kernel",), (2, 3, 1, 0)
+    if ndim == 2:
+        if module[-1] == "embed":
+            return module + ("embedding",), (0, 1)
+        return module + ("kernel",), (1, 0)
+    if ndim == 1:
+        return module + ("scale",), (0,)
+    raise KeyError(f"no flax leaf for parameter {name} of {ndim} axes")
+
+
+class FlatLayout:
+    """A variables dict as one fp32 vector in ``ravel_pytree`` order.
+
+    ``entries`` lists, in that order, each parameter's name, flax path, the
+    permutation of its axes, its flax-ordered shape and its column range.
+    Views and copies keep each parameter's torch shape."""
+
+    def __init__(self, shapes: Sequence[Tuple[str, Tuple[int, ...]]]):
+        rows = []
+        for name, shape in shapes:
+            path, perm = flax_leaf(name, len(shape))
+            rows.append((path, name, perm, tuple(shape[p] for p in perm)))
+        rows.sort(key=lambda r: r[0])
+        self.entries: List[Tuple[str, Tuple[str, ...], Tuple[int, ...], Tuple[int, ...],
+                                 int, int]] = []
+        off = 0
+        for path, name, perm, fshape in rows:
+            n = int(np.prod(fshape, dtype=np.int64))
+            self.entries.append((name, path, perm, fshape, off, n))
+            off += n
+        self.dim = off
+        self._by_path = {e[1]: e for e in self.entries}
+
+    @staticmethod
+    def of(tree: Mapping[str, Any], lead: int = 0) -> "FlatLayout":
+        """The layout of a variables dict (``lead`` leading axes dropped)."""
+        return _layout(tuple((k, tuple(v.shape[lead:])) for k, v in tree.items()))
+
+    def entry(self, path: Sequence[str]):
+        return self._by_path[tuple(path)]
+
+    def stack_to_mat(self, stack: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        """``{name: [n, ...]}`` -> the fp32 ``[n, D]`` matrix."""
+        n = next(iter(stack.values())).shape[0]
+        return torch.cat([stack[name].permute(0, *(p + 1 for p in perm)).reshape(n, -1).float()
+                          for name, _, perm, _, _, _ in self.entries], dim=1)
+
+    def ravel(self, tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        return self.stack_to_mat({k: v.unsqueeze(0) for k, v in tree.items()})[0]
+
+    def views(self, vec: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Views of a ``[D]`` vector, or of each row of ``[n, D]``, in each
+        parameter's torch shape (non-contiguous where the axes permute)."""
+        lead = tuple(vec.shape[:-1])
+        out = {}
+        for name, _, perm, fshape, off, n in self.entries:
+            inv = tuple(int(i) for i in np.argsort(perm))
+            v = vec[..., off:off + n].reshape(lead + fshape)
+            out[name] = v.permute(*range(len(lead)), *(len(lead) + i for i in inv))
+        return out
+
+    def unravel(self, vec: torch.Tensor, like: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """A ``[D]`` vector as an fp32 dict, each tensor laid out in memory as
+        ``like``'s tensor of the same name (its strides)."""
+        views = self.views(vec)
+        return {k: torch.empty_strided(t.shape, t.stride(), dtype=torch.float32,
+                                       device=vec.device).copy_(views[k])
+                for k, t in like.items()}
+
+
+@lru_cache(maxsize=32)
+def _layout(shapes: Tuple[Tuple[str, Tuple[int, ...]], ...]) -> FlatLayout:
+    return FlatLayout(shapes)

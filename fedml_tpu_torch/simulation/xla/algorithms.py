@@ -16,8 +16,13 @@ tolerance.  The tensor work is ``torch._foreach_*`` over the parameter list,
 one launch a list.  Every host scalar (sample counts, step counts,
 staleness) stays a Python or numpy number: no strategy reads the card.
 
-The security tail's pair (``ext_from_rows``, ``security_meta``) is not
-ported (ROADMAP.md queue A, item 12: the security half).
+With an attack or a defense on, the round's aggregation moves to the
+security tail (``fed_sim._security_round``), which reads the round's stacked
+client rows.  The strategies that aggregate through ``ext``
+(``aggregates_via_acc`` False: FedNova, AsyncFedAvg, FedBuff) then rebuild
+``ext`` from the attacked and defended rows (``ext_from_rows``), from a
+per-client vector each gives (``security_meta``: FedNova's step counts, the
+async strategies' staleness).
 """
 
 from __future__ import annotations
@@ -167,6 +172,28 @@ class InMeshAlgorithm:
         """Shape template of one client's ``client_out`` (None: no output)."""
         return None
 
+    # -- the security tail ---------------------------------------------------
+    def ext_from_rows(self, mat: torch.Tensor, w: torch.Tensor, w_orig: torch.Tensor,
+                      meta: np.ndarray, g_vec: torch.Tensor, unravel) -> Any:
+        """This strategy's ``ext`` rebuilt from the security tail's (attacked,
+        defended) rows, in place of the round's in-stream contributions.
+
+        ``mat``: [n, D] client rows (``ravel_pytree`` order); ``w``: [n]
+        defended weights (a selection defense zeroes rows here); ``w_orig``:
+        [n] the round's sample counts; ``meta``: [n] host numbers from
+        ``security_meta``; ``g_vec``: the fp32 global as a row; ``unravel``:
+        a row to a ``{name: fp32}`` dict.  Only strategies with
+        ``aggregates_via_acc`` False need it."""
+        raise NotImplementedError(
+            f"{type(self).__name__} aggregates through ext (aggregates_via_acc=False) and "
+            "must implement ext_from_rows to compose with attacks and defenses")
+
+    def security_meta(self, taus: np.ndarray, cex: Any, real_sel: np.ndarray) -> np.ndarray:
+        """[n_real] per-client host numbers for ``ext_from_rows``, sliced from
+        the round's step counts (``taus``, by schedule slot) or client extras
+        (``cex``)."""
+        return np.zeros((len(real_sel),), np.float32)
+
     # -- server step -------------------------------------------------------
     def server_update(self, acc: Variables, wsum: float, ext, variables: Variables,
                       server_state) -> Tuple[Variables, Any]:
@@ -272,6 +299,19 @@ class FedNovaInMesh(InMeshAlgorithm):
         torch._foreach_div_(step, denom)
         new = torch._foreach_sub(_f32(variables, names), step)
         return _cast_like(new, variables, names), server_state
+
+    def security_meta(self, taus, cex, real_sel):
+        # tau_i: the engine's per-client step count, captured with the row
+        return np.asarray(taus, np.float32)[real_sel]
+
+    def ext_from_rows(self, mat, w, w_orig, meta, g_vec, unravel):
+        # client_contrib over rows: d = sum_i (w_i/tau_i)(g - m_i), tau =
+        # sum_i w_i tau_i, with the DEFENDED weights, so a selection defense
+        # drops a client from both the direction and tau_eff
+        tau = torch.as_tensor(meta, dtype=torch.float32, device=mat.device)
+        coef = w / torch.clamp_min(tau, 1.0)
+        d_vec = torch.sum(coef) * g_vec - torch.matmul(coef, mat)
+        return {"d": unravel(d_vec), "tau": float(torch.sum(w * tau))}
 
 
 class ScaffoldInMesh(InMeshAlgorithm):
@@ -467,6 +507,21 @@ class AsyncFedAvgInMesh(InMeshAlgorithm):
         new = torch._foreach_add(_f32(variables, names), step)
         return _cast_like(new, variables, names), server_state
 
+    def security_meta(self, taus, cex, real_sel):
+        # staleness, gathered per slot by gather_client_extras
+        return np.asarray(cex, np.float32)[real_sel]
+
+    def ext_from_rows(self, mat, w, w_orig, meta, g_vec, unravel):
+        # client_contrib ignores sample weights (each arrival mixes with its
+        # own staleness discount a_i), so a defense enters as the relative
+        # factor r_i = w_i / w_orig_i: 1 for row transforms, 0 or 1 for
+        # selection defenses
+        stale = torch.as_tensor(meta, dtype=torch.float32, device=mat.device)
+        r = w / torch.clamp_min(w_orig, 1e-9)
+        a_i = r * self.alpha / (1.0 + stale) ** self.beta
+        d_vec = torch.matmul(a_i, mat) - torch.sum(a_i) * g_vec
+        return {"d": unravel(d_vec), "k": float(torch.sum(r))}
+
 
 class FedBuffInMesh(InMeshAlgorithm):
     """Buffered-async FedBuff flush (``fl_mode=async``): each round
@@ -509,6 +564,17 @@ class FedBuffInMesh(InMeshAlgorithm):
         names = list(variables)
         new = torch._foreach_div([ext["num"][k] for k in names], max(ext["den"], 1e-9))
         return _cast_like(new, variables, names), server_state
+
+    def security_meta(self, taus, cex, real_sel):
+        # staleness, gathered per slot by gather_client_extras
+        return np.asarray(cex, np.float32)[real_sel]
+
+    def ext_from_rows(self, mat, w, w_orig, meta, g_vec, unravel):
+        # the defended weights carry the sample counts (a selection defense
+        # zeroes dropped rows); the staleness discount applies on top
+        disc = staleness_weights(self.policy, meta, alpha=self.s_alpha, hinge_b=self.hinge_b)
+        wi = w * torch.as_tensor(disc, dtype=torch.float32, device=mat.device)
+        return {"num": unravel(torch.matmul(wi, mat)), "den": float(torch.sum(wi))}
 
     def host_state(self):
         return {"staleness": {str(k): v for k, v in self._staleness.items()}}

@@ -25,6 +25,18 @@ them out):
   next global variables, and the slots' outputs are scatter-added into the
   algorithm's client-state table (SCAFFOLD's c_i, FedDyn's h_i).
 
+With an attack or a defense on (the trust path), the round stacks its
+clients' final variables into one ``[slots, D]`` fp32 matrix on the card, in
+the JAX package's ``ravel_pytree`` order, with their step counts, instead of
+summing them; the security tail (``_security_round``, one plain function of
+torch ops, the JAX package's ``_build_security_fn``) then runs the stacked
+model attack on the malicious rows, the stacked defense and the algorithm's
+server step.  Data-poisoning attacks stamp each malicious client's shard at
+pack time.  Local DP noises each client's variables after its last step (a
+generator per client); central DP noises the global variables after the
+server step.  Every draw comes from a seeded ``torch.Generator``
+(``utils/rng.py``), not from ``jax.random``.
+
 The cohort of each round is the population manager's ``mt19937`` draw, the
 same clients as the JAX package picks.  With ``fl_mode: async`` each round is
 one buffer flush instead: a virtual arrival queue, seeded from
@@ -46,14 +58,21 @@ import numpy as np
 import torch
 
 from ...core.async_fl import VirtualArrivalQueue
+from ...core.dp.fedml_differential_privacy import FedMLDifferentialPrivacy
 from ...core.population import PopulationManager
 from ...core.schedule import RuntimeEstimator, SeqTrainScheduler
+from ...core.security.fedml_attacker import ANALYSIS_REFUSAL, FedMLAttacker
+from ...core.security.fedml_defender import FedMLDefender
+from ...core.security.stacked import (_wmean, build_stacked_attack, build_stacked_defense,
+                                      init_defense_state)
 from ...ml.aggregator.aggregator_creator import create_server_aggregator
 from ...ml.engine.packed import PackedSchedule, build_packed_device_fn, pack_round, s_max_for
 from ...ml.engine.train import build_local_train, init_variables
 from ...ml.trainer.trainer_creator import _TAG_DATASETS, loss_kind_for_dataset
+from ...models.convert import FlatLayout
 from ...models.hub import data_storage_dtype
 from ...utils.metrics import MetricsLogger
+from ...utils.rng import seeded_generator
 from .algorithms import create_inmesh_algorithm, out_buffer, split_slots, store_out, tree_add_
 
 logger = logging.getLogger(__name__)
@@ -66,17 +85,21 @@ def _is_set(args, key: str) -> bool:
     return bool(v)
 
 
+def _compiled(a, k) -> bool:
+    return str(getattr(a, k, "host") or "host").lower() == "compiled"
+
+
 # (knob, is it switched on?, the ROADMAP.md item that ports it)
 _UNPORTED_KNOBS = (
-    ("enable_attack", _is_set, "queue A, item 12: core/security"),
-    ("enable_defense", _is_set, "queue A, item 12: core/security"),
-    ("enable_dp", _is_set, "queue A, item 12: core/dp"),
     ("xla_client_chunk", _is_set, "queue A, item 6d: xla_client_chunk"),
     ("population_stacked", _is_set, "queue A, item 6c: population_stacked"),
     ("server_state", lambda a, k: str(getattr(a, k, "replicated") or "replicated").lower()
      != "replicated", "queue A, item 15: server planes"),
     ("agg_plane", lambda a, k: str(getattr(a, k, "host") or "host").lower() != "host",
      "queue A, item 15: server planes"),
+    ("defense_plane", _compiled, "queue A, item 15: server planes (parallel/sec_plane.py)"),
+    ("dp_plane", _compiled, "queue A, item 15: server planes (parallel/sec_plane.py)"),
+    ("secagg_plane", _compiled, "queue A, item 15: server planes (parallel/sec_plane.py)"),
     ("checkpoint_dir", _is_set, "queue A, item 16: checkpointing"),
     ("obs_trace", _is_set, "queue A, item 16: obs/telemetry"),
     ("obs_telemetry", _is_set, "queue A, item 16: obs/telemetry"),
@@ -91,6 +114,11 @@ def refuse_unported_knobs(args) -> None:
             raise NotImplementedError(
                 f"{key}={getattr(args, key)!r} is not ported to the torch simulator yet "
                 f"(ROADMAP.md {item})")
+
+
+# the salt of the security tail's generators, the JAX package's
+# fold_in(sub, 999331)
+SECURITY_SALT = 999331
 
 
 def pin_fp32_matmul() -> Dict[str, bool]:
@@ -115,6 +143,19 @@ class XLASimulator:
             self.class_num,
         ) = dataset
         refuse_unported_knobs(args)
+        attacker = FedMLAttacker.get_instance()
+        defender = FedMLDefender.get_instance()
+        if attacker.is_analysis_attack():
+            raise NotImplementedError(ANALYSIS_REFUSAL)
+        if (attacker.is_attack_enabled() and not attacker.is_model_attack()
+                and not attacker.is_data_poisoning_attack()):
+            # fail loud rather than report clean-FedAvg metrics as an attack
+            # experiment's result
+            raise NotImplementedError(
+                f"attack_type {attacker.attack_type!r} has no XLA-backend hook")
+        self.defended = defender.is_defense_enabled()
+        self.model_attacked = attacker.is_model_attack()
+        self.needs_stack = self.defended or self.model_attacked
         self.module = model
         self.device = torch.device(device)
         if self.device.type == "cuda":
@@ -137,6 +178,7 @@ class XLASimulator:
         self.server_state = self.algo.init_server_state(self.variables)
         self.client_state = self.algo.init_client_state(self.num_clients, self.variables)
         self.packed = bool(getattr(args, "xla_pack", False))
+        post_train = self._ldp_hook()
         if self.packed:
             # one card: one stream whose slots are the whole cohort
             self.slots = self.clients_per_round
@@ -144,11 +186,14 @@ class XLASimulator:
             self._device_fn = build_packed_device_fn(
                 self.module, self.args, self.algo, loss=self.loss_kind,
                 pregather=bool(getattr(args, "xla_pregather", False)),
-                stream=str(getattr(args, "xla_stream", "while")))
+                stream=str(getattr(args, "xla_stream", "while")),
+                post_train=post_train, capture_updates=self.needs_stack)
         else:
             self._local_train = build_local_train(
                 self.module, self.args, self.batch_size, self.padded_n, loss=self.loss_kind,
-                grad_hook=self.algo.grad_hook())
+                grad_hook=self.algo.grad_hook(), post_train=post_train)
+        if self.needs_stack:
+            self._build_security()
         self.runtime_estimator = RuntimeEstimator(1, uniform_devices=True)
         self.scheduler = SeqTrainScheduler(1, estimator=self.runtime_estimator)
         self._seen_buckets: set = set()
@@ -180,8 +225,17 @@ class XLASimulator:
         xs, ys = [], []
         idx = np.zeros((self.num_clients, self.padded_n), np.int64)
         cursor = 0
+        attacker = FedMLAttacker.get_instance()
+        poisoning = attacker.is_data_poisoning_attack()
+        bad = set(attacker.get_byzantine_idxs(self.num_clients)) if poisoning else set()
+        self.poisoned_clients: List[int] = []
         for i in range(self.num_clients):
             xi, yi = self.local_train_dict[i]
+            if i in bad:
+                # the data side of the attack stamps here, where each
+                # malicious client's shard is assembled
+                xi, yi = attacker.poison_local_data(i, self.num_clients, xi, yi)
+                self.poisoned_clients.append(i)
             n = len(yi)
             xs.append(np.asarray(xi))
             ys.append(np.asarray(yi))
@@ -309,15 +363,136 @@ class XLASimulator:
                 self._async_queue.push(c, self._async_t + float(self._async_durations[c]))
 
     # ------------------------------------------------------------------
+    # the trust path: local DP, the security tail
+    # ------------------------------------------------------------------
+    def _ldp_hook(self):
+        """The per-client noise fn ``(variables, gen) -> variables`` when
+        local DP is on, else None."""
+        dp = FedMLDifferentialPrivacy.get_instance()
+        if not dp.is_local_dp_enabled():
+            return None
+        mechanism = dp.mechanism
+        return lambda tree, gen: mechanism.add_noise(tree, gen)
+
+    def _build_security(self):
+        """The security tail's attack and defense (``_security_round`` runs
+        them); the soteria probe's mask is taken once, here."""
+        attacker = FedMLAttacker.get_instance()
+        defender = FedMLDefender.get_instance()
+        self._attack = (build_stacked_attack(self.args, attacker.attack_type)
+                        if self.model_attacked else None)
+        self._defense = None
+        if self.defended:
+            probe_mask = defender.soteria_probe_mask()
+            if probe_mask is not None:
+                probe_mask = probe_mask.to(self.device)
+            self._defense = build_stacked_defense(self.args, defender.defense_type,
+                                                  probe_mask=probe_mask)
+        self._defense_state = None
+        self._defense_n = -1
+        self._byzantine = set(attacker.get_byzantine_idxs(self.num_clients)) \
+            if self.model_attacked else set()
+        self.malicious_per_round: List[List[int]] = []
+        self.security_ms: List[float] = []
+        self._tail_events = None
+
+    def _ensure_defense_state(self, n_real: int, dim: int):
+        if not self.defended:
+            return {}
+        if self._defense_state is None or self._defense_n != n_real:
+            # cross-round per-slot state (foolsgold's history, wbc's previous
+            # rows) is positional; a changed participant count resets it
+            self._defense_state = init_defense_state(self._defense.t, n_real, dim, self.device)
+            self._defense_n = n_real
+        return self._defense_state
+
+    def _security_round(self, round_idx: int, mat_all: torch.Tensor, taus: np.ndarray,
+                        ids: np.ndarray, counts: np.ndarray, cex, ext) -> None:
+        """The round's aggregation from its stacked rows: the model attack on
+        the malicious rows, the defense, then the algorithm's server step
+        (the ``ServerAggregator`` hook order).  The fp32 products run in full
+        fp32 (TF32 off on the card).  The attack draws from (seed, 999331,
+        round, 0), the defense from (seed, 999331, round, 1)."""
+        real_sel = np.where(counts > 0)[0]
+        if real_sel.size == 0:
+            return
+        if self.device.type == "cuda":
+            if torch.backends.cuda.matmul.allow_tf32:
+                raise RuntimeError("the security tail needs fp32 products: TF32 is on")
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                enable_timing=True)
+            start.record()
+        else:
+            t0 = time.perf_counter()
+        algo, dev = self.algo, self.device
+        layout = FlatLayout.of(self.variables)
+        g_vec = layout.ravel(self.variables)
+
+        def unravel(vec):
+            return layout.unravel(vec, self.variables)
+
+        sub = mat_all.index_select(0, torch.as_tensor(real_sel, device=dev))
+        w = torch.as_tensor(counts[real_sel], dtype=torch.float32, device=dev)
+        bad = [int(ids[i]) for i in real_sel if int(ids[i]) in self._byzantine]
+        self.malicious_per_round.append(sorted(bad))
+        mal = torch.as_tensor([float(int(ids[i]) in self._byzantine) for i in real_sel],
+                              dtype=torch.float32, device=dev)
+        gen_a = seeded_generator((self.seed, SECURITY_SALT, round_idx, 0), dev)
+        gen_d = seeded_generator((self.seed, SECURITY_SALT, round_idx, 1), dev)
+        dstate = self._ensure_defense_state(int(real_sel.size), layout.dim)
+        with torch.no_grad():
+            if self._attack is not None:
+                sub = self._attack(sub, w, g_vec, mal, gen_a)
+            if algo.aggregates_via_acc:
+                if self._defense is not None:
+                    agg, dstate = self._defense.aggregate(sub, w, g_vec, gen_d, dstate,
+                                                          layout=layout)
+                else:
+                    agg = _wmean(sub, w)
+                # the robust aggregate as a weighted sum: every acc strategy
+                # divides by wsum
+                wsum = float(counts[real_sel].sum())
+                acc = unravel(agg * wsum)
+                new_vars, new_state = algo.server_update(acc, wsum, ext, self.variables,
+                                                         self.server_state)
+            else:
+                # the ext strategies rebuild ext from the defended rows
+                w2 = w
+                if self._defense is not None:
+                    sub, w2, dstate = self._defense.rows_fn(sub, w, g_vec, gen_d, dstate,
+                                                            rows_mode=True, layout=layout)
+                meta = algo.security_meta(taus, cex, real_sel)
+                ext2 = algo.ext_from_rows(sub, w2, w, meta, g_vec, unravel)
+                acc = unravel(torch.matmul(w2, sub))
+                new_vars, new_state = algo.server_update(acc, float(torch.sum(w2)), ext2,
+                                                         self.variables, self.server_state)
+        self.variables, self.server_state = new_vars, new_state
+        self._defense_state = dstate
+        if self.device.type == "cuda":
+            end.record()
+            self._tail_events = (start, end)
+        else:
+            self.security_ms.append((time.perf_counter() - t0) * 1e3)
+
+    # ------------------------------------------------------------------
     # the round
     # ------------------------------------------------------------------
     def _run_round(self, round_idx: int, ids: np.ndarray, counts: np.ndarray, cex=None):
         """Train the scheduled clients, in order, from the current global
-        variables, apply the server step and fold the clients' outputs into
-        the client state.  ``cex`` is the round's client extras
-        (``algo.gather_client_extras``).  Returns the mean loss tensor."""
+        variables, apply the server step (or the security tail) and fold the
+        clients' outputs into the client state.  ``cex`` is the round's
+        client extras (``algo.gather_client_extras``).  Returns the mean loss
+        tensor."""
         algo = self.algo
-        acc = {k: torch.zeros_like(v, dtype=torch.float32) for k, v in self.variables.items()}
+        if self.needs_stack:
+            acc = None
+            layout = FlatLayout.of(self.variables)
+            update = torch.zeros((len(ids), layout.dim), dtype=torch.float32, device=self.device)
+            update_rows = layout.views(update)
+            taus = np.zeros((len(ids),), np.float32)
+        else:
+            acc = {k: torch.zeros_like(v, dtype=torch.float32)
+                   for k, v in self.variables.items()}
         ext = algo.zero_contrib(self.variables)
         outs = out_buffer(algo, self.variables, len(ids))
         cex_rows, out_rows = split_slots(cex, len(ids)), split_slots(outs, len(ids))
@@ -335,8 +510,13 @@ class XLASimulator:
                                        seed=(self.seed, round_idx, cid), extra=extra)
             w = float(n_i)
             with torch.no_grad():
-                for k, p in result.variables.items():
-                    acc[k].add_(p.float(), alpha=w)
+                if self.needs_stack:
+                    for k, p in result.variables.items():
+                        update_rows[k][s].copy_(p)
+                    taus[s] = result.steps
+                else:
+                    for k, p in result.variables.items():
+                        acc[k].add_(p.float(), alpha=w)
                 contrib, out = algo.client_result(self.variables, result, w, 1.0, cex_i,
                                                   self.server_state)
                 ext = tree_add_(ext, contrib)
@@ -344,7 +524,9 @@ class XLASimulator:
             wsum += w
             lsum += result.loss * w
         mean_loss = lsum / max(wsum, 1e-9)
-        self._server_step(acc, wsum, ext, ids, outs)
+        if self.needs_stack:
+            outs = {"algo": outs, "update": update, "tau": taus}
+        self._server_step(round_idx, acc, wsum, ext, ids, counts, cex, outs)
         return mean_loss
 
     def _run_packed_round(self, round_idx: int, ids: np.ndarray, counts: np.ndarray, cex=None):
@@ -353,19 +535,30 @@ class XLASimulator:
         per-sample loss tensor."""
         acc, wsum, lsum, cnt, ext, outs = self._device_fn(
             self.variables, self.server_state, self.x_all, self.y_all,
-            self._packed_inputs(ids, counts, round_idx), cex, len(ids))
-        self._server_step(acc, wsum, ext, ids, outs)
+            self._packed_inputs(ids, counts, round_idx), cex, len(ids),
+            seed_round=(self.seed, round_idx), ids=ids)
+        self._server_step(round_idx, acc, wsum, ext, ids, counts, cex, outs)
         return lsum / max(cnt, 1.0)
 
-    def _server_step(self, acc, wsum: float, ext, ids: np.ndarray, outs) -> None:
+    def _server_step(self, round_idx: int, acc, wsum: float, ext, ids: np.ndarray,
+                     counts: np.ndarray, cex, outs) -> None:
+        """The algorithm's server step, or with an attack or a defense on the
+        security tail on the round's stacked rows; then the clients' outputs
+        into the client state."""
+        if self.needs_stack:
+            self._security_round(round_idx, outs["update"], outs["tau"], ids, counts, cex, ext)
+            outs = outs["algo"]
+        else:
+            with torch.no_grad():
+                self.variables, self.server_state = self.algo.server_update(
+                    acc, wsum, ext, self.variables, self.server_state)
         with torch.no_grad():
-            self.variables, self.server_state = self.algo.server_update(
-                acc, wsum, ext, self.variables, self.server_state)
             self.client_state = self.algo.apply_client_outs(self.client_state, ids, outs)
 
     def train(self) -> Dict[str, Any]:
         comm_round = int(self.args.comm_round)
         freq = int(getattr(self.args, "frequency_of_the_test", 10))
+        dp = FedMLDifferentialPrivacy.get_instance()
         last: Dict[str, Any] = {}
         for round_idx in range(comm_round):
             t0 = time.time()
@@ -380,12 +573,21 @@ class XLASimulator:
             # a sampled client with no samples contributes nothing
             participated = (counts > 0).astype(np.float32)
             cex = self.algo.gather_client_extras(self.client_state, ids, participated, round_idx)
+            if dp.is_local_dp_enabled():
+                # account before the round releases anything: an exhausted
+                # budget aborts the round, it does not trail it
+                dp.spend_budget(int(participated.sum()))
             run = self._run_packed_round if self.packed else self._run_round
             mean_loss = run(round_idx, ids, counts, cex)
             self.algo.host_round_end(ids, participated, round_idx)
             if self.async_mode:
                 self._async_round_end()
+            if dp.is_global_dp_enabled():
+                self.variables = dp.add_global_noise(self.variables)
             self._sync()
+            if self.needs_stack and self._tail_events is not None:
+                self.security_ms.append(self._tail_events[0].elapsed_time(self._tail_events[1]))
+                self._tail_events = None
             dt = time.time() - t0
             self.round_times.append(dt)
             if round_idx > 0:  # round 0 pays the first launches

@@ -31,8 +31,17 @@ SLICE_MODULES = [
     "fedml_tpu_torch.data.synthetic",
     "fedml_tpu_torch.core.async_fl",
     "fedml_tpu_torch.core.data.noniid_partition",
+    "fedml_tpu_torch.core.dp.budget_accountant",
+    "fedml_tpu_torch.core.dp.fedml_differential_privacy",
+    "fedml_tpu_torch.core.dp.mechanisms",
     "fedml_tpu_torch.core.population",
     "fedml_tpu_torch.core.schedule",
+    "fedml_tpu_torch.core.security.attack_funcs",
+    "fedml_tpu_torch.core.security.constants",
+    "fedml_tpu_torch.core.security.defense_funcs",
+    "fedml_tpu_torch.core.security.fedml_attacker",
+    "fedml_tpu_torch.core.security.fedml_defender",
+    "fedml_tpu_torch.core.security.stacked",
     "fedml_tpu_torch.core.alg_frame.server_aggregator",
     "fedml_tpu_torch.ml.engine.train",
     "fedml_tpu_torch.ml.engine.packed",
@@ -56,6 +65,7 @@ SLICE_MODULES = [
     "fedml_tpu_torch.simulation.xla.algorithms",
     "fedml_tpu_torch.simulation.xla.fed_sim",
     "fedml_tpu_torch.utils.metrics",
+    "fedml_tpu_torch.utils.rng",
 ]
 
 _PROBE = """

@@ -147,8 +147,10 @@ def test_pregather_equals_per_step_gather(device_rounds):
 def test_device_fn_refuses_unported_hooks():
     module = resnet20(device="meta")
     args = types.SimpleNamespace(client_optimizer="sgd", learning_rate=0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpacked.build_packed_device_fn(module, args, talgo(args), capture_updates=True)
+    # the trust path's hooks (local DP, the update stack) are ported: they build
+    assert callable(tpacked.build_packed_device_fn(module, args, talgo(args),
+                                                   post_train=lambda tree, gen: tree,
+                                                   capture_updates=True))
     with pytest.raises(ValueError, match="xla_stream"):
         tpacked.build_packed_device_fn(module, args, talgo(args), stream="fori")
 

@@ -148,7 +148,7 @@ def test_throughput_reports_tokens(runs):
 
 def test_unported_knobs_raise():
     for knob, value in (("xla_client_chunk", 4), ("population_stacked", True),
-                        ("enable_dp", True), ("agg_plane", "compiled"),
+                        ("dp_plane", "compiled"), ("agg_plane", "compiled"),
                         ("server_state", "sharded"),
                         ("checkpoint_dir", "ckpt"), ("obs_trace", True)):
         config = copy.deepcopy(CONFIG)

@@ -63,14 +63,14 @@
    of 6.  It checks the bf16 storage bit for bit, logs each round's seconds,
    real steps and bucket, throughput() and the peak memory, requires finite
    losses, and asserts that no flash kernel launched.  Then a fixed cohort's
-   round is timed with cudnn.benchmark off and on (off, on, on, off), and
+   round is timed with cudnn.benchmark off and on (off, on, off), and
    one round runs under torch.profiler: busy share, the top kernels, the
    device time of convolutions, GroupNorm and elementwise kernels, and the
    aten ops a step.  A lone F.group_norm on channels_last input shows
    whether it copies to contiguous; the boundary flush is timed on its own
    with CUDA events.
 9. The kernels line, the card line, and the last line
-   {"ok": true, "device": {...}}, printed after phase 11.
+   {"ok": true, "device": {...}}, printed after phase 12.
 10. The algorithm zoo.  (a) At the north-star width: BENCH_CONFIG with only
    the algorithm's knobs changed (ZOO: FedProx, FedOpt/adam, FedNova,
    SCAFFOLD, FedDyn, AsyncFedAvg, FedBuff with a buffer of 16), 2 rounds
@@ -78,12 +78,12 @@
    seconds, throughput(), losses, finite params, the server state's norm,
    SCAFFOLD's and FedDyn's mean invariant (c = mean_i c_i, h = mean_i h_i),
    FedBuff's flushes.  Then FedAvg's round and SCAFFOLD's alternated on one
-   fixed cohort (FedAvg, SCAFFOLD, SCAFFOLD, FedAvg), and the aten ops a step
-   of FedAvg, FedProx, SCAFFOLD and FedDyn under torch.profiler over a
-   2-client stream.  No flash kernel launches on this path.  (b) The grad
-   hooks under the flash kernels: SCAFFOLD and FedDyn, 2 rounds each, on
-   slice 1's configuration (hub transformer, fp32), with the counts set to 0
-   before and read after: K1-K3 must have launched.
+   fixed cohort (FedAvg, SCAFFOLD, FedAvg, after a warm FedAvg round), and
+   the aten ops a step of FedAvg, FedProx, SCAFFOLD and FedDyn under
+   torch.profiler over a 2-client stream.  No flash kernel launches on this
+   path.  (b) The grad hooks under the flash kernels: SCAFFOLD and FedDyn,
+   2 rounds each, on slice 1's configuration (hub transformer, fp32), with
+   the counts set to 0 before and read after: K1-K3 must have launched.
 11. The trust path.  (a) At the north-star width (BENCH_CONFIG,
    byzantine_client_num 10, on phase 8's dataset), 7 runs of 2 rounds
    through the entry points (TRUST: byzantine random + krum, label flipping
@@ -100,6 +100,25 @@
    below), each card call timed.  (c) Krum + local DP on slice 1's
    configuration, 2 rounds, counts set to 0 before and read after: K1-K3
    must have launched.
+12. The sp backend (simulation/sp/fedavg/fedavg_api.py: clients one after
+   another through the trainer, then the ServerAggregator hooks), run after
+   phase 11 with the TF32 flags as the script found them (phases 1-11 run
+   under the scoped fp32 pin; every sp run must leave the flags as it found
+   them).  (a) A bare fedml_tpu_torch.run_simulation() with sys.argv stubbed
+   and no --cf: the port's default config (simulation_sp: mnist lr, 1,000
+   clients, 10 a round), its 200 rounds cut to 5 by the stub, on the card and
+   on the CPU; then the four examples/simulation/sp_fedavg_* configs on the
+   card (the robust one also with a zero attack in place of the random one).
+   Deterministic runs (no DP, no random attack) must agree with the CPU's
+   final params within SP_BACKEND_CPU_ATOL.  (b) BENCH_CONFIG on sp (no
+   packing, an eval after each of 2 rounds) on phase 8's dataset, round 0
+   under torch.profiler for the card's busy share: round seconds and
+   samples/s beside phase 8's packed round, each client's bucket and real
+   steps, peak memory, no flash launch; then round 1's cohort in turns with
+   the packed round on it (packed, sp, packed).  (c) Slice 1's
+   configuration on sp, 2 rounds with an eval each, counts set to 0 before
+   and read after: K2 and K3 launch layers x steps times (the trainer's
+   recorded steps), K1 that plus layers x eval batches x evals.
 
 Any failure raises and the script exits non-zero with no result line.  It
 exits 2 when no CUDA device is visible.  Full details go to
@@ -108,6 +127,7 @@ chiprun_out/chip_smoke/ beside this script.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -977,7 +997,7 @@ def resnet_slice_phase(ft, fa):
     counts = np.where(real > 0, sim.client_counts[ids], 0)
     bench_mode = torch.backends.cudnn.benchmark
     cudnn_rounds = []
-    for mode in (False, True, True, False):
+    for mode in (False, True, False):
         torch.backends.cudnn.benchmark = mode
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -985,7 +1005,7 @@ def resnet_slice_phase(ft, fa):
         cudnn_rounds.append({"benchmark": mode, "seconds": time.perf_counter() - t0,
                              "loss": loss})
     torch.backends.cudnn.benchmark = bench_mode
-    log("  cudnn.benchmark off/on/on/off, round 1's cohort: "
+    log("  cudnn.benchmark off/on/off, round 1's cohort: "
         + ", ".join(f"{r['benchmark']}: {r['seconds']:.4f} s" for r in cudnn_rounds))
 
     # one round under the profiler; its ~10^6 events are summed from the raw
@@ -1231,7 +1251,7 @@ def zoo_phase(ft, fa, dataset, classes):
     ids, real = sims["FedAvg"]._schedule(sampled)
     counts = np.where(real > 0, sims["FedAvg"].client_counts[ids], 0)
     turns = []
-    for name in ("FedAvg", "FedAvg", "SCAFFOLD", "SCAFFOLD", "FedAvg"):  # the first warms
+    for name in ("FedAvg", "FedAvg", "SCAFFOLD", "FedAvg"):  # the first warms
         sim = sims[name]
         cex = sim.algo.gather_client_extras(sim.client_state, ids,
                                             (counts > 0).astype(np.float32), 1)
@@ -1498,7 +1518,7 @@ def trust_phase(ft, fa, dataset, classes):
     defended = sims["byzantine_random_krum"]
     turns = []
     for label, sim in (("krum", defended), ("FedAvg", fedavg), ("krum", defended),
-                       ("krum", defended), ("FedAvg", fedavg)):  # the first warms
+                       ("FedAvg", fedavg)):  # the first warms
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         loss = float(sim._run_packed_round(1, ids, counts))
@@ -1694,6 +1714,334 @@ def trust_hooks_phase(ft, fa):
     return launches, out
 
 
+# phase 12: the sp backend (FedAvgAPI).  12a: the port's default config
+# through a bare run_simulation(), its 200 rounds cut to SP_BACKEND_DEFAULT_ROUNDS,
+# then the sp FedAvg example configs; 12b: BENCH_CONFIG on sp; 12c: slice 1's
+# configuration on sp
+SP_BACKEND_DEFAULT_ROUNDS = 5
+SP_BACKEND_EXAMPLES = ("sp_fedavg_mnist_lr", "sp_fedavg_robust_mnist_lr", "sp_fedavg_cdp_mnist_lr",
+               "sp_fedavg_ldp_mnist_lr")
+SP_BACKEND_ROUNDS = 2
+# card against CPU, final params of a deterministic sp run of lr: the two sum
+# each product in another order (TF32 off), through a few rounds of SGD
+SP_BACKEND_CPU_ATOL = 1e-4
+
+
+def _tf32_flags():
+    import torch
+
+    return (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+
+
+def _sp_backend_run(ft, config, dataset=None, classes=None):
+    """An sp run through the entry points: (final eval, the FedAvgAPI).  The
+    TF32 flags must be the same before and after it."""
+    import copy
+
+    args = ft.init(ft.Arguments.from_dict(copy.deepcopy(config)), should_init_logs=False)
+    device = ft.device.get_device(args)
+    if dataset is None:
+        dataset, classes = ft.data.load(args)
+    runner = ft.FedMLRunner(args, device, dataset, ft.models.hub.create(args, classes))
+    flags = _tf32_flags()
+    final = runner.run()
+    if _tf32_flags() != flags:
+        raise AssertionError(f"an sp run changed the TF32 flags: {flags} -> {_tf32_flags()}")
+    return final, runner.runner.fl_trainer
+
+
+def _max_param_diff(a, b) -> float:
+    return max((a[k].float().cpu() - b[k].float().cpu()).abs().max().item() for k in a)
+
+
+def _finite(api) -> bool:
+    import torch
+
+    return all(bool(torch.isfinite(v).all()) for v in api.w_global.values())
+
+
+def sp_backend_default_phase(ft, fa):
+    """12a: a bare ``run_simulation()`` (sys.argv stubbed, no --cf) on the
+    card, then on the CPU, from the port's default config; then the sp FedAvg
+    example configs, card against CPU where the run is deterministic."""
+    import copy
+
+    import yaml
+    from fedml_tpu_torch.core.dp.fedml_differential_privacy import FedMLDifferentialPrivacy
+
+    out = {}
+    runners = []
+    load, runner_cls = ft.load_arguments, ft.FedMLRunner
+
+    class Recorded(runner_cls):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            runners.append(self)
+
+    def run_default(device_type):
+        def cut(*a, **k):
+            args = load(*a, **k)
+            log(f"  {args.yaml_config_file}: comm_round {args.comm_round} cut to "
+                f"{SP_BACKEND_DEFAULT_ROUNDS}" + (f", device_type {device_type}" if device_type else ""))
+            args.comm_round = SP_BACKEND_DEFAULT_ROUNDS
+            args.log_file_dir = os.path.join(OUT_DIR, "log")
+            if device_type:
+                args.device_type = device_type
+            return args
+
+        argv = sys.argv
+        sys.argv = [argv[0]]
+        ft.load_arguments, ft.FedMLRunner = cut, Recorded
+        try:
+            t0 = time.perf_counter()
+            final = ft.run_simulation()
+            return final, runners[-1].runner.fl_trainer, time.perf_counter() - t0
+        finally:
+            sys.argv = argv
+            ft.load_arguments, ft.FedMLRunner = load, runner_cls
+
+    fa.reset_launches()
+    flags = _tf32_flags()
+    final, api, seconds = run_default(None)
+    if _tf32_flags() != flags:
+        raise AssertionError(f"run_simulation changed the TF32 flags: {flags} -> {_tf32_flags()}")
+    if any(fa.LAUNCHES.values()):
+        raise AssertionError(f"a flash kernel launched on the lr path: {fa.LAUNCHES}")
+    if str(api.args.backend) != "sp" or not _finite(api):
+        raise AssertionError(f"default run: backend {api.args.backend}, final {final}")
+    cpu_final, cpu_api, cpu_seconds = run_default("cpu")
+    diff = _max_param_diff(api.w_global, cpu_api.w_global)
+    log(f"  default config ({api.args.dataset} {api.args.model}, {api.args.client_num_in_total} "
+        f"clients, {api.args.client_num_per_round} a round) on {api.device}: {final} in "
+        f"{seconds:.2f} s "
+        f"(rounds {[round(t, 4) for t in api.round_times]} s), CPU {cpu_final} in "
+        f"{cpu_seconds:.2f} s; max |param diff| {diff:.3e} (atol {SP_BACKEND_CPU_ATOL})")
+    if diff > SP_BACKEND_CPU_ATOL:
+        raise AssertionError(f"default config: card vs CPU params differ by {diff:.3e}")
+    out["default"] = {"final": final, "cpu_final": cpu_final, "seconds": seconds,
+                      "round_seconds": list(api.round_times), "max_param_diff": diff}
+
+    for name in SP_BACKEND_EXAMPLES:
+        with open(os.path.join(ROOT, "examples", "simulation", name, "fedml_config.yaml")) as f:
+            config = yaml.safe_load(f)
+        config["tracking_args"]["log_file_dir"] = os.path.join(OUT_DIR, "log")
+        runs = [("card", config)]
+        attack = config.get("attack_args", {})
+        if attack.get("attack_mode") == "random":
+            zero = copy.deepcopy(config)
+            zero["attack_args"]["attack_mode"] = "zero"
+            runs.append(("card, zero attack", zero))
+        for label, cfg in runs:
+            t0 = time.perf_counter()
+            final, api = _sp_backend_run(ft, cfg)
+            seconds = time.perf_counter() - t0
+            dp = FedMLDifferentialPrivacy.get_instance()
+            spends = len(dp.accountant) if dp.is_dp_enabled else 0
+            dp_type = dp.dp_type if dp.is_dp_enabled else None
+            entry = {"final": final, "seconds": seconds, "round_seconds": list(api.round_times),
+                     "dp_type": dp_type, "dp_spends": spends}
+            if not _finite(api) or "test_acc" not in final:
+                raise AssertionError(f"{name} ({label}): {final} on {api.device}")
+            deterministic = not dp_type and cfg.get("attack_args", {}).get("attack_mode") != "random"
+            if deterministic:
+                cpu_cfg = copy.deepcopy(cfg)
+                cpu_cfg["device_args"] = {"device_type": "cpu"}
+                cpu_final, cpu_api = _sp_backend_run(ft, cpu_cfg)
+                entry["cpu_final"] = cpu_final
+                entry["max_param_diff"] = _max_param_diff(api.w_global, cpu_api.w_global)
+                if entry["max_param_diff"] > SP_BACKEND_CPU_ATOL:
+                    raise AssertionError(f"{name} ({label}): card vs CPU params differ by "
+                                         f"{entry['max_param_diff']:.3e}")
+            out[f"{name} ({label})"] = entry
+            log(f"  {name} ({label}): {final} in {seconds:.2f} s; dp {dp_type} spends {spends}"
+                + (f"; CPU {entry['cpu_final']}, max |param diff| "
+                   f"{entry['max_param_diff']:.3e}" if deterministic else ""))
+    if any(fa.LAUNCHES.values()):
+        raise AssertionError(f"a flash kernel launched on the lr path: {fa.LAUNCHES}")
+    return out
+
+
+def sp_backend_resnet_phase(ft, fa, dataset, classes, packed):
+    """12b: BENCH_CONFIG on the sp backend (each client through the trainer's
+    padded engine, no packing), 2 rounds, on phase 8's dataset, round 0
+    under torch.profiler for the card's busy share: round seconds and
+    samples/s beside phase 8's packed round, each client's bucket and real
+    steps, peak memory, no flash launch; then round 1's cohort in turns
+    with the packed round on it."""
+    import copy
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    config = copy.deepcopy(BENCH_CONFIG)
+    config["train_args"].update(comm_round=SP_BACKEND_ROUNDS, xla_pack=False)
+    config["validation_args"]["frequency_of_the_test"] = SP_BACKEND_ROUNDS
+    config["comm_args"]["backend"] = "sp"
+    args = ft.init(ft.Arguments.from_dict(copy.deepcopy(config)), should_init_logs=False)
+    runner = ft.FedMLRunner(args, ft.device.get_device(args), dataset,
+                            ft.models.hub.create(args, classes))
+    api = runner.runner.fl_trainer
+    clients = []
+    train = api.trainer.train
+
+    def recorded(train_data, device, a, extra=None):
+        result = train(train_data, device, a, extra)
+        n = len(train_data[1])
+        clients.append({"round": api.trainer.round_idx, "client": int(api.trainer.id), "n": n,
+                        "bucket": api.trainer.padded_size(n, int(a.batch_size)),
+                        "steps": int(result.steps)})
+        return result
+
+    api.trainer.train = recorded
+    # round 0 runs under torch.profiler, from its cohort's draw to the end of
+    # its server step; device activity only: recording every aten op would
+    # slow the host, which binds the round.  Round 1 runs unprofiled.
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    window = {}
+    sample, update = api._client_sampling, api.server_update
+
+    def sampling(round_idx):
+        if round_idx == 0:
+            torch.cuda.synchronize()
+            prof.start()
+            window["t0"] = time.perf_counter()
+        return sample(round_idx)
+
+    def server_update(w_locals):
+        out = update(w_locals)
+        if "t0" in window and "wall_ms" not in window:
+            torch.cuda.synchronize()
+            window["wall_ms"] = (time.perf_counter() - window["t0"]) * 1e3
+            prof.stop()
+        return out
+
+    api._client_sampling, api.server_update = sampling, server_update
+    fa.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # earlier phases' live tensors stay in the peak: the run's own share is
+    # the peak over what was allocated when it started
+    base = torch.cuda.memory_allocated()
+    final = runner.run()
+    peak = torch.cuda.max_memory_allocated()
+    api.trainer.train, api._client_sampling, api.server_update = train, sample, update
+    if any(fa.LAUNCHES.values()):
+        raise AssertionError(f"a flash kernel launched on the sp ResNet path: {fa.LAUNCHES}")
+    if not _finite(api) or not math.isfinite(final["test_loss"]):
+        raise AssertionError(f"sp ResNet-56: {final}")
+    rounds = []
+    for r, (dt, samples) in enumerate(zip(api.round_times, api.samples_per_round)):
+        mine = [c for c in clients if c["round"] == r]
+        rounds.append({"round": r, "seconds": dt, "samples": samples,
+                       "samples_per_s": samples / dt,
+                       "steps": sum(c["steps"] for c in mine),
+                       "packed_steps": sum(-(-c["n"] // int(args.batch_size)) for c in mine)})
+        log(f"  round {r}{' (under the profiler)' if r == 0 else ''}: {dt:.4f} s, {samples} "
+            f"samples ({samples / dt:,.1f} samples/s), "
+            f"{rounds[-1]['steps']} steps (the packed round would take "
+            f"{rounds[-1]['packed_steps']}); clients (n, bucket, steps): "
+            + ", ".join(f"{c['client']} ({c['n']}, {c['bucket']}, {c['steps']})" for c in mine))
+    log(f"  beside phase 8's packed round: sp round 1 {api.round_times[-1]:.4f} s, "
+        f"{rounds[-1]['samples_per_s']:,.1f} samples/s; packed median "
+        f"{packed['median_round_s']:.4f} s, {packed['samples_per_sec']:,.1f} samples/s; "
+        f"peak memory {peak / 2**30:.3f} GiB, {(peak - base) / 2**30:.3f} GiB over the "
+        f"{base / 2**30:.3f} GiB allocated at the start; final eval {final}")
+
+    # round 1's cohort in turns (packed, sp, packed): the packed round of
+    # phase 8's simulator, built again on this dataset, and the sp round; the
+    # host's speed drifts within a call, so the ratio is taken in turns
+    pargs = ft.init(ft.Arguments.from_dict(copy.deepcopy(BENCH_CONFIG)),
+                    should_init_logs=False)
+    psim = ft.FedMLRunner(pargs, ft.device.get_device(pargs), dataset,
+                          ft.models.hub.create(pargs, classes)).runner.sim
+    pids, real = psim._schedule(psim._client_sampling(1))
+    pcounts = np.where(real > 0, psim.client_counts[pids], 0)
+    ids = api._client_sampling(1)
+    turns = []
+    for kind in ("packed", "sp", "packed"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ft.device.fp32_matmul():
+            if kind == "packed":
+                float(psim._run_packed_round(1, pids, pcounts))
+            else:
+                api.server_update(api._local_updates(1, ids))
+        torch.cuda.synchronize()
+        turns.append({"kind": kind, "seconds": time.perf_counter() - t0})
+    del psim
+    sp_over_packed = (statistics.median(t["seconds"] for t in turns if t["kind"] == "sp")
+                      / statistics.median(t["seconds"] for t in turns if t["kind"] == "packed"))
+    log("  round 1's cohort in turns: " + ", ".join(
+        f"{t['kind']} {t['seconds']:.4f} s" for t in turns)
+        + f"; sp over packed {sp_over_packed:.3f}")
+
+    device_ms = 0.0
+    families: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            ms = e.duration_ns() / 1e6
+            device_ms += ms
+            families[kernel_family(e.name())] = families.get(kernel_family(e.name()), 0.0) + ms
+    wall_ms = window["wall_ms"]
+    log(f"  round 0 under the profiler: wall {wall_ms:.1f} ms, device busy {device_ms:.1f} ms "
+        f"({100 * device_ms / wall_ms:.1f} %; {100 * device_ms / 1e3 / api.round_times[1]:.1f} "
+        f"% of round 1's unprofiled seconds); by family "
+        + json.dumps({k: round(v, 3) for k, v in sorted(families.items())}))
+    return {"rounds": rounds, "clients": clients, "final": final, "peak_memory_bytes": peak,
+            "allocated_at_start_bytes": base, "turns": turns, "sp_over_packed": sp_over_packed,
+            "packed": {"median_round_s": packed["median_round_s"],
+                       "samples_per_sec": packed["samples_per_sec"]},
+            "profile": {"wall_ms": wall_ms, "device_ms": device_ms, "families_ms": families}}
+
+
+def sp_backend_transformer_phase(ft, fa):
+    """12c: slice 1's configuration (hub TransformerLM, shakespeare) on the
+    sp backend, 2 rounds with an eval each: K1-K3 (fp32) launch in every
+    step and eval forward.  The counts are set to 0 just before the run and
+    read just after, and must equal the layers times the trainer's recorded
+    steps (K2, K3), plus the eval forwards' (K1)."""
+    import copy
+
+    import torch
+
+    config = copy.deepcopy(SLICE_CONFIG)
+    config["train_args"]["comm_round"] = SP_BACKEND_ROUNDS
+    config["comm_args"]["backend"] = "sp"
+    args = ft.init(ft.Arguments.from_dict(copy.deepcopy(config)), should_init_logs=False)
+    dataset, classes = ft.data.load(args)
+    model = ft.models.hub.create(args, classes)
+    runner = ft.FedMLRunner(args, ft.device.get_device(args), dataset, model)
+    api = runner.runner.fl_trainer
+    steps = []
+    train = api.trainer.train
+
+    def recorded(train_data, device, a, extra=None):
+        result = train(train_data, device, a, extra)
+        steps.append(int(result.steps))
+        return result
+
+    api.trainer.train = recorded
+    fa.reset_launches()
+    final = runner.run()
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    layers = model.cfg.n_layers
+    eval_fwd = SP_BACKEND_ROUNDS * -(-dataset[1] // int(getattr(args, "eval_batch_size", 256))) * layers
+    want = dict.fromkeys(launches, 0)
+    want.update(flash_bwd_dq=layers * sum(steps), flash_bwd_dkv=layers * sum(steps),
+                flash_fwd=layers * sum(steps) + eval_fwd)
+    log(f"  sp TransformerLM: rounds {[round(t, 4) for t in api.round_times]} s, "
+        f"{len(steps)} client runs of {sum(steps)} steps, {layers} layers; final eval {final}; "
+        f"launches {launches}, predicted {want}")
+    if launches != want:
+        raise AssertionError(f"sp TransformerLM launches {launches}, predicted {want}")
+    if not _finite(api) or not math.isfinite(final["test_loss"]):
+        raise AssertionError(f"sp TransformerLM: {final}")
+    return launches, {"round_seconds": list(api.round_times),
+                      "samples_per_round": list(api.samples_per_round), "steps": steps,
+                      "final": final, "launches": launches, "predicted": want}
+
+
 def ptxas_check(build, builds) -> dict:
     """Registers and spills of every kernel instantiation from ptxas's log;
     raises if an instantiation of a kernel of NO_SPILL spills."""
@@ -1842,7 +2190,6 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import fedml_tpu_torch as ft
     from fedml_tpu_torch.ops import build, flash_attention as fa
-    from fedml_tpu_torch.simulation.xla.fed_sim import pin_fp32_matmul
 
     os.makedirs(OUT_DIR, exist_ok=True)
     t_start = time.perf_counter()
@@ -1851,7 +2198,12 @@ def main() -> int:
     log(f"  card: {card}")
     log(f"  python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
-    log(f"  tf32 flags: {pin_fp32_matmul()}")
+    flags_found = _tf32_flags()
+    # phases 1-11 keep full-fp32 products (TF32 off) from here, as the
+    # simulators do inside their runs; the flags found come back for phase 12
+    pin = contextlib.ExitStack()
+    pin.enter_context(ft.device.fp32_matmul())
+    log(f"  tf32 flags (cuda.matmul, cudnn): found {flags_found}, phases 1-11 {_tf32_flags()}")
     t0 = time.perf_counter()
     builds = build.build()
     log(f"  kernels built in {time.perf_counter() - t0:.1f} s: "
@@ -1894,14 +2246,32 @@ def main() -> int:
 
     log("== phase 11a: the trust path at the north-star width (ResNet-56, 2 rounds a run)")
     trust = trust_phase(ft, fa, cifar, classes)
-    del cifar
     log("== phase 11c: the trust path under the flash kernels (krum + LDP on slice 1)")
     trust_launches, trust["slice1"] = trust_hooks_phase(ft, fa)
+    pin.close()
+    if _tf32_flags() != flags_found:
+        raise AssertionError(f"tf32 flags {_tf32_flags()} after phase 11, found {flags_found}")
+
+    t12 = time.perf_counter()
+    sp_backend = {"tf32_flags": flags_found}
+    log("== phase 12a: the sp backend: the default config through run_simulation(), then the "
+        "sp FedAvg example configs (card vs CPU)")
+    sp_backend["configs"] = sp_backend_default_phase(ft, fa)
+    log("== phase 12b: the sp backend at the north-star width (ResNet-56, 2 rounds)")
+    sp_backend["resnet"] = sp_backend_resnet_phase(ft, fa, cifar, classes,
+                                                   resnet_slice["throughput"])
+    del cifar
+    log("== phase 12c: the sp backend under the flash kernels (slice 1's TransformerLM, "
+        "2 rounds)")
+    sp_backend_launches, sp_backend["transformer"] = sp_backend_transformer_phase(ft, fa)
+    sp_backend["seconds"] = time.perf_counter() - t12
+    log(f"  phase 12 in {sp_backend['seconds']:.1f} s")
 
     log("== phase 9: results")
 
     kernels = kernels_line(rows + fold_rows,
-                           (launches, sp_launches, single_launches, zoo_launches, trust_launches))
+                           (launches, sp_launches, single_launches, zoo_launches, trust_launches,
+                            sp_backend_launches))
     bench = bench_bf16_summary(rows)
     with open(os.path.join(OUT_DIR, "results.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -1915,7 +2285,8 @@ def main() -> int:
                    "sp_slice": sp_slice, "single_card": single,
                    "resnet_slice": resnet_slice, "zoo": zoo,
                    "zoo_launches": zoo_launches, "trust": trust,
-                   "trust_launches": trust_launches,
+                   "trust_launches": trust_launches, "sp_backend": sp_backend,
+                   "sp_backend_launches": sp_backend_launches,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"bench_bf16": bench}))

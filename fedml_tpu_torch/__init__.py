@@ -25,7 +25,7 @@ from . import data, device, models  # noqa: E402,F401
 _logger = logging.getLogger(__name__)
 
 # switches whose subsystems are not ported yet
-_REFUSED = (("using_mlops", "queue A, item 16"),)
+_REFUSED = (("using_mlops", "queue A, item 9d: the rest of the message plane (mlops)"),)
 
 
 def init(args: Arguments | None = None, should_init_logs: bool = True) -> Arguments:
@@ -63,7 +63,7 @@ def init(args: Arguments | None = None, should_init_logs: bool = True) -> Argume
     return args
 
 
-def run_simulation(backend: str = "XLA"):
+def run_simulation(backend: str = "sp"):
     """One-liner: config from the command line, then the simulator's run."""
     from .constants import FEDML_TRAINING_PLATFORM_SIMULATION
 

@@ -540,7 +540,7 @@ class Arguments:
         if getattr(self, "fault_plan", None):
             raise NotImplementedError(
                 "fault_plan drives the message plane, which the port does not "
-                "have yet (ROADMAP.md queue A, message plane)")
+                "have yet (ROADMAP.md queue A, item 9a: transport and cross-silo FedAvg)")
         return self
 
 

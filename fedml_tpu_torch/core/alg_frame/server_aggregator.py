@@ -3,12 +3,14 @@ of ``fedml_tpu/core/alg_frame/server_aggregator.py``).
 
 ``on_before_aggregation`` runs the attacker's injection (Byzantine
 simulation), then the defender's filtering; ``aggregate`` delegates to the
-defender when one is on, else takes the sample-weighted mean;
+defender when one is on, else to ``FedMLAggOperator.agg`` (the
+sample-weighted mean, or the plain sum in the ``_seq`` modes);
 ``on_after_aggregation`` runs the defender's post-processing, then adds
 central DP noise when enabled.  Updates are ``(n, {name: tensor})`` pairs.
-The simulator keeps the global variables here and evaluates them; its
-rounds run the stacked forms of the same hooks on the card
-(``simulation/xla/fed_sim.py``).
+The ``sp`` simulator (``simulation/sp/fedavg/fedavg_api.py``) calls these
+hooks between collection and aggregation; the round simulator keeps the
+global variables here and evaluates them, and runs the stacked forms of the
+same hooks on the card (``simulation/xla/fed_sim.py``).
 """
 
 from __future__ import annotations
@@ -16,14 +18,10 @@ from __future__ import annotations
 from abc import ABC, abstractmethod
 from typing import Any, List, Tuple
 
+from ..aggregate import FedMLAggOperator
 from ..dp.fedml_differential_privacy import FedMLDifferentialPrivacy
-from ..security.defense_funcs import weighted_mean
 from ..security.fedml_attacker import FedMLAttacker
 from ..security.fedml_defender import FedMLDefender
-
-
-def _base_aggregate(args, updates):
-    return weighted_mean(updates)
 
 
 class ServerAggregator(ABC):
@@ -65,10 +63,10 @@ class ServerAggregator(ABC):
         if defender.is_defense_enabled():
             return defender.defend_on_aggregation(
                 raw_client_grad_list=raw_client_model_or_grad_list,
-                base_aggregation_func=_base_aggregate,
+                base_aggregation_func=FedMLAggOperator.agg,
                 extra_auxiliary_info=self.get_model_params(),
             )
-        return _base_aggregate(self.args, raw_client_model_or_grad_list)
+        return FedMLAggOperator.agg(self.args, raw_client_model_or_grad_list)
 
     def on_after_aggregation(self, aggregated_model_or_grad: Any) -> Any:
         defender = FedMLDefender.get_instance()

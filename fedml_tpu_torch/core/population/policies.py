@@ -2,7 +2,8 @@
 ``fedml_tpu/core/population/policies.py``): the uniform policy with the
 simulator's ``mt19937`` schedule, ``RandomState(round_idx)`` drawing without
 replacement, so cohorts match the JAX package's bit for bit.  The stratified
-and importance policies are a later slice (ROADMAP.md queue A, item 6b)."""
+and importance policies are a later slice (ROADMAP.md queue A, item 6a: the stratified
+and importance policies)."""
 
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ class UniformPolicy:
     def __init__(self, registry: ClientRegistry, rng_style: str = "mt19937"):
         if rng_style != "mt19937":
             raise NotImplementedError(
-                f"rng_style {rng_style!r} (the cross-silo schedule) is not ported yet")
+                f"rng_style {rng_style!r} (the cross-silo schedule) is not ported yet "
+                "(ROADMAP.md queue A, item 9a: transport and cross-silo FedAvg)")
         self.registry = registry
 
     def select(self, round_idx: int, k: int) -> np.ndarray:
@@ -34,6 +36,7 @@ def make_policy(name: str, registry: ClientRegistry, *, rng_style: str = "mt1993
         return UniformPolicy(registry, rng_style=rng_style)
     if name in ("stratified", "importance"):
         raise NotImplementedError(
-            f"selection_policy {name!r} is not ported yet (ROADMAP.md queue A, item 6b)")
+            f"selection_policy {name!r} is not ported yet (ROADMAP.md queue A, item 6a: "
+            "the stratified and importance policies)")
     raise ValueError(
         f"unknown selection_policy {name!r} (expected uniform|stratified|importance)")

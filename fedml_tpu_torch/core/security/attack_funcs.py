@@ -11,7 +11,7 @@ Updates are ``(sample_num, {name: tensor})`` pairs; data are tensors, images
 NHWC.  The random choices (byzantine ``random``'s garbage, the backdoor's
 rows) are arguments with a generator-drawn default, so a test can pass the
 JAX package's.  The analysis attacks (DLG, gradient inversion, revealing
-labels) are not ported (ROADMAP.md queue A, item 12).
+labels) are not ported (ROADMAP.md queue A, item 8: the trust path, what is left).
 """
 
 from __future__ import annotations

@@ -33,6 +33,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ...models.convert import FlatLayout
+from ..aggregate import weighted_mean  # noqa: F401  (re-exported: the rules' base aggregate)
 from ..dp.mechanisms import apply as apply_noise
 
 Tree = Dict[str, torch.Tensor]
@@ -40,18 +41,6 @@ Updates = List[Tuple[float, Tree]]
 
 # wbc's Laplace draw: jax.random.uniform on [-0.5 + 1e-7, 0.5)
 _WBC_LOW, _WBC_HIGH = -0.5 + 1e-7, 0.5
-
-
-def weighted_mean(updates: Updates) -> Tree:
-    """Sample-weighted average: sum_i (n_i / N) * params_i, in fp32."""
-    total = float(sum(n for n, _ in updates))
-    if total <= 0:
-        raise ValueError("total sample count must be positive")
-    out = None
-    for n, p in updates:
-        scaled = {k: v.float() * (n / total) for k, v in p.items()}
-        out = scaled if out is None else {k: out[k] + scaled[k] for k in out}
-    return out
 
 
 def _ravel_all(updates: Sequence[Tuple[float, Tree]]):

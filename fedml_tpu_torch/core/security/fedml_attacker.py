@@ -11,7 +11,7 @@ generator seeded ``random_seed + 2027``; a client's data poisoning draws
 from a generator seeded (``random_seed + 2027``, client), so it does not
 depend on the order in which clients are packed.  The analysis attacks
 (``dlg``, ``invert_gradient``, ``revealing_labels_from_gradients``) are not
-ported (ROADMAP.md queue A, item 12).
+ported (ROADMAP.md queue A, item 8: the trust path, what is left).
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ from .constants import (
 _UNSET = object()  # edge-pool cache sentinel (None is a valid cached value)
 ATTACK_SALT = 2027
 ANALYSIS_REFUSAL = ("the analysis attacks (dlg, invert_gradient, revealing_labels_from_gradients) "
-                    "are not ported yet (ROADMAP.md queue A, item 12)")
+                    "are not ported yet (ROADMAP.md queue A, item 8: the trust path, what is left)")
 
 logger = logging.getLogger(__name__)
 

@@ -127,7 +127,7 @@ def _check_kind(name: str, spec: Dict[str, Any]) -> None:
     if spec["kind"] not in _PORTED_KINDS:
         raise NotImplementedError(
             f"dataset {name!r} (kind {spec['kind']!r}) is not ported yet: the "
-            f"port has the {'/'.join(_PORTED_KINDS)} data only (ROADMAP.md queue A, item 2)")
+            f"port has the {'/'.join(_PORTED_KINDS)} data only (ROADMAP.md queue A, item 3: data, the rest)")
 
 
 def _generate(spec: Dict[str, Any], n: int, seed: int, scale_override: int = 0,

@@ -5,7 +5,7 @@ LEAF json layout the next-word-prediction datasets are published in, the
 CIFAR python pickles, and the edge-case example pools of the edge-case
 backdoor.  The other image, tabular and volume parsers are
 ported with the slices that train on those datasets (ROADMAP.md queue A,
-item 2).
+item 3: data, the rest).
 """
 
 from __future__ import annotations
@@ -97,7 +97,7 @@ def try_load_real(name: str, cache_dir: str) -> Optional[Arrays]:
     else:
         raise NotImplementedError(
             f"no parser for cached {name!r} files in the port yet "
-            "(ROADMAP.md queue A, item 2)")
+            "(ROADMAP.md queue A, item 3: data, the rest)")
     for root in (os.path.join(cache_dir, name), cache_dir):
         if os.path.isdir(root):
             out = parse(root)

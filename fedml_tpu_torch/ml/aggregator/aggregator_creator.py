@@ -2,7 +2,7 @@
 ``fedml_tpu/ml/aggregator/aggregator_creator.py``): the default branch, whose
 masked eval computes token-level metrics for next-word prediction.  The
 task-specific eval aggregators come with their trainers (ROADMAP.md queue A,
-item 14)."""
+item 4: model zoo and trainers)."""
 
 from __future__ import annotations
 
@@ -23,5 +23,5 @@ def create_server_aggregator(model, args) -> ServerAggregator:
     if dataset in _TASK_EVAL_DATASETS:
         raise NotImplementedError(
             f"the task eval of dataset {dataset!r} is not ported yet "
-            "(ROADMAP.md queue A, item 14)")
+            "(ROADMAP.md queue A, item 4: model zoo and trainers)")
     return DefaultServerAggregator(model, args)

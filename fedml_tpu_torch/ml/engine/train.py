@@ -126,7 +126,8 @@ def build_loss_fn(module: nn.Module, loss: str = "ce") -> Callable:
     """(bx, by, bmask) -> scalar masked loss of ``module`` on the batch."""
     if loss not in LOSS_FNS:
         raise NotImplementedError(
-            f"loss {loss!r} is not ported yet (ROADMAP.md queue A, item 14)")
+            f"loss {loss!r} is not ported yet (ROADMAP.md queue A, item 4: model zoo and "
+            "trainers, the losses)")
     loss_kind = LOSS_FNS[loss]
 
     def loss_fn(bx, by, bmask):

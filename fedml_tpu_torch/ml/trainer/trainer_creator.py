@@ -1,9 +1,12 @@
-"""Dataset-family tables and the engine loss key per family: the part of
-``fedml_tpu/ml/trainer/trainer_creator.py`` the simulator reads.  The task
-trainers themselves are ported with the model zoo (ROADMAP.md queue A,
-item 14)."""
+"""Trainer factory (counterpart of ``fedml_tpu/ml/trainer/trainer_creator.py``):
+the dataset-family tables, the engine loss key per family, and
+``create_model_trainer``.  The classification and the next-word-prediction /
+sequence-tagging trainers are ported; the other task trainers come with the
+model zoo (ROADMAP.md queue A, item 4: model zoo and trainers)."""
 
 from __future__ import annotations
+
+from ...core.alg_frame.client_trainer import ClientTrainer
 
 _NWP_DATASETS = {"shakespeare", "fed_shakespeare", "stackoverflow_nwp"}
 _TAG_DATASETS = {"stackoverflow_lr", "nuswide", "nus_wide"}
@@ -36,3 +39,28 @@ def loss_kind_for_dataset(dataset: str) -> str:
     if dataset in _AE_DATASETS or dataset in _REG_DATASETS:
         return "mse"
     return "ce"
+
+
+_UNPORTED_FAMILIES = (
+    (_TAG_DATASETS, "ModelTrainerTAGPred"), (_SPAN_DATASETS, "ModelTrainerSpan"),
+    (_DET_DATASETS, "ModelTrainerDET"), (_S2S_DATASETS, "ModelTrainerS2S"),
+    (_LINKPRED_DATASETS, "ModelTrainerLinkPred"), (_MTL_DATASETS, "ModelTrainerMTL"),
+    (_AE_DATASETS, "ModelTrainerAE"), (_SEG_DATASETS, "ModelTrainerSeg"),
+    (_REG_DATASETS, "ModelTrainerReg"),
+)
+
+
+def create_model_trainer(model, args, grad_hook=None) -> ClientTrainer:
+    dataset = str(getattr(args, "dataset", "")).lower()
+    if dataset in _NWP_DATASETS or dataset in _SEQTAG_DATASETS:
+        from .nwp_trainer import ModelTrainerNWP
+
+        return ModelTrainerNWP(model, args, grad_hook=grad_hook)
+    for family, trainer in _UNPORTED_FAMILIES:
+        if dataset in family:
+            raise NotImplementedError(
+                f"the {trainer} trainer of dataset {dataset!r} is not ported yet "
+                "(ROADMAP.md queue A, item 4: model zoo and trainers)")
+    from .cls_trainer import ModelTrainerCLS
+
+    return ModelTrainerCLS(model, args, grad_hook=grad_hook)

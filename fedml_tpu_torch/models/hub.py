@@ -64,7 +64,7 @@ def create(args: Any, output_dim: int) -> nn.Module:
         return resnet.CifarResNet(blocks, num_classes=output_dim, norm=_norm(args), **kw)
     raise NotImplementedError(
         f"model {name!r} for dataset {dataset!r} is not ported yet "
-        "(ROADMAP.md queue A, item 14: model zoo and trainers)")
+        "(ROADMAP.md queue A, item 4: model zoo and trainers)")
 
 
 def _norm(args: Any) -> str:

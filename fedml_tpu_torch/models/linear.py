@@ -7,7 +7,7 @@ dataset's shape).  Init is flax ``Dense``'s: a lecun-normal kernel (a normal
 truncated at two standard deviations, std 1/sqrt(fan_in)) and a zero bias.
 
 ``MLP`` and the rest of ``linear.py`` are not ported yet (ROADMAP.md queue A,
-item 14).
+item 4: model zoo and trainers).
 """
 
 from __future__ import annotations

@@ -30,7 +30,7 @@ names (the hub builds on ``meta``) and filled by ``init_parameters``, as the
   bias, GroupNorm scale 1 and bias 0.
 
 BatchNorm (``norm="bn"``) is not ported: it needs buffers in the engine
-(ROADMAP.md queue A, item 3b).
+(ROADMAP.md queue A, item 4: model zoo and trainers, with BatchNorm).
 """
 
 from __future__ import annotations
@@ -95,7 +95,7 @@ def _check_norm(norm: str) -> None:
     if norm == "bn":
         raise NotImplementedError(
             "model_norm 'bn' (BatchNorm) is not ported yet: it needs buffers in the "
-            "engine (ROADMAP.md queue A, item 3b: BatchNorm)")
+            "engine (ROADMAP.md queue A, item 4: model zoo and trainers, with BatchNorm)")
     if norm != "gn":
         raise ValueError(f"unknown norm {norm!r}")
 

@@ -8,7 +8,7 @@ full score matrix never exists and memory per chip is O(L/sp).
 
 On one card the n shards lie along a leading shard axis of one tensor, so the
 whole sequence lives in that card's memory: the O(L/sp) memory per chip is a
-property of the multi-card ring (ROADMAP.md queue A, item 10b), not of this
+property of the multi-card ring (ROADMAP.md queue A, item 12: the ring across cards), not of this
 one.  What is kept is the computation, fold for fold: at ring step r, shard
 ``my`` folds the K/V shard that the ring would have brought it, the one that
 started on shard ``src = (my - r) mod n``.  The ``ppermute`` by +1 a step

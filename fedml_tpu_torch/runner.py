@@ -1,7 +1,7 @@
 """Runner dispatch of the port (counterpart of ``fedml_tpu/runner.py``):
 (training_type, backend) -> runner with ``.run()``.  Simulation is ported;
 cross-silo and cross-device runners come with the message plane (ROADMAP.md
-queue A, item 16)."""
+queue A, item 9a: transport and cross-silo FedAvg)."""
 
 from __future__ import annotations
 
@@ -16,7 +16,7 @@ class FedMLRunner:
         if training_type != FEDML_TRAINING_PLATFORM_SIMULATION:
             raise NotImplementedError(
                 f"training_type {training_type!r} is not ported yet "
-                "(ROADMAP.md queue A, item 16: message plane)")
+                "(ROADMAP.md queue A, item 9a: transport and cross-silo FedAvg)")
         from .simulation.simulator import create_simulator
 
         self.runner = create_simulator(args, device, dataset, model)

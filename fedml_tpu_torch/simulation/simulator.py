@@ -1,6 +1,9 @@
 """Simulator dispatch of the port (counterpart of
-``fedml_tpu/simulation/simulator.py``): backend ``XLA`` (and ``MPI`` /
-``NCCL``, as in the JAX package) runs the round simulator on one card."""
+``fedml_tpu/simulation/simulator.py``): backend ``sp`` (the default) runs the
+single-process round loop (``simulation/sp``), clients one after another
+through their trainer and the server aggregator's hooks; ``XLA`` (and
+``MPI`` / ``NCCL``, as in the JAX package) runs the round simulator on one
+card."""
 
 from __future__ import annotations
 
@@ -10,6 +13,17 @@ from ..constants import (
     FEDML_SIMULATION_TYPE_SP,
     FEDML_SIMULATION_TYPE_XLA,
 )
+
+
+class SimulatorSingleProcess:
+    def __init__(self, args, device, dataset, model):
+        opt = str(getattr(args, "federated_optimizer", "FedAvg"))
+        from .sp import create_sp_algorithm
+
+        self.fl_trainer = create_sp_algorithm(opt, args, device, dataset, model)
+
+    def run(self):
+        return self.fl_trainer.train()
 
 
 class SimulatorXLA:
@@ -24,11 +38,13 @@ class SimulatorXLA:
 
 def create_simulator(args, device, dataset, model):
     backend = str(getattr(args, "backend", FEDML_SIMULATION_TYPE_SP))
+    if backend == FEDML_SIMULATION_TYPE_SP:
+        return SimulatorSingleProcess(args, device, dataset, model)
     if backend in (FEDML_SIMULATION_TYPE_XLA, FEDML_SIMULATION_TYPE_MPI,
                    FEDML_SIMULATION_TYPE_NCCL):
         return SimulatorXLA(args, device, dataset, model)
-    if backend in (FEDML_SIMULATION_TYPE_SP, "MPI_PROC"):
+    if backend == "MPI_PROC":
         raise NotImplementedError(
             f"simulation backend {backend!r} is not ported yet "
-            "(ROADMAP.md queue A, item 13: other simulators)")
+            "(ROADMAP.md queue A, item 5: the other simulators)")
     raise ValueError(f"unknown simulation backend {backend!r}")

@@ -43,7 +43,7 @@ def params_of(variables: Variables) -> Variables:
     """The JAX package's ``variables["params"]``: the entries that the
     module's ``named_parameters()`` yields.  Today every entry of the port's
     variables is one (GroupNorm's scale and bias are params in flax too;
-    BatchNorm's buffers wait for ROADMAP.md queue A, item 3b), so it is the
+    BatchNorm's buffers wait for ROADMAP.md queue A, item 4: model zoo and trainers), so it is the
     whole dict.  This is the one place to split buffers out."""
     return variables
 
@@ -588,7 +588,7 @@ _REGISTRY = {
     "fedprox": FedAvgInMesh,  # the engines' grad hook from args.proximal_mu
     "fedsgd": FedAvgInMesh,  # E=1, full batch: configured via args
     # FedSeg is FedAvg round-wise; a segmentation dataset still raises in
-    # the data loader (ROADMAP.md queue A, item 2)
+    # the data loader (ROADMAP.md queue A, item 3: data, the rest)
     "fedseg": FedAvgInMesh,
     "fedopt": FedOptInMesh,
     "fednova": FedNovaInMesh,
@@ -611,6 +611,6 @@ def create_inmesh_algorithm(args) -> InMeshAlgorithm:
     cls = _REGISTRY.get(opt)
     if cls is None:
         raise NotImplementedError(
-            f"federated_optimizer {opt!r} has no in-mesh strategy; the host round loops of "
-            "the 'sp' backend are not ported yet (ROADMAP.md queue A, item 13)")
+            f"federated_optimizer {opt!r} has no in-mesh strategy in the port yet: its "
+            "own round simulator is ROADMAP.md queue A, item 5: the other simulators")
     return cls(args)

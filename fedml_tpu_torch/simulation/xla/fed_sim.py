@@ -65,6 +65,7 @@ from ...core.security.fedml_attacker import ANALYSIS_REFUSAL, FedMLAttacker
 from ...core.security.fedml_defender import FedMLDefender
 from ...core.security.stacked import (_wmean, build_stacked_attack, build_stacked_defense,
                                       init_defense_state)
+from ...device import fp32_matmul
 from ...ml.aggregator.aggregator_creator import create_server_aggregator
 from ...ml.engine.packed import PackedSchedule, build_packed_device_fn, pack_round, s_max_for
 from ...ml.engine.train import build_local_train, init_variables
@@ -91,26 +92,28 @@ def _compiled(a, k) -> bool:
 
 # (knob, is it switched on?, the ROADMAP.md item that ports it)
 _UNPORTED_KNOBS = (
-    ("xla_client_chunk", _is_set, "queue A, item 6d: xla_client_chunk"),
-    ("population_stacked", _is_set, "queue A, item 6c: population_stacked"),
+    ("xla_client_chunk", _is_set, "queue A, item 6c: xla_client_chunk"),
+    ("population_stacked", _is_set, "queue A, item 6b: population_stacked"),
     ("server_state", lambda a, k: str(getattr(a, k, "replicated") or "replicated").lower()
-     != "replicated", "queue A, item 15: server planes"),
+     != "replicated", "queue A, item 10: server planes"),
     ("agg_plane", lambda a, k: str(getattr(a, k, "host") or "host").lower() != "host",
-     "queue A, item 15: server planes"),
-    ("defense_plane", _compiled, "queue A, item 15: server planes (parallel/sec_plane.py)"),
-    ("dp_plane", _compiled, "queue A, item 15: server planes (parallel/sec_plane.py)"),
-    ("secagg_plane", _compiled, "queue A, item 15: server planes (parallel/sec_plane.py)"),
-    ("checkpoint_dir", _is_set, "queue A, item 16: checkpointing"),
-    ("obs_trace", _is_set, "queue A, item 16: obs/telemetry"),
-    ("obs_telemetry", _is_set, "queue A, item 16: obs/telemetry"),
-    ("obs_health", _is_set, "queue A, item 16: obs/telemetry"),
-    ("enable_profiler", _is_set, "queue A, item 16: obs/telemetry"),
+     "queue A, item 10: server planes"),
+    ("defense_plane", _compiled, "queue A, item 10: server planes (parallel/sec_plane.py)"),
+    ("dp_plane", _compiled, "queue A, item 10: server planes (parallel/sec_plane.py)"),
+    ("secagg_plane", _compiled, "queue A, item 10: server planes (parallel/sec_plane.py)"),
+    ("checkpoint_dir", _is_set, "queue A, item 9b: state (checkpointing)"),
+    ("obs_trace", _is_set, "queue A, item 9d: the rest of the message plane (obs)"),
+    ("obs_telemetry", _is_set, "queue A, item 9d: the rest of the message plane (obs)"),
+    ("obs_health", _is_set, "queue A, item 9d: the rest of the message plane (obs)"),
+    ("enable_profiler", _is_set, "queue A, item 9d: the rest of the message plane (obs)"),
 )
+# knobs of the round simulator alone: the sp simulator never reads them
+XLA_ROUND_KNOBS = ("xla_client_chunk", "population_stacked")
 
 
-def refuse_unported_knobs(args) -> None:
+def refuse_unported_knobs(args, skip=()) -> None:
     for key, on, item in _UNPORTED_KNOBS:
-        if on(args, key):
+        if key not in skip and on(args, key):
             raise NotImplementedError(
                 f"{key}={getattr(args, key)!r} is not ported to the torch simulator yet "
                 f"(ROADMAP.md {item})")
@@ -119,14 +122,6 @@ def refuse_unported_knobs(args) -> None:
 # the salt of the security tail's generators, the JAX package's
 # fold_in(sub, 999331)
 SECURITY_SALT = 999331
-
-
-def pin_fp32_matmul() -> Dict[str, bool]:
-    """fp32 products in full fp32, never TF32, on the card; returns the flags."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    return {"cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
-            "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32}
 
 
 class XLASimulator:
@@ -158,8 +153,6 @@ class XLASimulator:
         self.needs_stack = self.defended or self.model_attacked
         self.module = model
         self.device = torch.device(device)
-        if self.device.type == "cuda":
-            logger.info("tf32 flags %s", pin_fp32_matmul())
 
         self.num_clients = int(args.client_num_in_total)
         self.clients_per_round = int(args.client_num_per_round)
@@ -169,7 +162,8 @@ class XLASimulator:
         ds = str(getattr(args, "dataset", "")).lower()
         if ds in _TAG_DATASETS:
             raise NotImplementedError(
-                f"dataset {ds!r} (multi-hot labels) is not ported yet (ROADMAP.md queue A, item 14)")
+                f"dataset {ds!r} (multi-hot labels) is not ported yet "
+                "(ROADMAP.md queue A, item 4: model zoo and trainers, the bce loss)")
         self.loss_kind = loss_kind_for_dataset(ds)
 
         self._pack_data()
@@ -556,6 +550,12 @@ class XLASimulator:
             self.client_state = self.algo.apply_client_outs(self.client_state, ids, outs)
 
     def train(self) -> Dict[str, Any]:
+        """The run's rounds, with fp32 products in full fp32 (TF32 off) and
+        the flags set back when the run ends."""
+        with fp32_matmul():
+            return self._train()
+
+    def _train(self) -> Dict[str, Any]:
         comm_round = int(self.args.comm_round)
         freq = int(getattr(self.args, "frequency_of_the_test", 10))
         dp = FedMLDifferentialPrivacy.get_instance()

@@ -33,6 +33,17 @@ from fedml_tpu.ops.flash_attention import flash_attention as jax_flash
 from fedml_tpu.ops.flash_attention import flash_shard_update as jax_fold
 from fedml_tpu_torch.ops import flash_attention as fa
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread, so the suite's parallel workers do not
+    oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 BF16 = torch.bfloat16
 
 

@@ -21,6 +21,16 @@ from fedml_tpu_torch.models import convert
 from fedml_tpu_torch.models.transformer import TransformerConfig, TransformerLM
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread, so the suite's parallel workers do not
+    oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _args(**kw):
     base = dict(client_optimizer="sgd", learning_rate=0.1, weight_decay=0.0, momentum=0.0,
                 epochs=1)

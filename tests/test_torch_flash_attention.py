@@ -17,6 +17,17 @@ import torch
 from fedml_tpu.ops.flash_attention import _flash_forward, flash_attention as jax_flash
 from fedml_tpu_torch.ops import flash_attention as port
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread, so the suite's parallel workers do not
+    oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # (B, L, H, D, causal, block_q, block_k): causal and full, ragged L with
 # blocks of 16, and the mismatched blocks of test_mismatched_block_sizes
 CASES = {

@@ -42,9 +42,15 @@ SLICE_MODULES = [
     "fedml_tpu_torch.core.security.fedml_attacker",
     "fedml_tpu_torch.core.security.fedml_defender",
     "fedml_tpu_torch.core.security.stacked",
+    "fedml_tpu_torch.core.aggregate",
+    "fedml_tpu_torch.core.alg_frame.client_trainer",
+    "fedml_tpu_torch.core.alg_frame.params",
     "fedml_tpu_torch.core.alg_frame.server_aggregator",
+    "fedml_tpu_torch.core.sampling",
     "fedml_tpu_torch.ml.engine.train",
     "fedml_tpu_torch.ml.engine.packed",
+    "fedml_tpu_torch.ml.trainer.cls_trainer",
+    "fedml_tpu_torch.ml.trainer.nwp_trainer",
     "fedml_tpu_torch.ml.trainer.trainer_creator",
     "fedml_tpu_torch.ml.aggregator.aggregator_creator",
     "fedml_tpu_torch.ml.aggregator.default_aggregator",
@@ -61,6 +67,8 @@ SLICE_MODULES = [
     "fedml_tpu_torch.parallel.ring_attention",
     "fedml_tpu_torch.parallel.seq_parallel",
     "fedml_tpu_torch.simulation.simulator",
+    "fedml_tpu_torch.simulation.sp",
+    "fedml_tpu_torch.simulation.sp.fedavg.fedavg_api",
     "fedml_tpu_torch.simulation.sp.fedopt.fedopt_api",
     "fedml_tpu_torch.simulation.xla.algorithms",
     "fedml_tpu_torch.simulation.xla.fed_sim",
@@ -117,7 +125,7 @@ def test_cuda_entry_refuses_cpu_tensors(entry):
 def test_unported_model_raises_with_its_roadmap_item():
     from fedml_tpu_torch.models import hub
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A, item 3b"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A, item 4: model zoo and trainers, with BatchNorm"):
         hub.create(types.SimpleNamespace(model="resnet56", dataset="cifar10", model_norm="bn"), 10)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A, item 14"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A, item 4: model zoo and trainers"):
         hub.create(types.SimpleNamespace(model="cnn", dataset="femnist"), 62)

@@ -36,6 +36,17 @@ from fedml_tpu_torch.models import convert
 from fedml_tpu_torch.models.resnet import resnet20
 from fedml_tpu_torch.simulation.xla.algorithms import create_inmesh_algorithm as talgo
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread, so the suite's parallel workers do not
+    oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 COUNTS = np.array([13, 0, 37, 3, 21, 8, 16], np.int64)  # one dummy slot
 BATCH, EPOCHS = 8, 2
 

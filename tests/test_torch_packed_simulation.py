@@ -20,12 +20,24 @@ import copy
 import jax
 import numpy as np
 import pytest
+import torch
 
 import fedml_tpu
 import fedml_tpu_torch
 from fedml_tpu.parallel.mesh import create_fl_mesh
 from fedml_tpu.simulation.xla import fed_sim as jfed_sim
 from fedml_tpu_torch.models import convert
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread, so the suite's parallel workers do not
+    oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 CONFIG = {
     "common_args": {"training_type": "simulation", "random_seed": 0},

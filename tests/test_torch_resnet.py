@@ -31,6 +31,17 @@ from fedml_tpu.models import resnet as jresnet
 from fedml_tpu_torch.ml.engine.train import load_variables, softmax_ce_loss as tloss
 from fedml_tpu_torch.models import convert, hub, resnet
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread, so the suite's parallel workers do not
+    oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 FP32_TOL = dict(atol=1e-5, rtol=1e-4)
 DTYPES = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 

@@ -44,6 +44,17 @@ from fedml_tpu_torch.parallel import seq_parallel as psp
 from fedml_tpu_torch.parallel.mesh import create_mesh
 from fedml_tpu_torch.parallel.ring_attention import _block_attend, ring_attention
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread, so the suite's parallel workers do not
+    oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 CPU = torch.device("cpu")
 B, H, D = 2, 2, 8
 # name: (causal, Lq, Lk, q offset, k offset, padded key tail, carried state).

@@ -446,9 +446,9 @@ def test_analysis_attacks_are_refused():
     ta = FedMLAttacker.get_instance()
     ta.init(_Args(enable_attack=True, attack_type="dlg"))
     assert ta.is_analysis_attack()
-    with pytest.raises(NotImplementedError, match="queue A, item 12"):
+    with pytest.raises(NotImplementedError, match="queue A, item 8: the trust path, what is left"):
         ta.analyze_update(None, None, None, (1,), 10)
-    with pytest.raises(NotImplementedError, match="queue A, item 12"):
+    with pytest.raises(NotImplementedError, match="queue A, item 8: the trust path, what is left"):
         ta.reconstruct_data(None, None, None, (1,), 10)
 
 

@@ -27,6 +27,17 @@ from fedml_tpu.models.transformer import TransformerConfig as JCfg, TransformerL
 from fedml_tpu_torch.models import convert
 from fedml_tpu_torch.models.transformer import TransformerConfig, TransformerLM
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread, so the suite's parallel workers do not
+    oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 CONFIG = {
     "common_args": {"training_type": "simulation", "random_seed": 0},
     "data_args": {"dataset": "shakespeare", "partition_method": "homo",

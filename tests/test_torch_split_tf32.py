@@ -35,6 +35,17 @@ import torch
 
 from fedml_tpu_torch.ops import flash_attention as fa
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread, so the suite's parallel workers do not
+    oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 O_TOL = (2e-5, 1e-5)
 LSE_TOL = (1e-5, 1e-6)
 GRAD_TOL = (1e-4, 1e-4)

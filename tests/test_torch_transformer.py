@@ -23,6 +23,17 @@ from fedml_tpu_torch.ml.engine.train import softmax_ce_loss
 from fedml_tpu_torch.models import convert
 from fedml_tpu_torch.models.transformer import TransformerConfig, TransformerLM, rope
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread, so the suite's parallel workers do not
+    oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 CFG = dict(vocab_size=64, d_model=32, n_heads=2, n_layers=2, d_ff=64)
 
 

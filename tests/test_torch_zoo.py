@@ -50,6 +50,17 @@ from fedml_tpu_torch.models import convert
 from fedml_tpu_torch.simulation.sp.fedopt.fedopt_api import make_server_optimizer
 from fedml_tpu_torch.simulation.xla import algorithms as talgorithms
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread, so the suite's parallel workers do not
+    oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ATOL = 2e-5
 ROUNDS = 3
 CONFIG = {

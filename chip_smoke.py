@@ -59,23 +59,23 @@
    models.hub.create -> FedMLRunner(...).run(): FedAvg of ResNet-56
    (GroupNorm, bf16 compute over fp32 params) on cifar10 (synthetic, 50,000
    NHWC images stored in bf16), 100 Dirichlet(0.5) clients, 32 a round
-   through the packed round, batch 64, SGD lr 0.001.  Cut: 4 rounds instead
+   through the packed round, batch 64, SGD lr 0.001.  Cut: 3 rounds instead
    of 6.  It checks the bf16 storage bit for bit, logs each round's seconds,
    real steps and bucket, throughput() and the peak memory, requires finite
-   losses, and asserts that no flash kernel launched.  Then a fixed cohort's
-   round is timed with cudnn.benchmark off and on (off, on, off), and
-   one round runs under torch.profiler: busy share, the top kernels, the
+   losses, and asserts that no flash kernel launched.  Then 8 clients of
+   round 1's cohort run once more under torch.profiler: busy share, the top kernels, the
    device time of convolutions, GroupNorm and elementwise kernels, and the
    aten ops a step.  A lone F.group_norm on channels_last input shows
    whether it copies to contiguous; the boundary flush is timed on its own
    with CUDA events.
 9. The kernels line, the card line, and the last line
-   {"ok": true, "device": {...}}, printed after phase 12.
-10. The algorithm zoo.  (a) At the north-star width: BENCH_CONFIG with only
-   the algorithm's knobs changed (ZOO: FedProx, FedOpt/adam, FedNova,
-   SCAFFOLD, FedDyn, AsyncFedAvg, FedBuff with a buffer of 16), 2 rounds
-   each, through the entry points, on one cifar10 dataset made once: round
-   seconds, throughput(), losses, finite params, the server state's norm,
+   {"ok": true, "device": {...}}, printed after phase 13.
+10. The algorithm zoo.  (a) At the north-star width: BENCH_CONFIG with the
+   algorithm's knobs changed and its cohort cut to ZOO_COHORT (8) clients
+   (ZOO: FedProx, FedOpt/adam, FedNova, SCAFFOLD, FedDyn, AsyncFedAvg,
+   FedBuff with a buffer of 4), 2 rounds each, through the entry points,
+   on one cifar10 dataset made once: round seconds, throughput(), losses,
+   finite params, the server state's norm,
    SCAFFOLD's and FedDyn's mean invariant (c = mean_i c_i, h = mean_i h_i),
    FedBuff's flushes.  Then FedAvg's round and SCAFFOLD's alternated on one
    fixed cohort (FedAvg, SCAFFOLD, FedAvg, after a warm FedAvg round), and
@@ -85,7 +85,7 @@
    2 rounds each, on slice 1's configuration (hub transformer, fp32), with
    the counts set to 0 before and read after: K1-K3 must have launched.
 11. The trust path.  (a) At the north-star width (BENCH_CONFIG,
-   byzantine_client_num 10, on phase 8's dataset), 7 runs of 2 rounds
+   byzantine_client_num 10, on phase 8's dataset), 7 runs of 1 round
    through the entry points (TRUST: byzantine random + krum, label flipping
    + trimmed mean, model replacement + norm clipping, FedNova + backdoor +
    foolsgold, padded SCAFFOLD + bulyan with f 7, LDP Gaussian with a budget
@@ -98,7 +98,7 @@
    and attack on the card and on the CPU with the same draws, within
    TRUST_TOL (selections and foolsgold's weights within their own bounds,
    below), each card call timed.  (c) Krum + local DP on slice 1's
-   configuration, 2 rounds, counts set to 0 before and read after: K1-K3
+   configuration, TRUST_HOOKS_ROUNDS (2) rounds, counts set to 0 before and read after: K1-K3
    must have launched.
 12. The sp backend (simulation/sp/fedavg/fedavg_api.py: clients one after
    another through the trainer, then the ServerAggregator hooks), run after
@@ -111,14 +111,37 @@
    card (the robust one also with a zero attack in place of the random one).
    Deterministic runs (no DP, no random attack) must agree with the CPU's
    final params within SP_BACKEND_CPU_ATOL.  (b) BENCH_CONFIG on sp (no
-   packing, an eval after each of 2 rounds) on phase 8's dataset, round 0
-   under torch.profiler for the card's busy share: round seconds and
+   packing, a cohort of 16, an eval after each of 2 rounds) on phase 8's
+   dataset, round 0 under torch.profiler for the card's busy share: round seconds and
    samples/s beside phase 8's packed round, each client's bucket and real
    steps, peak memory, no flash launch; then round 1's cohort in turns with
    the packed round on it (packed, sp, packed).  (c) Slice 1's
    configuration on sp, 2 rounds with an eval each, counts set to 0 before
    and read after: K2 and K3 launch layers x steps times (the trainer's
    recorded steps), K1 that plus layers x eval batches x evals.
+13. The rest of the sp zoo (simulation/sp/*: FedProx, FedOpt, FedNova,
+   FedSGD, SCAFFOLD, FedDyn, AsyncFedAvg, FedBuff, HierarchicalFL,
+   decentralized, Turbo-Aggregate), with the TF32 flags as the script found
+   them, as phase 12.  (a) The zoo's nine examples/simulation/sp_*_mnist_lr
+   configs, and FedBuff (fl_mode async) and AsyncFedAvg on
+   sp_fedavg_mnist_lr, on the card and on the CPU: every run is
+   deterministic (Turbo-Aggregate's masks come from a CPU generator), so the
+   final params must agree within SP_BACKEND_CPU_ATOL; then FedBuff under
+   full participation, a buffer of the cohort, staleness 0 and the constant
+   policy against FedAvgAPI on the card, bit for bit (or within 1e-6, the
+   reason logged).  (b) Each member and FedAvg on BENCH_CONFIG on sp (no
+   packing) with a cohort of 8 for 2 rounds (AsyncFedAvg: 16 updates;
+   FedBuff: 4 flushes of 4) on phase 8's dataset, decentralized on 16 nodes
+   with the data partitioned again at that count and cut to 8,000 images:
+   round seconds, finite params, the member's invariant (SCAFFOLD's c =
+   (1/N) sum_i c_i, FedDyn's h, FedNova's taus equal to the trainer's steps,
+   FedBuff's flushes, HierarchicalFL's group sizes, decentralized's
+   consensus equal to the mean of the nodes), peak memory over FedAvg's run,
+   no flash launch.  (c) SCAFFOLD and FedSGD on slice 1's configuration on
+   sp, 2 rounds each, counts set to 0 before each and read after: SCAFFOLD
+   as 12c; FedSGD's gradients are one forward and backward over each
+   client's padded data, so K2 = K3 = layers x client gradients and K1 that
+   plus layers x eval batches x evals.
 
 Any failure raises and the script exits non-zero with no result line.  It
 exits 2 when no CUDA device is visible.  Full details go to
@@ -238,22 +261,26 @@ SP_BATCH, SP_LEN, SP_SHARDS, SP_LR = 8, 1024, 4, 1e-3
 # sp logits (ring, K4) against single-card logits (K1), fp32 with TF32 off:
 # the two sum each row's keys in another order, through 8 layers
 SP_PARITY_ATOL = 1e-3
-# slice 3: bench.py's _bench_args(1) (bench.py:97-128), 4 rounds instead of 6
+# slice 3: bench.py's _bench_args(1) (bench.py:97-128), 3 rounds instead of 6
 BENCH_CONFIG = {
     "common_args": {"training_type": "simulation", "random_seed": 0, "run_id": "bench"},
     "data_args": {"dataset": "cifar10", "data_cache_dir": os.path.join(ROOT, "fedml_data"),
                   "partition_method": "hetero", "partition_alpha": 0.5},
     "model_args": {"model": "resnet56", "compute_dtype": "bf16"},
     "train_args": {"federated_optimizer": "FedAvg", "client_num_in_total": 100,
-                   "client_num_per_round": 32, "xla_pack": True, "comm_round": 4, "epochs": 1,
+                   "client_num_per_round": 32, "xla_pack": True, "comm_round": 3, "epochs": 1,
                    "batch_size": 64, "client_optimizer": "sgd", "learning_rate": 0.001},
     "validation_args": {"frequency_of_the_test": 0},
     "device_args": {"device_type": "gpu"},
     "comm_args": {"backend": "XLA"},
 }
-# phase 10a: the algorithm zoo on BENCH_CONFIG, only the algorithm's knobs
-# changed, 2 rounds each
+# phase 8: the clients of round 1's cohort whose packed round runs under
+# torch.profiler
+PROFILE_CLIENTS = 8
+# phase 10a: the algorithm zoo on BENCH_CONFIG, the algorithm's knobs
+# changed and the cohort cut to ZOO_COHORT clients, 2 rounds each
 ZOO_ROUNDS = 2
+ZOO_COHORT = 8
 ZOO = [
     ("FedProx", {"federated_optimizer": "FedProx", "proximal_mu": 0.01}),
     ("FedOpt", {"federated_optimizer": "FedOpt", "server_optimizer": "adam",
@@ -262,11 +289,11 @@ ZOO = [
     ("SCAFFOLD", {"federated_optimizer": "SCAFFOLD"}),
     ("FedDyn", {"federated_optimizer": "FedDyn", "feddyn_alpha": 0.01}),
     ("AsyncFedAvg", {"federated_optimizer": "Async_FedAvg"}),
-    ("FedBuff", {"fl_mode": "async", "async_buffer_size": 16, "async_max_staleness": 2,
+    ("FedBuff", {"fl_mode": "async", "async_buffer_size": 4, "async_max_staleness": 2,
                  "async_staleness_policy": "polynomial"}),
 ]
 # SCAFFOLD's c and FedDyn's h are the mean of their client tables, up to the
-# fp32 sums that build each (32 clients a round, the table by index_add_):
+# fp32 sums that build each (ZOO_COHORT clients a round, the table by index_add_):
 # max |c - mean_i c_i| <= ZOO_MEAN_RTOL * max |c_i|
 ZOO_MEAN_RTOL = 1e-5
 SLICE_CONFIG = {
@@ -982,7 +1009,8 @@ def resnet_slice_phase(ft, fa):
     peak = torch.cuda.max_memory_allocated()
     if any(launches.values()) or any(before.values()):
         raise AssertionError(f"a flash kernel launched on slice 3's path: {launches}")
-    if len(sim.round_losses) != 4 or not all(math.isfinite(x) for x in sim.round_losses):
+    if len(sim.round_losses) != int(args.comm_round) or not all(
+            math.isfinite(x) for x in sim.round_losses):
         raise AssertionError(f"train losses {sim.round_losses}")
     tp = sim.throughput()
     for st, dt, loss in zip(streams, sim.round_times, sim.round_losses):
@@ -991,25 +1019,14 @@ def resnet_slice_phase(ft, fa):
     log(f"  throughput {json.dumps(tp)}; peak memory {peak / 2**30:.3f} GiB; "
         f"flash launches {launches}")
 
-    # cudnn.benchmark both ways, alternated, on one fixed cohort
     sampled = sim._client_sampling(1)
     ids, real = sim._schedule(sampled)
     counts = np.where(real > 0, sim.client_counts[ids], 0)
-    bench_mode = torch.backends.cudnn.benchmark
-    cudnn_rounds = []
-    for mode in (False, True, False):
-        torch.backends.cudnn.benchmark = mode
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss = float(sim._run_packed_round(1, ids, counts))
-        cudnn_rounds.append({"benchmark": mode, "seconds": time.perf_counter() - t0,
-                             "loss": loss})
-    torch.backends.cudnn.benchmark = bench_mode
-    log("  cudnn.benchmark off/on/off, round 1's cohort: "
-        + ", ".join(f"{r['benchmark']}: {r['seconds']:.4f} s" for r in cudnn_rounds))
-
-    # one round under the profiler; its ~10^6 events are summed from the raw
-    # kineto records (key_averages() takes minutes over that many)
+    # the first PROFILE_CLIENTS of round 1's cohort (its shapes ran in the run
+    # above) once more, under the profiler; its events are summed from the
+    # raw kineto records (key_averages() takes minutes over a round's ~10^6)
+    ids, counts = ids[:PROFILE_CLIENTS], counts[:PROFILE_CLIENTS]
+    steps = int(sim._packed_inputs(ids, counts, 1).n_steps)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1025,15 +1042,15 @@ def resnet_slice_phase(ft, fa):
             k[1] += 1
         elif e.name().startswith("aten::"):
             ops[e.name()] = ops.get(e.name(), 0) + 1
-    steps = streams[1]["steps"]
     device_ms = sum(ms for ms, _ in kernels.values())
     families: dict = {}
     for name, (ms, _) in kernels.items():
         families[kernel_family(name)] = families.get(kernel_family(name), 0.0) + ms
     median_round_ms = 1e3 * tp["median_round_s"]
-    log(f"  one round under the profiler ({steps} steps): wall {wall_ms:.1f} ms, device busy "
-        f"{device_ms:.1f} ms ({100 * device_ms / wall_ms:.1f} %; "
-        f"{100 * device_ms / median_round_ms:.1f} % of the unprofiled median round); by family "
+    log(f"  {len(ids)} of round 1's clients under the profiler ({steps} steps): wall "
+        f"{wall_ms:.1f} ms, device busy {device_ms:.1f} ms ({100 * device_ms / wall_ms:.1f} %; "
+        f"{100 * device_ms / median_round_ms * streams[1]['steps'] / steps:.1f} % of the "
+        "unprofiled median round, scaled by its steps); by family "
         + json.dumps({k: round(v, 3) for k, v in sorted(families.items())}))
     top = []
     for name, (ms, calls) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:16]:
@@ -1068,15 +1085,15 @@ def resnet_slice_phase(ft, fa):
 
     flush_ms = time_ms(flush)
     log(f"  one boundary flush ({len(params)} tensors, {n_params:,} params): {flush_ms:.4f} ms; "
-        f"{len(ids)} a round: {flush_ms * len(ids):.3f} ms")
+        f"{streams[1]['clients']} a round: {flush_ms * streams[1]['clients']:.3f} ms")
     return {"params": n_params, "data_seconds": data_s, "build_seconds": pack_s,
             "streams": streams, "round_times": list(sim.round_times),
             "round_losses": list(sim.round_losses), "throughput": tp,
-            "peak_memory_bytes": peak, "launches": launches, "cudnn_benchmark": cudnn_rounds,
+            "peak_memory_bytes": peak, "launches": launches,
             "profile": {"wall_ms": wall_ms, "device_ms": device_ms, "steps": steps,
                         "families_ms": families, "top": top, "ops_per_round": dict(op_table)},
             "group_norm": gn,
-            "flush_ms": flush_ms, "flushes_per_round": len(ids)}, (dataset, classes)
+            "flush_ms": flush_ms, "flushes_per_round": streams[1]["clients"]}, (dataset, classes)
 
 
 def packed_zoo_reference_phase(ft):
@@ -1192,17 +1209,17 @@ def _aten_ops_per_step(sim, ids, counts) -> dict:
 
 
 def zoo_phase(ft, fa, dataset, classes):
-    """Phase 10a: every zoo member at the north-star width, 2 rounds each
-    through the entry points, on phase 8's dataset; FedAvg's round and
-    SCAFFOLD's alternated on one cohort; the aten ops a step of the hooked
-    members."""
+    """Phase 10a: every zoo member at the north-star width, a cohort of
+    ZOO_COHORT, 2 rounds each through the entry points, on phase 8's
+    dataset; FedAvg's round and SCAFFOLD's alternated on one cohort; the aten
+    ops a step of the hooked members."""
     import copy
 
     import torch
 
     fa.reset_launches()
     config = copy.deepcopy(BENCH_CONFIG)
-    config["train_args"]["comm_round"] = ZOO_ROUNDS
+    config["train_args"].update(comm_round=ZOO_ROUNDS, client_num_per_round=ZOO_COHORT)
     members, sims = {}, {}
     for name, knobs in ZOO:
         t0 = time.perf_counter()
@@ -1325,7 +1342,8 @@ def zoo_hooks_phase(ft, fa):
 
 # phase 11: the trust path on BENCH_CONFIG (byzantine_client_num 10), 2
 # rounds a run: (name, the knobs changed)
-TRUST_ROUNDS = 2
+TRUST_ROUNDS = 1
+TRUST_HOOKS_ROUNDS = 2  # phase 11c
 TRUST_BASE = {"byzantine_client_num": 10}
 TRUST = [
     ("byzantine_random_krum", {"enable_attack": True, "attack_type": "byzantine",
@@ -1343,10 +1361,10 @@ TRUST = [
     ("padded_scaffold_bulyan", {"federated_optimizer": "SCAFFOLD", "xla_pack": False,
                                 "enable_defense": True, "defense_type": "bulyan",
                                 "byzantine_client_num": 7}),
-    # 2 rounds x 32 clients x epsilon 10: the budget ends exactly with the run
+    # 1 round x 32 clients x epsilon 10: the budget ends exactly with the run
     ("ldp_gaussian", {"enable_dp": True, "dp_type": "ldp", "mechanism_type": "gaussian",
                       "epsilon": 10.0, "delta": 1e-5, "sensitivity": 0.1,
-                      "privacy_budget": [640.0, 1.0]}),
+                      "privacy_budget": [320.0, 1.0]}),
     ("cdp_laplace", {"enable_dp": True, "dp_type": "cdp", "mechanism_type": "laplace",
                      "epsilon": 10.0, "sensitivity": 0.01}),
 ]
@@ -1397,8 +1415,8 @@ def _trust_runner(ft, knobs, dataset, classes):
 
 def trust_phase(ft, fa, dataset, classes):
     """Phase 11a: each trust run through the entry points at the north-star
-    width, 2 rounds, its peak memory against a FedAvg round's; FedAvg's round
-    and the defended one (byzantine + krum) alternated on one cohort.  Phase
+    width, TRUST_ROUNDS rounds, its peak memory against a FedAvg round's;
+    FedAvg's round and the defended one (byzantine + krum) alternated on one cohort.  Phase
     11b: one captured round's stack through every stacked rule, card against
     CPU."""
     import torch
@@ -1412,10 +1430,10 @@ def trust_phase(ft, fa, dataset, classes):
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     fedavg = _zoo_runner(ft, BENCH_CONFIG, {"comm_round": 1}, dataset, classes).runner.sim
-    sampled = fedavg._client_sampling(1)
+    sampled = fedavg._client_sampling(0)
     ids, real = fedavg._schedule(sampled)
     counts = np.where(real > 0, fedavg.client_counts[ids], 0)
-    float(fedavg._run_packed_round(1, ids, counts))  # also warms the turns below
+    float(fedavg._run_packed_round(0, ids, counts))  # also warms the turns below
     torch.cuda.synchronize()
     fedavg_peak = torch.cuda.max_memory_allocated() - base
     log(f"  FedAvg: one round's peak {fedavg_peak / 2**30:.3f} GiB")
@@ -1493,7 +1511,8 @@ def trust_phase(ft, fa, dataset, classes):
                            "remaining": dp.accountant.remaining}
             if dp.is_local_dp_enabled() and (
                     len(dp.accountant) != TRUST_ROUNDS * sim.clients_per_round
-                    or abs(dp.accountant.remaining[0] - (640.0 - 10.0 * len(dp.accountant)))
+                    or abs(dp.accountant.remaining[0]
+                           - (knobs["privacy_budget"][0] - 10.0 * len(dp.accountant)))
                     > 1e-9):
                 raise AssertionError(f"{name}: the accountant spent {entry['dp']}")
             if dp.is_global_dp_enabled() and len(dp.accountant) != TRUST_ROUNDS:
@@ -1514,21 +1533,20 @@ def trust_phase(ft, fa, dataset, classes):
     if any(launches.values()):
         raise AssertionError(f"a flash kernel launched on the trust path's ResNet-56: {launches}")
 
-    # FedAvg's round and the defended round, in turns on one cohort
+    # FedAvg's round and the defended round, in turns on round 0's cohort,
+    # which both sims ran already (FedAvg's peak round, krum's round 0)
     defended = sims["byzantine_random_krum"]
     turns = []
-    for label, sim in (("krum", defended), ("FedAvg", fedavg), ("krum", defended),
-                       ("FedAvg", fedavg)):  # the first warms
+    for label, sim in (("FedAvg", fedavg), ("krum", defended), ("FedAvg", fedavg)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        loss = float(sim._run_packed_round(1, ids, counts))
+        loss = float(sim._run_packed_round(0, ids, counts))
         torch.cuda.synchronize()
         turn = {"run": label, "seconds": time.perf_counter() - t0, "loss": loss}
         if sim is defended and sim._tail_events is not None:
             turn["security_ms"] = sim._tail_events[0].elapsed_time(sim._tail_events[1])
             sim._tail_events = None
         turns.append(turn)
-    turns = turns[1:]
     fedavg_s = statistics.mean(t["seconds"] for t in turns if t["run"] == "FedAvg")
     krum_s = statistics.mean(t["seconds"] for t in turns if t["run"] == "krum")
     log(f"  one cohort ({int(counts.sum())} samples), in turns: " + ", ".join(
@@ -1662,10 +1680,16 @@ def _forced_selection(name, defense, mats, ws, res, card, cpu):
         raise AssertionError(f"11b {name}: the card picked a row scoring {worst_pick:.6e} on the "
                              f"CPU, over the CPU's {m}-th best {best:.6e} + {tol:.3e}")
     same = sorted(pick[card].tolist()) == sorted(pick[cpu].tolist())
-    selection = {"same": same, "score_err": err, "score_tol": tol,
+    same_order = pick[card].tolist() == pick[cpu].tolist()
+    selection = {"same": same, "same_order": same_order, "score_err": err, "score_tol": tol,
                  "score_err_over_k_sq_max": err / (k * sq_max),
                  "card": sorted(pick[card].tolist()), "cpu": sorted(pick[cpu].tolist())}
-    if same:
+    # bulyan's trim breaks exact ties in |x - median| (values on one ulp grid
+    # sit symmetric about the median) by the rows' order in the selection,
+    # which is the scores' order: two near-equal scores swapped by roundoff
+    # pick the same rows in another order, and another of two values at one
+    # distance.  So bulyan is held to the CPU on the card's ordered selection.
+    if same_order or (same and name != "bulyan"):
         return res[cpu], selection
     mat = mats[cpu]
     if name == "bulyan":
@@ -1677,15 +1701,16 @@ def _forced_selection(name, defense, mats, ws, res, card, cpu):
 
 
 def trust_hooks_phase(ft, fa):
-    """Phase 11c: slice 1's TransformerLM, 2 rounds with krum and local DP,
-    no eval: the security tail and the noise around rounds that launch K1-K3
+    """Phase 11c: slice 1's TransformerLM, TRUST_HOOKS_ROUNDS rounds with
+    krum and local DP, no eval: the security tail and the noise around rounds that launch K1-K3
     (fp32).  The counts are set to 0 before and read after."""
     import copy
 
     import torch
 
     config = copy.deepcopy(SLICE_CONFIG)
-    config["train_args"].update(comm_round=TRUST_ROUNDS, enable_defense=True, defense_type="krum",
+    config["train_args"].update(comm_round=TRUST_HOOKS_ROUNDS, enable_defense=True,
+                                defense_type="krum",
                                 byzantine_client_num=1, enable_dp=True, dp_type="ldp",
                                 mechanism_type="gaussian", epsilon=50.0, sensitivity=0.01)
     config["validation_args"]["frequency_of_the_test"] = 0
@@ -1722,6 +1747,8 @@ SP_BACKEND_DEFAULT_ROUNDS = 5
 SP_BACKEND_EXAMPLES = ("sp_fedavg_mnist_lr", "sp_fedavg_robust_mnist_lr", "sp_fedavg_cdp_mnist_lr",
                "sp_fedavg_ldp_mnist_lr")
 SP_BACKEND_ROUNDS = 2
+# 12b: BENCH_CONFIG on sp with its cohort cut to this many clients
+SP_BACKEND_COHORT = 16
 # card against CPU, final params of a deterministic sp run of lr: the two sum
 # each product in another order (TF32 off), through a few rounds of SGD
 SP_BACKEND_CPU_ATOL = 1e-4
@@ -1863,8 +1890,9 @@ def sp_backend_default_phase(ft, fa):
 
 def sp_backend_resnet_phase(ft, fa, dataset, classes, packed):
     """12b: BENCH_CONFIG on the sp backend (each client through the trainer's
-    padded engine, no packing), 2 rounds, on phase 8's dataset, round 0
-    under torch.profiler for the card's busy share: round seconds and
+    padded engine, no packing) with a cohort of SP_BACKEND_COHORT, 2 rounds,
+    on phase 8's dataset, round 0 under torch.profiler for the card's busy
+    share: round seconds and
     samples/s beside phase 8's packed round, each client's bucket and real
     steps, peak memory, no flash launch; then round 1's cohort in turns
     with the packed round on it."""
@@ -1874,7 +1902,8 @@ def sp_backend_resnet_phase(ft, fa, dataset, classes, packed):
     from torch.profiler import ProfilerActivity, profile
 
     config = copy.deepcopy(BENCH_CONFIG)
-    config["train_args"].update(comm_round=SP_BACKEND_ROUNDS, xla_pack=False)
+    config["train_args"].update(comm_round=SP_BACKEND_ROUNDS, xla_pack=False,
+                                client_num_per_round=SP_BACKEND_COHORT)
     config["validation_args"]["frequency_of_the_test"] = SP_BACKEND_ROUNDS
     config["comm_args"]["backend"] = "sp"
     args = ft.init(ft.Arguments.from_dict(copy.deepcopy(config)), should_init_logs=False)
@@ -1950,8 +1979,9 @@ def sp_backend_resnet_phase(ft, fa, dataset, classes, packed):
     # round 1's cohort in turns (packed, sp, packed): the packed round of
     # phase 8's simulator, built again on this dataset, and the sp round; the
     # host's speed drifts within a call, so the ratio is taken in turns
-    pargs = ft.init(ft.Arguments.from_dict(copy.deepcopy(BENCH_CONFIG)),
-                    should_init_logs=False)
+    pconfig = copy.deepcopy(BENCH_CONFIG)
+    pconfig["train_args"]["client_num_per_round"] = SP_BACKEND_COHORT
+    pargs = ft.init(ft.Arguments.from_dict(pconfig), should_init_logs=False)
     psim = ft.FedMLRunner(pargs, ft.device.get_device(pargs), dataset,
                           ft.models.hub.create(pargs, classes)).runner.sim
     pids, real = psim._schedule(psim._client_sampling(1))
@@ -2040,6 +2070,309 @@ def sp_backend_transformer_phase(ft, fa):
     return launches, {"round_seconds": list(api.round_times),
                       "samples_per_round": list(api.samples_per_round), "steps": steps,
                       "final": final, "launches": launches, "predicted": want}
+
+
+# phase 13: the rest of the sp zoo.  13a: the zoo's example configs (and
+# FedBuff and AsyncFedAvg on sp_fedavg_mnist_lr) card against CPU, then
+# FedBuff against FedAvgAPI in FedBuff's equivalence configuration; 13b:
+# each member on BENCH_CONFIG at a cohort of 8 for 2 rounds; 13c: SCAFFOLD
+# and FedSGD on slice 1's configuration under the flash kernels
+SP_ZOO_EXAMPLES = (
+    ("sp_fedopt_mnist_lr", None), ("sp_fedprox_mnist_lr", None), ("sp_fednova_mnist_lr", None),
+    ("sp_fedsgd_mnist_lr", None), ("sp_scaffold_mnist_lr", None), ("sp_feddyn_mnist_lr", None),
+    ("sp_hierarchical_fl_mnist_lr", None), ("sp_decentralized_mnist_lr", None),
+    ("sp_turbo_aggregate_mnist_lr", None),
+    ("sp_fedavg_mnist_lr", {"fl_mode": "async"}),
+    ("sp_fedavg_mnist_lr", {"federated_optimizer": "Async_FedAvg"}),
+)
+# 13b: BENCH_CONFIG on sp with a cohort of 8, 2 rounds (AsyncFedAvg: 16
+# updates; FedBuff: 4 flushes of 4), only the member's knobs changed
+SP_ZOO_COHORT = 8
+SP_ZOO = [
+    ("FedAvg", {}),
+    ("FedProx", {"federated_optimizer": "FedProx", "proximal_mu": 0.01}),
+    ("FedOpt", {"federated_optimizer": "FedOpt", "server_optimizer": "adam", "server_lr": 0.01}),
+    ("FedNova", {"federated_optimizer": "FedNova"}),
+    ("FedSGD", {"federated_optimizer": "FedSGD"}),
+    ("SCAFFOLD", {"federated_optimizer": "SCAFFOLD"}),
+    ("FedDyn", {"federated_optimizer": "FedDyn", "feddyn_alpha": 0.01}),
+    ("AsyncFedAvg", {"federated_optimizer": "Async_FedAvg", "comm_round": 16}),
+    ("FedBuff", {"fl_mode": "async", "async_buffer_size": 4, "async_max_staleness": 2,
+                 "async_staleness_policy": "polynomial", "comm_round": 4}),
+    ("HierarchicalFL", {"federated_optimizer": "HierarchicalFL", "group_num": 2,
+                        "group_comm_round": 2}),
+    # every node trains every round: 16 nodes, the data partitioned again at
+    # that count and cut to 8,000 images (about the 500 a client of the others)
+    ("decentralized", {"federated_optimizer": "decentralized_fl", "client_num_in_total": 16,
+                       "synthetic_train_size": 8000}),
+    ("TurboAggregate", {"federated_optimizer": "turbo_aggregate", "ta_group_num": 4}),
+]
+
+
+def sp_zoo_examples_phase(ft, fa):
+    """13a: the zoo's example configs, FedBuff and AsyncFedAvg on
+    sp_fedavg_mnist_lr, on the card and on the CPU (every run is
+    deterministic: Turbo-Aggregate's masks come from a CPU generator); then
+    FedBuff in its equivalence configuration against FedAvgAPI on the card."""
+    import copy
+
+    import torch
+    import yaml
+
+    out = {}
+    fa.reset_launches()
+    for name, knobs in SP_ZOO_EXAMPLES:
+        with open(os.path.join(ROOT, "examples", "simulation", name, "fedml_config.yaml")) as f:
+            config = yaml.safe_load(f)
+        config["tracking_args"]["log_file_dir"] = os.path.join(OUT_DIR, "log")
+        config["train_args"].update(knobs or {})
+        label = name + (f" {knobs}" if knobs else "")
+        t0 = time.perf_counter()
+        final, api = _sp_backend_run(ft, config)
+        seconds = time.perf_counter() - t0
+        cpu_cfg = copy.deepcopy(config)
+        cpu_cfg["device_args"] = {"device_type": "cpu"}
+        cpu_final, cpu_api = _sp_backend_run(ft, cpu_cfg)
+        diff = _max_param_diff(api.w_global, cpu_api.w_global)
+        out[label] = {"member": type(api).__name__, "final": final, "cpu_final": cpu_final,
+                      "seconds": seconds, "round_seconds": list(api.round_times),
+                      "max_param_diff": diff}
+        log(f"  {label}: {type(api).__name__} on {api.device}: {final} in {seconds:.2f} s; CPU "
+            f"{cpu_final}; max |param diff| {diff:.3e} (atol {SP_BACKEND_CPU_ATOL})")
+        if not _finite(api) or "test_acc" not in final:
+            raise AssertionError(f"{label}: {final} on {api.device}")
+        if diff > SP_BACKEND_CPU_ATOL:
+            raise AssertionError(f"{label}: card vs CPU params differ by {diff:.3e}")
+
+    # FedBuff's equivalence: full participation, a buffer of the cohort,
+    # staleness 0, the constant policy: the sync FedAvg loop, bit for bit
+    with open(os.path.join(ROOT, "examples", "simulation", "sp_fedavg_mnist_lr",
+                           "fedml_config.yaml")) as f:
+        sync = yaml.safe_load(f)
+    sync["tracking_args"]["log_file_dir"] = os.path.join(OUT_DIR, "log")
+    n = int(sync["train_args"]["client_num_in_total"])
+    sync["train_args"]["client_num_per_round"] = n
+    fedbuff = copy.deepcopy(sync)
+    fedbuff["train_args"].update(fl_mode="async", async_buffer_size=n, async_max_staleness=0,
+                                 async_staleness_policy="constant")
+    _, sapi = _sp_backend_run(ft, sync)
+    _, bapi = _sp_backend_run(ft, fedbuff)
+    diff = _max_param_diff(bapi.w_global, sapi.w_global)
+    bitwise = all(torch.equal(bapi.w_global[k], sapi.w_global[k]) for k in sapi.w_global)
+    log(f"  FedBuff ({type(bapi).__name__}, {n} of {n}, buffer {n}, staleness 0, constant) "
+        f"against FedAvgAPI on the card: max |param diff| {diff:.3e}, bitwise {bitwise}, "
+        f"flushes {[f['senders'] for f in bapi.flush_log]}")
+    if not bitwise:
+        if diff > 1e-6:
+            raise AssertionError(f"FedBuff's equivalence: params differ by {diff:.3e}")
+        log("  not bitwise: within 1e-6, the two fold the same updates in the same order, so "
+            "the difference is the card's reduction order inside an op")
+    out["fedbuff_equivalence"] = {"max_param_diff": diff, "bitwise": bitwise,
+                                  "flushes": [f["senders"] for f in bapi.flush_log]}
+    if any(fa.LAUNCHES.values()):
+        raise AssertionError(f"a flash kernel launched on the lr path: {fa.LAUNCHES}")
+    return out
+
+
+def _sp_zoo_invariant(name, api, steps) -> dict:
+    """The member's own invariant after its run (13b)."""
+    import torch
+
+    if name == "SCAFFOLD":
+        # c = (1/N) sum_i c_i, up to the fp32 sums that build each
+        n = float(api.args.client_num_in_total)
+        err = scale = 0.0
+        for k, c in api.c_server.items():
+            total = sum(ci[k].double() for ci in api.c_clients.values()) / n
+            err = max(err, (c.double() - total).abs().max().item())
+            scale = max(scale, max(ci[k].abs().max().item() for ci in api.c_clients.values()))
+        if not err <= ZOO_MEAN_RTOL * scale:
+            raise AssertionError(f"SCAFFOLD: max |c - mean c_i| {err:.3e} > "
+                                 f"{ZOO_MEAN_RTOL} * {scale:.3e}")
+        return {"clients_seen": len(api.c_clients), "max_abs_diff": err,
+                "table_max_abs": scale}
+    if name == "FedDyn":
+        # h = sum over every client seen of h_i / client_num_in_total, in the
+        # server's order: bit for bit
+        hs = list(api.h_clients.values())
+        n = float(api.args.client_num_in_total)
+        same = all(torch.equal(api.h_mean[k], sum(h[k] for h in hs) / n) for k in api.h_mean)
+        if not same:
+            raise AssertionError("FedDyn: h is not the sum of the h_i over the population")
+        return {"clients_seen": len(hs), "h_norm": _norm(api.h_mean)}
+    if name == "FedNova":
+        last = steps[-len(api._round_taus):]
+        if api._round_taus != [float(s) for s in last]:
+            raise AssertionError(f"FedNova: taus {api._round_taus}, trainer steps {last}")
+        return {"taus": list(api._round_taus)}
+    if name == "FedBuff":
+        flushes = api.flush_log
+        if (len(flushes) != int(api.args.comm_round)
+                or any(f["n_deltas"] != api.buffer.capacity for f in flushes)
+                or any(s > api.max_staleness for f in flushes for s in f["staleness"])):
+            raise AssertionError(f"FedBuff's flushes: {flushes}")
+        return {"flushes": [{k: f[k] for k in ("senders", "staleness", "dropped_stale",
+                                               "dropped_dup")}
+                            for f in flushes]}
+    if name == "HierarchicalFL":
+        sizes = [len(g) for g in api.groups]
+        want = [len(g) for g in np.array_split(np.arange(int(api.args.client_num_in_total)),
+                                               api.group_num)]
+        chosen = [[len(g) for g in r] for r in api.chosen]
+        per_group = SP_ZOO_COHORT // api.group_num
+        if sizes != want or any(c != [per_group] * api.group_num for c in chosen):
+            raise AssertionError(f"HierarchicalFL: group sizes {sizes}, chosen {chosen}")
+        return {"group_sizes": sizes, "chosen_per_group": chosen}
+    if name == "decentralized":
+        same = all(torch.equal(v, torch.stack([m[k] for m in api.node_models]).mean(dim=0))
+                   for k, v in api.w_global.items())
+        if not same:
+            raise AssertionError("decentralized: the consensus is not the mean of the nodes")
+        return {"nodes": len(api.node_models), "topology_degree": [
+            int((row > 0).sum()) for row in api.topo.topology]}
+    return {}
+
+
+def sp_zoo_resnet_phase(ft, fa, dataset, classes):
+    """13b: each member on BENCH_CONFIG (ResNet-56) on sp, a cohort of 8 for
+    2 rounds, on phase 8's dataset (decentralized: 16 nodes on its own):
+    round seconds, finite params, the member's invariant, peak memory over
+    FedAvg's run on the same cohort, no flash launch."""
+    import copy
+
+    import torch
+
+    base = copy.deepcopy(BENCH_CONFIG)
+    base["train_args"].update(xla_pack=False, client_num_per_round=SP_ZOO_COHORT, comm_round=2)
+    base["comm_args"]["backend"] = "sp"
+    out = {}
+    for name, knobs in SP_ZOO:
+        config = copy.deepcopy(base)
+        knobs = dict(knobs)
+        own_data = "synthetic_train_size" in knobs
+        if own_data:
+            config["data_args"]["synthetic_train_size"] = knobs.pop("synthetic_train_size")
+        config["train_args"].update(knobs)
+        # an eval at round 0 and after the last round
+        config["validation_args"]["frequency_of_the_test"] = int(config["train_args"]["comm_round"])
+        args = ft.init(ft.Arguments.from_dict(copy.deepcopy(config)), should_init_logs=False)
+        data, cls = ft.data.load(args) if own_data else (dataset, classes)
+        runner = ft.FedMLRunner(args, ft.device.get_device(args), data,
+                                ft.models.hub.create(args, cls))
+        api = runner.runner.fl_trainer
+        steps = []
+        train = api.trainer.train
+
+        def recorded(train_data, device, a, extra=None, _train=train):
+            result = _train(train_data, device, a, extra)
+            steps.append(int(result.steps))
+            return result
+
+        api.trainer.train = recorded
+        fa.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        allocated = torch.cuda.memory_allocated()
+        flags = _tf32_flags()
+        t0 = time.perf_counter()
+        final = runner.run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - allocated
+        if _tf32_flags() != flags:
+            raise AssertionError(f"{name} changed the TF32 flags: {flags} -> {_tf32_flags()}")
+        if any(fa.LAUNCHES.values()):
+            raise AssertionError(f"a flash kernel launched on the sp ResNet path: {fa.LAUNCHES}")
+        if type(api).__name__ == "FedAvgAPI" and name != "FedAvg":
+            raise AssertionError(f"{name} built FedAvgAPI")
+        if not _finite(api) or not math.isfinite(final["test_loss"]):
+            raise AssertionError(f"sp ResNet-56 {name}: {final}")
+        entry = {"member": type(api).__name__, "seconds": seconds,
+                 "round_seconds": list(api.round_times), "client_runs": len(steps),
+                 "steps": sum(steps), "final": final, "peak_over_start_bytes": peak,
+                 "invariant": _sp_zoo_invariant(name, api, steps)}
+        if name != "FedAvg":
+            entry["peak_over_fedavg_mib"] = (peak - out["FedAvg"]["peak_over_start_bytes"]) / 2**20
+        out[name] = entry
+        log(f"  {name} ({entry['member']}): {seconds:.2f} s, rounds "
+            f"{[round(t, 3) for t in api.round_times]} s, {len(steps)} client runs of "
+            f"{sum(steps)} steps; peak {peak / 2**30:.3f} GiB over the start"
+            + (f" ({entry['peak_over_fedavg_mib']:+.1f} MiB over FedAvg's)"
+               if name != "FedAvg" else "")
+            + f"; final {final}; invariant {json.dumps(entry['invariant'])[:400]}")
+        api.trainer.train = train
+        del runner, api
+    return out
+
+
+def sp_zoo_transformer_phase(ft, fa):
+    """13c: SCAFFOLD and FedSGD on slice 1's configuration (hub TransformerLM,
+    shakespeare, fp32) on sp, 2 rounds with an eval each, the counts set to
+    0 just before each run and read just after.  SCAFFOLD launches as 12c:
+    K2 = K3 = layers x steps, K1 that plus layers x eval batches x evals;
+    FedSGD's gradient is one forward and backward over each client's padded
+    data: K1 = layers x (client gradients + eval batches x evals), K2 = K3 =
+    layers x client gradients."""
+    import copy
+
+    import torch
+
+    total = {}
+    out = {}
+    for name in ("SCAFFOLD", "FedSGD"):
+        config = copy.deepcopy(SLICE_CONFIG)
+        config["train_args"].update(comm_round=SP_BACKEND_ROUNDS, federated_optimizer=name)
+        config["comm_args"]["backend"] = "sp"
+        args = ft.init(ft.Arguments.from_dict(copy.deepcopy(config)), should_init_logs=False)
+        dataset, classes = ft.data.load(args)
+        model = ft.models.hub.create(args, classes)
+        runner = ft.FedMLRunner(args, ft.device.get_device(args), dataset, model)
+        api = runner.runner.fl_trainer
+        runs = []  # SCAFFOLD: each client's steps; FedSGD: each gradient's bucket
+        if name == "SCAFFOLD":
+            train = api.trainer.train
+
+            def recorded(train_data, device, a, extra=None):
+                result = train(train_data, device, a, extra)
+                runs.append(int(result.steps))
+                return result
+
+            api.trainer.train = recorded
+        else:
+            grad = api._train_client
+
+            def recorded(client, w_global):
+                n = len(client.local_training_data[1])
+                runs.append(api.trainer.padded_size(n, int(api.args.batch_size)))
+                return grad(client, w_global)
+
+            api._train_client = recorded
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        final = runner.run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(fa.LAUNCHES)
+        layers = model.cfg.n_layers
+        evals = SP_BACKEND_ROUNDS * -(-dataset[1] // int(getattr(args, "eval_batch_size", 256)))
+        backward = layers * (sum(runs) if name == "SCAFFOLD" else len(runs))
+        want = dict.fromkeys(launches, 0)
+        want.update(flash_bwd_dq=backward, flash_bwd_dkv=backward,
+                    flash_fwd=backward + layers * evals)
+        log(f"  sp TransformerLM {name} ({type(api).__name__}): {seconds:.2f} s, rounds "
+            f"{[round(t, 4) for t in api.round_times]} s, "
+            + (f"{len(runs)} client runs of {sum(runs)} steps" if name == "SCAFFOLD"
+               else f"{len(runs)} client gradients, buckets {sorted(runs)}")
+            + f", {layers} layers; final eval {final}; launches {launches}, predicted {want}")
+        if launches != want:
+            raise AssertionError(f"sp TransformerLM {name} launches {launches}, predicted {want}")
+        if not _finite(api) or not math.isfinite(final["test_loss"]):
+            raise AssertionError(f"sp TransformerLM {name}: {final}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        out[name] = {"seconds": seconds, "round_seconds": list(api.round_times), "runs": runs,
+                     "final": final, "launches": launches, "predicted": want}
+    return total, out
 
 
 def ptxas_check(build, builds) -> dict:
@@ -2193,7 +2526,13 @@ def main() -> int:
 
     os.makedirs(OUT_DIR, exist_ok=True)
     t_start = time.perf_counter()
-    log("== phase 1: device and build")
+    starts = {}  # phase -> seconds from the start
+
+    def phase(title: str) -> None:
+        starts[title.split(":")[0]] = time.perf_counter() - t_start
+        log(f"== phase {title} (at {starts[title.split(':')[0]]:.1f} s)")
+
+    phase("1: device and build")
     card = card_line()
     log(f"  card: {card}")
     log(f"  python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda} "
@@ -2213,40 +2552,43 @@ def main() -> int:
             f.write(f"== {src}\n{b['log']}\n")
     ptxas = ptxas_check(build, builds)
 
-    log("== phase 2: kernels against their plain versions")
+    phase("2: kernels against their plain versions")
     rows = kernel_phase(fa)
     fold_rows = fold_phase(fa)
 
-    log("== phase 3: reference (card vs CPU: one FedAvg round; one sp SGD step; one packed "
+    phase("3: reference (card vs CPU: one FedAvg round; one sp SGD step; one packed "
         "ResNet-20 round; 2 packed rounds of SCAFFOLD and of FedNova)")
     ref_err = reference_phase(ft)
     sp_ref = sp_reference_phase()
     packed_ref = packed_reference_phase(ft)
     packed_zoo_ref = packed_zoo_reference_phase(ft)
 
-    log("== phase 4: slice 1 (FedAvg, hub transformer, shakespeare, 3 rounds)")
+    phase("4: slice 1 (FedAvg, hub transformer, shakespeare, 3 rounds)")
     launches, final, tp, round_times, losses = slice_phase(ft, fa)
 
-    log("== phase 5: profile of one client's local training")
+    phase("5: profile of one client's local training")
     prof = profile_phase(ft, fa)
 
-    log("== phase 6: slice 2 (sequence-parallel TransformerLM, bench width, sp 4)")
+    phase("6: slice 2 (sequence-parallel TransformerLM, bench width, sp 4)")
     sp_launches, sp_slice = sp_slice_phase(fa)
 
-    log("== phase 7: single card (bench.py's TransformerLM leg, bf16, B 8 x L 1024)")
+    phase("7: single card (bench.py's TransformerLM leg, bf16, B 8 x L 1024)")
     single_launches, single = single_card_phase(ft, fa)
 
-    log("== phase 8: slice 3 (bench.py's ResNet-56 packed FedAvg round, 4 rounds)")
+    phase(f"8: slice 3 (bench.py's ResNet-56 packed FedAvg round, "
+          f"{BENCH_CONFIG['train_args']['comm_round']} rounds)")
     resnet_slice, (cifar, classes) = resnet_slice_phase(ft, fa)
 
-    log("== phase 10a: the algorithm zoo at the north-star width (ResNet-56, 2 rounds each)")
+    phase(f"10a: the algorithm zoo at the north-star width (ResNet-56, a cohort of "
+          f"{ZOO_COHORT}, {ZOO_ROUNDS} rounds each)")
     zoo = zoo_phase(ft, fa, cifar, classes)
-    log("== phase 10b: the grad hooks under the flash kernels (SCAFFOLD, FedDyn on slice 1)")
+    phase("10b: the grad hooks under the flash kernels (SCAFFOLD, FedDyn on slice 1)")
     zoo_launches, zoo["slice1_hooks"] = zoo_hooks_phase(ft, fa)
 
-    log("== phase 11a: the trust path at the north-star width (ResNet-56, 2 rounds a run)")
+    phase(f"11a: the trust path at the north-star width (ResNet-56, {TRUST_ROUNDS} round a "
+          "run)")
     trust = trust_phase(ft, fa, cifar, classes)
-    log("== phase 11c: the trust path under the flash kernels (krum + LDP on slice 1)")
+    phase("11c: the trust path under the flash kernels (krum + LDP on slice 1)")
     trust_launches, trust["slice1"] = trust_hooks_phase(ft, fa)
     pin.close()
     if _tf32_flags() != flags_found:
@@ -2254,24 +2596,41 @@ def main() -> int:
 
     t12 = time.perf_counter()
     sp_backend = {"tf32_flags": flags_found}
-    log("== phase 12a: the sp backend: the default config through run_simulation(), then the "
+    phase("12a: the sp backend: the default config through run_simulation(), then the "
         "sp FedAvg example configs (card vs CPU)")
     sp_backend["configs"] = sp_backend_default_phase(ft, fa)
-    log("== phase 12b: the sp backend at the north-star width (ResNet-56, 2 rounds)")
+    phase(f"12b: the sp backend at the north-star width (ResNet-56, a cohort of "
+          f"{SP_BACKEND_COHORT}, {SP_BACKEND_ROUNDS} rounds)")
     sp_backend["resnet"] = sp_backend_resnet_phase(ft, fa, cifar, classes,
                                                    resnet_slice["throughput"])
-    del cifar
-    log("== phase 12c: the sp backend under the flash kernels (slice 1's TransformerLM, "
+    phase("12c: the sp backend under the flash kernels (slice 1's TransformerLM, "
         "2 rounds)")
     sp_backend_launches, sp_backend["transformer"] = sp_backend_transformer_phase(ft, fa)
     sp_backend["seconds"] = time.perf_counter() - t12
     log(f"  phase 12 in {sp_backend['seconds']:.1f} s")
 
-    log("== phase 9: results")
+    t13 = time.perf_counter()
+    sp_zoo = {"tf32_flags": flags_found}
+    phase("13a: the sp zoo's example configs, FedBuff and AsyncFedAvg (card vs CPU); "
+        "FedBuff against FedAvgAPI in its equivalence configuration")
+    sp_zoo["configs"] = sp_zoo_examples_phase(ft, fa)
+    phase(f"13b: the sp zoo at the north-star width (ResNet-56, a cohort of "
+        f"{SP_ZOO_COHORT}, 2 rounds)")
+    sp_zoo["resnet"] = sp_zoo_resnet_phase(ft, fa, cifar, classes)
+    del cifar
+    phase("13c: SCAFFOLD and FedSGD on sp under the flash kernels (slice 1's "
+        "TransformerLM, 2 rounds each)")
+    sp_zoo_launches, sp_zoo["transformer"] = sp_zoo_transformer_phase(ft, fa)
+    if _tf32_flags() != flags_found:
+        raise AssertionError(f"tf32 flags {_tf32_flags()} after phase 13, found {flags_found}")
+    sp_zoo["seconds"] = time.perf_counter() - t13
+    log(f"  phase 13 in {sp_zoo['seconds']:.1f} s")
+
+    phase("9: results")
 
     kernels = kernels_line(rows + fold_rows,
                            (launches, sp_launches, single_launches, zoo_launches, trust_launches,
-                            sp_backend_launches))
+                            sp_backend_launches, sp_zoo_launches))
     bench = bench_bf16_summary(rows)
     with open(os.path.join(OUT_DIR, "results.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -2286,8 +2645,10 @@ def main() -> int:
                    "resnet_slice": resnet_slice, "zoo": zoo,
                    "zoo_launches": zoo_launches, "trust": trust,
                    "trust_launches": trust_launches, "sp_backend": sp_backend,
-                   "sp_backend_launches": sp_backend_launches,
-                   "seconds": time.perf_counter() - t_start}, f, indent=1)
+                   "sp_backend_launches": sp_backend_launches, "sp_zoo": sp_zoo,
+                   "sp_zoo_launches": sp_zoo_launches,
+                   "phase_starts": starts, "seconds": time.perf_counter() - t_start}, f,
+                  indent=1)
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"bench_bf16": bench}))
     print(json.dumps({"kernels": kernels}))

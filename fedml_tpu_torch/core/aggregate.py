@@ -4,14 +4,15 @@
 Client updates are ``(sample_num, {name: tensor})`` pairs, aggregated on the
 host side of the round (the ``sp`` simulator; the cross-silo server later):
 ``weighted_mean`` (FedAvg) or ``unweighted_sum`` (the ``_seq`` modes), in
-fp32.  The stacked form lives in the round simulator
+fp32; ``tree_stack`` / ``tree_unstack`` put a list of trees on a leading axis
+and back.  The stacked form lives in the round simulator
 (``simulation/xla/fed_sim.py``); the compiled plane (``agg_plane:
 compiled``) is not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -42,6 +43,25 @@ def tree_sub(a: Tree, b: Tree) -> Tree:
 
 def tree_zeros_like(tree: Tree) -> Tree:
     return {k: torch.zeros_like(v) for k, v in tree.items()}
+
+
+def tree_stack(trees: Sequence[Tree]) -> Tree:
+    """Stack identically-shaped trees on a new leading axis (the gossip of
+    ``simulation/sp/decentralized``); a missing leaf or a shape mismatch
+    raises, naming the tree and the leaf."""
+    names = list(trees[0])
+    for i, t in enumerate(trees):
+        if list(t) != names:
+            raise ValueError(f"tree {i} has leaves {sorted(t)}, tree 0 has {sorted(names)}")
+        for k in names:
+            if t[k].shape != trees[0][k].shape:
+                raise ValueError(f"tree {i} leaf {k!r}: shape {tuple(t[k].shape)}, "
+                                 f"tree 0 has {tuple(trees[0][k].shape)}")
+    return {k: torch.stack([t[k] for t in trees]) for k in names}
+
+
+def tree_unstack(tree: Tree, n: int) -> List[Tree]:
+    return [{k: v[i] for k, v in tree.items()} for i in range(n)]
 
 
 def weighted_mean(updates: Updates) -> Tree:

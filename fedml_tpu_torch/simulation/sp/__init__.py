@@ -1,38 +1,90 @@
 """Single-process algorithm registry of the port (counterpart of
-``fedml_tpu/simulation/sp/__init__.py``).  FedAvg is ported; every other
-optimizer raises ``NotImplementedError`` naming the ROADMAP.md item that
-ports it."""
+``fedml_tpu/simulation/sp/__init__.py``).
+
+FedAvg and its zoo are ported, each a subclass of ``FedAvgAPI`` at its JAX
+twin's path; ``fl_mode: async`` with FedAvg runs FedBuff.  The members that
+come with their models raise ``NotImplementedError`` naming the ROADMAP.md
+item that ports them.
+
+The JAX members do not all pass through the trust hooks that ``FedAvgAPI``
+runs: some replace the client's training (no local DP after-hook), some
+aggregate with ``weighted_mean`` instead of the aggregator (no
+on-aggregation defense), some run their own loop (no ``_poisoned_copy``,
+no before-stage hooks), and decentralized FL runs no server hook at all.
+Read from the JAX code, the member x hook table is (yes: runs; no: the JAX
+twin skips it silently, and the port refuses it when the object is built,
+naming the member and the hook; ``SKIPPED_HOOKS`` of each class):
+
+================  =====  ======  ======  ======  ======  =====  =====
+member            model  data    before  on      after   local  cen-
+                  attack poison  defense defense defense DP     tral DP
+================  =====  ======  ======  ======  ======  =====  =====
+FedAvg, FedProx   yes    yes     yes     yes     yes     yes    yes
+FedOpt            yes    yes     yes     no      yes     yes    yes
+FedNova           yes(1) yes     yes(1)  no      yes     yes    yes
+FedSGD            yes    yes     yes     no      yes     no     yes
+SCAFFOLD          yes    yes     yes     yes     yes     no     yes
+FedDyn            yes    yes     yes     no      yes     no     yes
+AsyncFedAvg       no     no      no      no      yes     yes    yes
+FedBuff (async)   yes(2) no      yes     yes     yes     yes    yes
+HierarchicalFL    no     no      no      no      yes(3)  yes    yes(3)
+decentralized     no     no      no      no      no      yes    no
+Turbo-Aggregate   no     yes     no      no      yes     yes    yes
+================  =====  ======  ======  ======  ======  =====  =====
+
+(1) FedNova pairs each tau with its update by object identity before the
+before-stage hooks: an update they keep as it is (krum, multi-krum) keeps
+its tau, one they rebuild (norm clipping, a model attack) takes tau 1.0,
+as in the JAX package.  (2) FedBuff never tells the attacker the flush's
+clients, so a model attack picks its malicious updates by position in the
+flush, as the JAX twin does.  (3) HierarchicalFL runs the
+after-aggregation hooks at each global average only (every
+``group_comm_round`` rounds).  Turbo-Aggregate's data poisoning runs
+through ``FedAvgAPI``'s round loop, which it keeps.
+"""
 
 from __future__ import annotations
 
-_ZOO_ITEM = "ROADMAP.md queue A, item 2: the rest of the sp zoo"
+import importlib
+
 _MODEL_ITEM = "ROADMAP.md queue A, item 4: model zoo and trainers"
-# lower-cased optimizer -> the item that ports its sp API
-_UNPORTED = {
-    **dict.fromkeys(("fedopt", "fedprox", "fednova", "fedsgd", "scaffold", "feddyn",
-                     "hierarchicalfl", "decentralized_fl", "turbo_aggregate",
-                     "async_fedavg"), _ZOO_ITEM),
-    # these come with their models
-    **dict.fromkeys(("spreadgnn", "classical_vertical", "split_nn", "fedgan", "fedgkt",
-                     "fednas", "fedseg"), _MODEL_ITEM),
+# lower-cased optimizer -> (module under simulation/sp, class); JAX's _dispatch
+_MEMBERS = {
+    "fedavg": ("fedavg.fedavg_api", "FedAvgAPI"),
+    "fedopt": ("fedopt.fedopt_api", "FedOptAPI"),
+    "fedprox": ("fedprox.fedprox_api", "FedProxAPI"),
+    "fednova": ("fednova.fednova_api", "FedNovaAPI"),
+    "fedsgd": ("fedsgd.fedsgd_api", "FedSGDAPI"),
+    "scaffold": ("scaffold.scaffold_api", "ScaffoldAPI"),
+    "feddyn": ("feddyn.feddyn_api", "FedDynAPI"),
+    "hierarchicalfl": ("hierarchical_fl.hier_api", "HierarchicalFLAPI"),
+    "decentralized_fl": ("decentralized.decentralized_api", "DecentralizedFLAPI"),
+    "turbo_aggregate": ("turboaggregate.ta_api", "TurboAggregateAPI"),
+    "async_fedavg": ("async_fedavg.async_fedavg_api", "AsyncFedAvgAPI"),
 }
+_FEDBUFF = ("async_fedavg.fedbuff_api", "FedBuffAPI")
+# these come with their models
+_UNPORTED = dict.fromkeys(("spreadgnn", "classical_vertical", "split_nn", "fedgan", "fedgkt",
+                           "fednas", "fedseg"), _MODEL_ITEM)
 
 
 def create_sp_algorithm(optimizer: str, args, device, dataset, model):
     opt = optimizer.lower()
     if str(getattr(args, "fl_mode", "sync") or "sync").lower() == "async":
+        # buffered-async execution replaces the round loop; only the FedAvg
+        # rule has an async counterpart
         if opt != "fedavg":
             raise ValueError(
                 f"fl_mode=async supports federated_optimizer 'fedavg' only "
                 f"in the sp simulator (got {optimizer!r})")
-        raise NotImplementedError(
-            f"fl_mode=async (FedBuffAPI) is not ported to the sp simulator yet ({_ZOO_ITEM})")
-    if opt == "fedavg":
-        from .fedavg.fedavg_api import FedAvgAPI
-
-        return FedAvgAPI(args, device, dataset, model)
-    if opt in _UNPORTED:
+        member = _FEDBUFF
+    elif opt in _MEMBERS:
+        member = _MEMBERS[opt]
+    elif opt in _UNPORTED:
         raise NotImplementedError(
             f"federated_optimizer {optimizer!r} is not ported to the sp simulator yet "
             f"({_UNPORTED[opt]})")
-    raise ValueError(f"unknown federated_optimizer {optimizer!r}")
+    else:
+        raise ValueError(f"unknown federated_optimizer {optimizer!r}")
+    module = importlib.import_module(f"{__name__}.{member[0]}")
+    return getattr(module, member[1])(args, device, dataset, model)

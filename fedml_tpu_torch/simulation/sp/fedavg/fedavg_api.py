@@ -17,6 +17,14 @@ evaluated at ``round_idx % frequency_of_the_test == 0`` and after the last
 round.  On the card the rounds run with fp32 products in full fp32 (TF32
 off), the flags set back when ``train`` returns.
 
+The zoo members (``simulation/sp/*``) subclass ``FedAvgAPI``: the override
+points are ``_train_client`` (one client's training in its slot),
+``_local_updates``, ``server_update``, ``_client_sampling`` and ``_train``
+(the whole loop, inside the fp32 pin).  A member whose JAX twin skips one of
+the trust hooks names it in ``SKIPPED_HOOKS`` and is refused at construction
+when that hook is on (``active_hooks``; the table is in
+``simulation/sp/__init__.py``).
+
 Not ported: checkpointing, the obs spans and telemetry, and the population's
 round accounting (ROADMAP.md queue A, items 9b, 9d and 9c); their knobs
 raise.  ``frequency_of_the_test: 0``, which the JAX round divides by, is
@@ -32,9 +40,11 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 import torch
 
+from ....core.dp.fedml_differential_privacy import FedMLDifferentialPrivacy
 from ....core.population import PopulationManager
 from ....core.security.constants import ATTACK_METHOD_EDGE_CASE_BACKDOOR
 from ....core.security.fedml_attacker import ANALYSIS_REFUSAL, FedMLAttacker
+from ....core.security.fedml_defender import _BEFORE_DEFENSES, _ON_DEFENSES, FedMLDefender
 from ....device import fp32_matmul
 from ....ml.aggregator.aggregator_creator import create_server_aggregator
 from ....ml.engine.train import init_variables, load_variables
@@ -44,6 +54,32 @@ from ....utils.metrics import MetricsLogger
 from ...xla.fed_sim import XLA_ROUND_KNOBS, refuse_unported_knobs
 
 logger = logging.getLogger(__name__)
+
+# the trust hooks of an sp round, by the names the zoo's refusals give them
+MODEL_ATTACK, DATA_POISONING = "model attack", "data poisoning"
+BEFORE_DEFENSE, ON_DEFENSE, AFTER_DEFENSE = (
+    "before-aggregation defense", "on-aggregation defense", "after-aggregation defense")
+LOCAL_DP, CENTRAL_DP = "local DP", "central DP"
+
+
+def active_hooks() -> set:
+    """The trust hooks the attacker, defender and DP singletons switch on."""
+    attacker = FedMLAttacker.get_instance()
+    defender = FedMLDefender.get_instance()
+    dp = FedMLDifferentialPrivacy.get_instance()
+    on = set()
+    if attacker.is_model_attack():
+        on.add(MODEL_ATTACK)
+    if attacker.is_data_poisoning_attack():
+        on.add(DATA_POISONING)
+    if defender.is_defense_enabled():
+        on.add(BEFORE_DEFENSE if defender.defense_type in _BEFORE_DEFENSES
+               else ON_DEFENSE if defender.defense_type in _ON_DEFENSES else AFTER_DEFENSE)
+    if dp.is_local_dp_enabled():
+        on.add(LOCAL_DP)
+    if dp.is_global_dp_enabled():
+        on.add(CENTRAL_DP)
+    return on
 
 
 class Client:
@@ -79,6 +115,9 @@ class Client:
 
 
 class FedAvgAPI:
+    # the trust hooks this member's JAX twin silently skips: refused when on
+    SKIPPED_HOOKS: tuple = ()
+
     def __init__(self, args, device, dataset, model):
         self.args = args
         self.device = torch.device(device)
@@ -105,6 +144,12 @@ class FedAvgAPI:
                 and not attacker.is_data_poisoning_attack()):
             raise NotImplementedError(
                 f"attack_type {attacker.attack_type!r} has no sp-simulator hook")
+        on = active_hooks()
+        skipped = [h for h in self.SKIPPED_HOOKS if h in on]
+        if skipped:
+            raise NotImplementedError(
+                f"{type(self).__name__} does not run the {' or the '.join(skipped)} hook "
+                "(its JAX twin skips it silently; the table is in simulation/sp/__init__.py)")
         self.module = model
         self.w_global = init_variables(model, self.device,
                                        seed=int(getattr(args, "random_seed", 0)))
@@ -186,9 +231,14 @@ class FedAvgAPI:
                 self.test_data_local_dict[idx],
                 self.train_data_local_num_dict[idx],
             )
-            w = client.train(self.w_global)
+            w = self._train_client(client, self.w_global)
             w_locals.append((float(client.local_sample_number), w))
         return w_locals
+
+    def _train_client(self, client: Client, w_global) -> Any:
+        """One client's training from ``w_global`` in its slot: what it
+        uploads (FedAvg: its variables)."""
+        return client.train(w_global)
 
     def _poisoned_copy(self, client_idx: int, local_data, attacker) -> Any:
         """A malicious client's data for its round, transformed by the data

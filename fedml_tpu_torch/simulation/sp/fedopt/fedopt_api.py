@@ -1,5 +1,5 @@
-"""FedOpt's server optimizers (counterpart of ``make_server_optimizer`` in
-``fedml_tpu/simulation/sp/fedopt/fedopt_api.py``).
+"""FedOpt's server optimizers and the ``sp`` simulator's ``FedOptAPI``
+(counterpart of ``fedml_tpu/simulation/sp/fedopt/fedopt_api.py``).
 
 The server treats the weighted-average client delta as a pseudo-gradient and
 applies a server optimizer (``server_optimizer`` in sgd/adam/yogi/adagrad,
@@ -28,6 +28,12 @@ step count and ``{name: tensor}`` moments.  The formulas are those of optax
   takes ``g^2``; update ``-lr * g * rsqrt(s + 1e-7)`` where ``s > 0``, else 0
   (``scale_by_rss`` masks a zero accumulator).
 
+``FedOptAPI`` takes the pseudo-gradient ``w_global - weighted_mean`` of
+the (before-stage filtered) updates, applies the server step to the params
+and hands the result to the after-aggregation hooks; it aggregates with
+``weighted_mean``, not the aggregator, so an on-aggregation defense is
+refused (as its JAX twin skips it).
+
 Torch has no Yogi, and its Adagrad starts the accumulator at 0 and adds eps
 outside the root, so ``torch.optim`` is not used.  Each update is a few
 ``torch._foreach_*`` calls over the parameter list.
@@ -39,6 +45,10 @@ from typing import Any, Callable, Dict, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
+
+from ....core.aggregate import weighted_mean
+from ...xla.algorithms import params_of
+from ..fedavg.fedavg_api import ON_DEFENSE, FedAvgAPI
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -134,3 +144,22 @@ def make_server_optimizer(args) -> ServerOptimizer:
     if name == "adagrad":
         return _adagrad(lr)
     raise ValueError(f"unknown server_optimizer {name!r}")
+
+
+class FedOptAPI(FedAvgAPI):
+    SKIPPED_HOOKS = (ON_DEFENSE,)
+
+    def __init__(self, args, device, dataset, model):
+        super().__init__(args, device, dataset, model)
+        self._server_tx = make_server_optimizer(args)
+        self._server_opt_state = self._server_tx.init(params_of(self.w_global))
+
+    def server_update(self, w_locals: List[Tuple[float, Any]]) -> Any:
+        w_locals = self.aggregator.on_before_aggregation(w_locals)
+        avg = weighted_mean(w_locals)
+        params = params_of(self.w_global)
+        pseudo_grad = {k: p - avg[k] for k, p in params.items()}
+        updates, self._server_opt_state = self._server_tx.update(
+            pseudo_grad, self._server_opt_state, params)
+        new_params = {k: (p + updates[k]).to(p.dtype) for k, p in params.items()}
+        return self.aggregator.on_after_aggregation(dict(avg, **new_params))

@@ -34,7 +34,6 @@ import torch
 
 from ...core.async_fl.staleness import _check_policy, staleness_weights
 from ...ml.engine.train import GradHook, LocalTrainResult
-from ..sp.fedopt.fedopt_api import make_server_optimizer
 
 Variables = Dict[str, torch.Tensor]
 
@@ -259,6 +258,10 @@ class FedOptInMesh(InMeshAlgorithm):
 
     def __init__(self, args):
         super().__init__(args)
+        # imported here, as the JAX package does: fedopt_api holds the sp
+        # FedOptAPI, whose FedAvgAPI imports the round simulator
+        from ..sp.fedopt.fedopt_api import make_server_optimizer
+
         self._tx = make_server_optimizer(args)
 
     def init_server_state(self, variables):

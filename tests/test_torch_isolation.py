@@ -30,7 +30,9 @@ SLICE_MODULES = [
     "fedml_tpu_torch.data.loaders",
     "fedml_tpu_torch.data.synthetic",
     "fedml_tpu_torch.core.async_fl",
+    "fedml_tpu_torch.core.async_fl.buffer",
     "fedml_tpu_torch.core.data.noniid_partition",
+    "fedml_tpu_torch.core.distributed.topology.topology_manager",
     "fedml_tpu_torch.core.dp.budget_accountant",
     "fedml_tpu_torch.core.dp.fedml_differential_privacy",
     "fedml_tpu_torch.core.dp.mechanisms",
@@ -70,6 +72,16 @@ SLICE_MODULES = [
     "fedml_tpu_torch.simulation.sp",
     "fedml_tpu_torch.simulation.sp.fedavg.fedavg_api",
     "fedml_tpu_torch.simulation.sp.fedopt.fedopt_api",
+    "fedml_tpu_torch.simulation.sp.fedprox.fedprox_api",
+    "fedml_tpu_torch.simulation.sp.fednova.fednova_api",
+    "fedml_tpu_torch.simulation.sp.fedsgd.fedsgd_api",
+    "fedml_tpu_torch.simulation.sp.scaffold.scaffold_api",
+    "fedml_tpu_torch.simulation.sp.feddyn.feddyn_api",
+    "fedml_tpu_torch.simulation.sp.async_fedavg.async_fedavg_api",
+    "fedml_tpu_torch.simulation.sp.async_fedavg.fedbuff_api",
+    "fedml_tpu_torch.simulation.sp.hierarchical_fl.hier_api",
+    "fedml_tpu_torch.simulation.sp.decentralized.decentralized_api",
+    "fedml_tpu_torch.simulation.sp.turboaggregate.ta_api",
     "fedml_tpu_torch.simulation.xla.algorithms",
     "fedml_tpu_torch.simulation.xla.fed_sim",
     "fedml_tpu_torch.utils.metrics",

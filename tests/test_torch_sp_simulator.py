@@ -23,9 +23,9 @@ coordinate and central DP by sigma; the standard deviation over the 7,850
 coordinates must lie within 5 % of it (its sampling error is about 0.8 %).
 The privacy budget spent must equal the JAX accountant's.
 
-Then the four ``examples/simulation/sp_fedavg_*_mnist_lr`` configs on the
-port, every refusal of the slice with its ROADMAP.md item, and the faults
-this slice repairs: the default configs and ``run_simulation``'s default
+Then the four ``examples/simulation/sp_fedavg_*_mnist_lr`` configs and the
+nine of the ``sp`` zoo on the port, each building its class, every refusal
+of the slice with its ROADMAP.md item, and the faults this slice repairs: the default configs and ``run_simulation``'s default
 backend (the scoped TF32 pin: ``test_torch_fp32_pin.py``).
 """
 
@@ -100,8 +100,20 @@ RANDOM = {
                               "attack_mode": "random", "byzantine_client_num": 2,
                               "enable_defense": True, "defense_type": "krum"},
 }
-EXAMPLES = ["sp_fedavg_mnist_lr", "sp_fedavg_robust_mnist_lr", "sp_fedavg_cdp_mnist_lr",
-            "sp_fedavg_ldp_mnist_lr"]
+# the examples/simulation/sp_* configs that run on the port, and the class each builds
+EXAMPLES = {"sp_fedavg_mnist_lr": "FedAvgAPI", "sp_fedavg_robust_mnist_lr": "FedAvgAPI",
+            "sp_fedavg_cdp_mnist_lr": "FedAvgAPI", "sp_fedavg_ldp_mnist_lr": "FedAvgAPI",
+            "sp_fedopt_mnist_lr": "FedOptAPI", "sp_fedprox_mnist_lr": "FedProxAPI",
+            "sp_fednova_mnist_lr": "FedNovaAPI", "sp_fedsgd_mnist_lr": "FedSGDAPI",
+            "sp_scaffold_mnist_lr": "ScaffoldAPI", "sp_feddyn_mnist_lr": "FedDynAPI",
+            "sp_hierarchical_fl_mnist_lr": "HierarchicalFLAPI",
+            "sp_decentralized_mnist_lr": "DecentralizedFLAPI",
+            "sp_turbo_aggregate_mnist_lr": "TurboAggregateAPI"}
+# the sp zoo, ported in slice 12: each optimizer the class create_sp_algorithm builds
+ZOO_CLASSES = {"FedOpt": "FedOptAPI", "FedProx": "FedProxAPI", "FedNova": "FedNovaAPI",
+               "SCAFFOLD": "ScaffoldAPI", "FedDyn": "FedDynAPI", "FedSGD": "FedSGDAPI",
+               "Async_FedAvg": "AsyncFedAvgAPI", "HierarchicalFL": "HierarchicalFLAPI",
+               "decentralized_fl": "DecentralizedFLAPI", "turbo_aggregate": "TurboAggregateAPI"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -401,7 +413,7 @@ def test_dp_budget_spent_equals_jax(dp_type):
 # -- (d) the example configs -------------------------------------------------
 
 
-@pytest.mark.parametrize("name", EXAMPLES)
+@pytest.mark.parametrize("name", sorted(EXAMPLES))
 def test_example_config_runs_on_the_port(name, tmp_path):
     with open(os.path.join(REPO, "examples", "simulation", name, "fedml_config.yaml")) as f:
         config = yaml.safe_load(f)
@@ -409,7 +421,7 @@ def test_example_config_runs_on_the_port(name, tmp_path):
     config["tracking_args"]["log_file_dir"] = str(tmp_path)
     config["data_args"]["data_cache_dir"] = str(tmp_path / "fedml_data")  # absent: synthetic
     _, final, api = _port_run(config)
-    assert type(api).__name__ == "FedAvgAPI"
+    assert type(api).__name__ == EXAMPLES[name]
     assert 0.0 <= final["test_acc"] <= 1.0 and np.isfinite(final["test_loss"])
     assert final["round"] == int(config["train_args"]["comm_round"]) - 1
 
@@ -425,9 +437,18 @@ def test_example_config_runs_on_the_port(name, tmp_path):
     ("split_nn", "item 4"), ("classical_vertical", "item 4"), ("SpreadGNN", "item 4"),
 ])
 def test_other_sp_optimizers_raise_with_their_item(optimizer, item):
+    """The members of item 2 are ported now: each builds its class.  Those of
+    item 4 still raise, naming it."""
     from fedml_tpu_torch.simulation.sp import create_sp_algorithm
 
     args = fedml_tpu_torch.Arguments.from_dict(_config(LR_CONFIG, federated_optimizer=optimizer))
+    if item == "item 2":
+        args = fedml_tpu_torch.init(args, should_init_logs=False)
+        dataset, classes = fedml_tpu_torch.data.load(args)
+        api = create_sp_algorithm(optimizer, args, torch.device("cpu"), dataset,
+                                  fedml_tpu_torch.models.hub.create(args, classes))
+        assert type(api).__name__ == ZOO_CLASSES[optimizer]
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue A, {item}:"):
         create_sp_algorithm(optimizer, args, torch.device("cpu"), None, None)
 
@@ -443,7 +464,13 @@ def test_other_sp_optimizers_raise_with_their_item(optimizer, item):
     ({"frequency_of_the_test": 0}, ValueError, "frequency_of_the_test"),
 ])
 def test_sp_refusals_name_their_item(knobs, error, match):
+    """``fl_mode: async`` (item 2) is ported now: it runs FedBuff.  Every
+    other knob still raises, naming its item."""
     config = _config(LR_CONFIG, **knobs)
+    if knobs == {"fl_mode": "async"}:
+        _, final, api = _port_run(config)
+        assert type(api).__name__ == "FedBuffAPI" and final["round"] == ROUNDS - 1
+        return
     if "frequency_of_the_test" in knobs:
         config["validation_args"]["frequency_of_the_test"] = 0
     with pytest.raises(error, match=match):

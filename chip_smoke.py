@@ -69,7 +69,7 @@
    whether it copies to contiguous; the boundary flush is timed on its own
    with CUDA events.
 9. The kernels line, the card line, and the last line
-   {"ok": true, "device": {...}}, printed after phase 13.
+   {"ok": true, "device": {...}}, printed after phase 14.
 10. The algorithm zoo.  (a) At the north-star width: BENCH_CONFIG with the
    algorithm's knobs changed and its cohort cut to ZOO_COHORT (8) clients
    (ZOO: FedProx, FedOpt/adam, FedNova, SCAFFOLD, FedDyn, AsyncFedAvg,
@@ -142,6 +142,22 @@
    as 12c; FedSGD's gradients are one forward and backward over each
    client's padded data, so K2 = K3 = layers x client gradients and K1 that
    plus layers x eval batches x evals.
+14. The FedNLP task family, with the TF32 flags as the script found them.
+   (a) examples/simulation/sp_fedavg_s2s_transformer as it stands (FedAvg of
+   the hub transformer_s2s, d_model 128, 4 heads x 32, 2 layers, on
+   synthetic_s2s, L 24; 4 clients, 2 rounds, adam) through the entry points,
+   then synthetic_s2s, agnews transformer_cls, onto_tagging
+   transformer_tagger, squad_span transformer_span and stackoverflow_lr lr
+   with the example's knobs but SGD, each again on the CPU: final metrics,
+   seconds, final params within 2 lr (adam, the example) or NLP_CPU_ATOL
+   (SGD); each seq2seq run's counts, set to 0 just before it and read just
+   after, must be K2 = K3 = layers x the trainer's steps and K1 that plus
+   layers x its evals (one forward over the test split each); the encoders
+   and lr launch none.  (b) The example on the padded and the
+   packed round, 3 rounds with an eval each: round seconds, samples/s, peak
+   memory, launches against the steps, and one round under torch.profiler
+   for the busy share.  (c) Phase 2's s2s rows (B 16 and the eval's B 102,
+   L 24, H 4, D 32, fp32, causal) printed beside 14a's launches.
 
 Any failure raises and the script exits non-zero with no result line.  It
 exits 2 when no CUDA device is visible.  Full details go to
@@ -236,6 +252,11 @@ CASES = [
     ("ragged_full", 4, 50, 8, 32, "float32", False, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
     ("bench_bf16", 8, 1024, 16, 64, "bfloat16", True, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
     ("bench_fp32", 8, 1024, 16, 64, "float32", True, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
+    # phase 14's seq2seq TransformerLM (d_model 128, 4 heads x 32): a training
+    # batch of 16 and the eval forward over the example's 102 test sequences,
+    # L 24 (src 12 + tgt 12), under one 64-row q tile and one key tile
+    ("s2s_train", 16, 24, 4, 32, "float32", True, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
+    ("s2s_eval", 102, 24, 4, 32, "float32", True, ("flash_fwd",)),
 ]
 # K4 at the sp slice's fold: (name, B, Lq, Lk, H, D, dtype, causal, q shard,
 # k shard, padded key tail, key positions permuted).  With shards of Lq keys,
@@ -2375,6 +2396,215 @@ def sp_zoo_transformer_phase(ft, fa):
     return total, out
 
 
+# phase 14: the FedNLP task family.  14a: the seq2seq example config as it
+# stands (transformer_s2s, under K1-K3), then one short sp FedAvg of each
+# dataset of the family at its hub width with the example's knobs but SGD,
+# each again on the CPU; 14b: the example on the padded and the packed round
+NLP_EXAMPLE = "sp_fedavg_s2s_transformer"
+NLP_RUNS = (("synthetic_s2s", "transformer_s2s"), ("agnews", "transformer_cls"),
+            ("onto_tagging", "transformer_tagger"), ("squad_span", "transformer_span"),
+            ("stackoverflow_lr", "lr"))
+NLP_SGD = {"client_optimizer": "sgd", "learning_rate": 0.1}
+# 14b: the example's rounds raised from 2 to 3, so the median round after the
+# first has two to take
+NLP_XLA_ROUNDS = 3
+# card against CPU, final params of an SGD run: TF32 off inside both (the
+# kernels' products split TF32, about 21 bits an operand), sums in another
+# order, through 2 rounds of 8 steps a client
+NLP_CPU_ATOL = 1e-4
+# the example's adam: its first steps move every coordinate by about lr in
+# the sign of its gradient, so a coordinate whose gradient is at the
+# roundoff level can step the other way on the card, and two runs that
+# differ only in roundoff part by up to 2 lr a step, averaged over the
+# clients.  On the CPU alone, the example's run with the reference attention
+# in place of the kernels' plain versions (both fp32) ends 8.8e-3 from the
+# default run (2.4e-7 with SGD at lr 0.1), and an "NVIDIA H100 80GB HBM3,
+# 700.00 W" ended 5.4e-3 from the CPU; the bound is 2 lr.
+NLP_ADAM_CPU_ATOL_OVER_LR = 2.0
+
+
+def _nlp_example_config() -> dict:
+    import yaml
+
+    with open(os.path.join(ROOT, "examples", "simulation", NLP_EXAMPLE,
+                           "fedml_config.yaml")) as f:
+        config = yaml.safe_load(f)
+    config["tracking_args"]["log_file_dir"] = os.path.join(OUT_DIR, "log")
+    return config
+
+
+def nlp_sp_phase(ft, fa):
+    """14a: the seq2seq example config through the entry points on the card,
+    then each dataset of the family (NLP_RUNS) with the example's knobs but
+    SGD, every run again on the CPU (final params within the example's
+    adam bound, NLP_CPU_ATOL for the SGD runs).  The counts are set to 0
+    just before each card run and read just after: a seq2seq run launches
+    K2 = K3 = layers x the trainer's recorded steps and K1 that plus layers
+    x its evals (one forward over the test split each); the encoders and lr
+    launch none.  Returns the example run's counts and the runs' records."""
+    import copy
+
+    import torch
+
+    example = _nlp_example_config()
+    runs = [(NLP_EXAMPLE, example, NLP_ADAM_CPU_ATOL_OVER_LR
+             * float(example["train_args"]["learning_rate"]))]
+    for dataset, model in NLP_RUNS:
+        config = copy.deepcopy(example)
+        config["data_args"]["dataset"] = dataset
+        config["model_args"]["model"] = model
+        config["train_args"].update(NLP_SGD)
+        runs.append((f"{dataset} {model} (sgd)", config, NLP_CPU_ATOL))
+    out, s2s_launches = {}, None
+    for name, config, atol in runs:
+        args = ft.init(ft.Arguments.from_dict(copy.deepcopy(config)), should_init_logs=False)
+        dataset, classes = ft.data.load(args)
+        model = ft.models.hub.create(args, classes)
+        runner = ft.FedMLRunner(args, ft.device.get_device(args), dataset, model)
+        api = runner.runner.fl_trainer
+        steps, evals = [], []
+        train, test = api.trainer.train, api._test_global
+
+        def recorded(train_data, device, a, extra=None, _train=train):
+            result = _train(train_data, device, a, extra)
+            steps.append(int(result.steps))
+            return result
+
+        def tested(round_idx, _test=test):
+            evals.append(round_idx)
+            return _test(round_idx)
+
+        api.trainer.train, api._test_global = recorded, tested
+        flags = _tf32_flags()
+        fa.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final = runner.run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(fa.LAUNCHES)
+        if _tf32_flags() != flags:
+            raise AssertionError(f"{name}: the run changed the TF32 flags")
+        if not _finite(api) or not math.isfinite(final["test_loss"]):
+            raise AssertionError(f"{name}: {final}")
+        want = dict.fromkeys(launches, 0)
+        if args.model == "transformer_s2s":
+            layers = model.cfg.n_layers
+            want.update(flash_bwd_dq=layers * sum(steps), flash_bwd_dkv=layers * sum(steps),
+                        flash_fwd=layers * (sum(steps) + len(evals)))
+        if name == NLP_EXAMPLE:
+            s2s_launches = launches
+        if launches != want:
+            raise AssertionError(f"{name}: launches {launches}, predicted {want}")
+        cpu = copy.deepcopy(config)
+        cpu["device_args"] = {"device_type": "cpu"}
+        t0 = time.perf_counter()
+        cpu_final, cpu_api = _sp_backend_run(ft, cpu)
+        cpu_seconds = time.perf_counter() - t0
+        diff = _max_param_diff(api.w_global, cpu_api.w_global)
+        log(f"  {name} ({type(api.trainer).__name__}, {args.client_num_in_total} clients, "
+            f"{args.comm_round} rounds): {final} in {seconds:.2f} s (rounds "
+            f"{[round(x, 4) for x in api.round_times]} s, {len(steps)} client runs of "
+            f"{sum(steps)} steps, {len(evals)} evals); CPU {cpu_final} in {cpu_seconds:.2f} s; "
+            f"max |param diff| {diff:.3e} (atol {atol}); launches {launches}")
+        if diff > atol:
+            raise AssertionError(f"{name}: card vs CPU params differ by {diff:.3e}")
+        out[name] = {"final": final, "seconds": seconds, "round_seconds": list(api.round_times),
+                     "steps": steps, "evals": evals, "cpu_final": cpu_final,
+                     "cpu_seconds": cpu_seconds, "max_param_diff": diff, "atol": atol,
+                     "launches": launches, "predicted": want}
+    return s2s_launches, out
+
+
+def nlp_xla_phase(ft, fa):
+    """14b: the seq2seq example on the round simulator, padded then packed,
+    NLP_XLA_ROUNDS rounds with an eval each: round seconds, throughput(),
+    the peak memory over what was allocated at the start, and the launches
+    (K2 = K3 = layers x the round's steps, K1 that plus layers x the
+    evals); then one more round under torch.profiler for the card's busy
+    share.  Returns both runs' launches and records."""
+    import copy
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    out, paths = {}, []
+    for pack in (False, True):
+        kind = "packed" if pack else "padded"
+        config = _nlp_example_config()
+        config["comm_args"]["backend"] = "XLA"
+        config["train_args"].update(xla_pack=pack, comm_round=NLP_XLA_ROUNDS)
+        args = ft.init(ft.Arguments.from_dict(config), should_init_logs=False)
+        dataset, classes = ft.data.load(args)
+        model = ft.models.hub.create(args, classes)
+        runner = ft.FedMLRunner(args, ft.device.get_device(args), dataset, model)
+        sim = runner.runner.sim
+        counts = [int(sim.local_num_dict[c]) for c in range(sim.num_clients)]
+        b = sim.batch_size
+        if pack:
+            steps = sum(-(-n // b) for n in counts)
+        else:  # every client fills its padded rows, so no batch is all padding
+            if any(n != sim.padded_n for n in counts):
+                raise AssertionError(f"padded round: clients {counts}, padded_n {sim.padded_n}")
+            steps = len(counts) * sim.padded_n // b
+        steps *= sim.epochs * NLP_XLA_ROUNDS
+        fa.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        final = runner.run()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        launches = dict(fa.LAUNCHES)
+        layers = model.cfg.n_layers
+        want = dict.fromkeys(launches, 0)
+        want.update(flash_bwd_dq=layers * steps, flash_bwd_dkv=layers * steps,
+                    flash_fwd=layers * (steps + NLP_XLA_ROUNDS))
+        if launches != want:
+            raise AssertionError(f"{kind} s2s round: launches {launches}, predicted {want}")
+        if not all(math.isfinite(x) for x in sim.round_losses) or \
+                not all(bool(torch.isfinite(v).all()) for v in sim.variables.values()):
+            raise AssertionError(f"{kind} s2s round: losses {sim.round_losses}")
+        tp = sim.throughput()
+        ids, real = sim._schedule(sim._client_sampling(1))
+        ids_counts = np.where(real > 0, sim.client_counts[ids], 0)
+        run = sim._run_packed_round if pack else sim._run_round
+        with ft.device.fp32_matmul():
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         acc_events=True) as prof:
+                t0 = time.perf_counter()
+                float(run(1, ids, ids_counts))
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+        # kernels only: the optimizer's step annotation ("Optimizer.step#...")
+        # spans its kernels on the device and would count them twice
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.self_device_time_total > 0 and "#" not in e.key]
+        device_ms = sum(e.self_device_time_total for e in events) / 1e3
+        top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:6]
+        log(f"  {kind}: rounds {[round(x, 4) for x in sim.round_times]} s, median "
+            f"{tp['median_round_s']:.4f} s, {tp['samples_per_sec']:,.1f} samples/s "
+            f"({tp.get('tokens_per_sec', 0.0):,.0f} tokens/s), {steps} steps, losses "
+            f"{[round(x, 4) for x in sim.round_losses]}; final eval {final}; peak memory "
+            f"{peak / 2**20:.1f} MiB, {(peak - base) / 2**20:.1f} MiB over the start; "
+            f"launches {launches}")
+        log(f"  {kind}: one round under the profiler: wall {wall_ms:.1f} ms, device busy "
+            f"{device_ms:.1f} ms ({100 * device_ms / wall_ms:.1f} %); top: "
+            + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
+                        for e in top))
+        paths.append(launches)
+        out[kind] = {"round_seconds": list(sim.round_times), "throughput": tp,
+                     "round_losses": list(sim.round_losses), "final": final, "steps": steps,
+                     "peak_memory_bytes": peak, "allocated_at_start_bytes": base,
+                     "launches": launches, "predicted": want,
+                     "profile": {"wall_ms": wall_ms, "device_ms": device_ms,
+                                 "top": [{"name": e.key, "device_ms":
+                                          e.self_device_time_total / 1e3, "calls": e.count}
+                                         for e in top]}}
+    return paths, out
+
+
 def ptxas_check(build, builds) -> dict:
     """Registers and spills of every kernel instantiation from ptxas's log;
     raises if an instantiation of a kernel of NO_SPILL spills."""
@@ -2626,11 +2856,33 @@ def main() -> int:
     sp_zoo["seconds"] = time.perf_counter() - t13
     log(f"  phase 13 in {sp_zoo['seconds']:.1f} s")
 
+    t14 = time.perf_counter()
+    nlp = {"tf32_flags": flags_found}
+    phase(f"14a: the FedNLP family on sp: {NLP_EXAMPLE} (K1-K3), then "
+          + ", ".join(f"{d} {m}" for d, m in NLP_RUNS) + " (card vs CPU)")
+    nlp_launches, nlp["sp"] = nlp_sp_phase(ft, fa)
+    phase(f"14b: {NLP_EXAMPLE} on the padded and packed rounds ({NLP_XLA_ROUNDS} rounds)")
+    nlp_xla_launches, nlp["xla"] = nlp_xla_phase(ft, fa)
+    if _tf32_flags() != flags_found:
+        raise AssertionError(f"tf32 flags {_tf32_flags()} after phase 14, found {flags_found}")
+    phase("14c: K1-K3 on the seq2seq path")
+    nlp["s2s_kernels"] = [r for r in rows if r["case"] in ("s2s_train", "s2s_eval")]
+    for r in nlp["s2s_kernels"]:
+        log(f"  {r['case']:10s} {r['kernel']:14s} err {r['max_abs_err']:.3e} (least atol "
+            f"{r['least_atol']:.3e}), kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), plain {r['plain_ms']:.4f} ms, {r['library']} "
+            f"{r['library_ms']:.4f} ms, over library {r['over_library']:.2f}")
+    log(f"  14a's {NLP_EXAMPLE} run launched {nlp_launches} (predicted "
+        f"{nlp['sp'][NLP_EXAMPLE]['predicted']})")
+    nlp["seconds"] = time.perf_counter() - t14
+    log(f"  phase 14 in {nlp['seconds']:.1f} s")
+
     phase("9: results")
 
     kernels = kernels_line(rows + fold_rows,
                            (launches, sp_launches, single_launches, zoo_launches, trust_launches,
-                            sp_backend_launches, sp_zoo_launches))
+                            sp_backend_launches, sp_zoo_launches, nlp_launches,
+                            *nlp_xla_launches))
     bench = bench_bf16_summary(rows)
     with open(os.path.join(OUT_DIR, "results.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -2646,7 +2898,8 @@ def main() -> int:
                    "zoo_launches": zoo_launches, "trust": trust,
                    "trust_launches": trust_launches, "sp_backend": sp_backend,
                    "sp_backend_launches": sp_backend_launches, "sp_zoo": sp_zoo,
-                   "sp_zoo_launches": sp_zoo_launches,
+                   "sp_zoo_launches": sp_zoo_launches, "nlp": nlp,
+                   "nlp_launches": nlp_launches, "nlp_xla_launches": nlp_xla_launches,
                    "phase_starts": starts, "seconds": time.perf_counter() - t_start}, f,
                   indent=1)
     log(f"== done in {time.perf_counter() - t_start:.1f} s")

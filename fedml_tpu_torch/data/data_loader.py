@@ -10,8 +10,10 @@ arrays and partition maps for the same config.  It returns the same 8-tuple::
 Data stay numpy ``(x, y)`` pairs; the simulator moves them to the device
 once (simulation/xla/fed_sim.py ``_pack_data``).  The whole dataset table is
 kept so names and class counts agree with the JAX package, but only the
-next-word-prediction and image kinds are ported: other kinds raise
-``NotImplementedError`` naming the ROADMAP.md item that ports them.  Images
+next-word-prediction and image kinds and the FedNLP family's (``seqcls``,
+``seqtag``, ``span``, ``s2s``, and ``taglr``, the projected bag of words of
+tag prediction) are ported: other kinds raise ``NotImplementedError`` naming
+the ROADMAP.md item that ports them.  Images
 stay NHWC, as in the JAX package; the model's entry is the one place their
 layout changes.
 """
@@ -120,7 +122,7 @@ DATASET_SPECS: Dict[str, Dict[str, Any]] = {
 }
 
 
-_PORTED_KINDS = ("nwp", "image")
+_PORTED_KINDS = ("nwp", "image", "seqcls", "seqtag", "span", "s2s", "taglr")
 
 
 def _check_kind(name: str, spec: Dict[str, Any]) -> None:
@@ -138,9 +140,38 @@ def _generate(spec: Dict[str, Any], n: int, seed: int, scale_override: int = 0,
         return synthetic.make_classification(
             n, spec["classes"], tuple(spec["shape"]), seed=seed, proto_seed=proto_seed
         )
-    return synthetic.make_next_token_corpus(
-        n, int(spec["shape"][0]), spec["vocab"], seed=seed, proto_seed=proto_seed
-    )
+    if kind == "nwp":
+        return synthetic.make_next_token_corpus(
+            n, int(spec["shape"][0]), spec["vocab"], seed=seed, proto_seed=proto_seed
+        )
+    if kind == "seqcls":
+        # class->vocab-band mapping is deterministic, so train/test share the
+        # distribution without a proto_seed
+        return synthetic.make_sequence_classification(
+            n, spec["classes"], int(spec["shape"][0]), spec["vocab"], seed=seed
+        )
+    if kind == "seqtag":
+        return synthetic.make_sequence_tagging(
+            n, spec["classes"], int(spec["shape"][0]), spec["vocab"], seed=seed
+        )
+    if kind == "span":
+        return synthetic.make_span_extraction(
+            n, int(spec["shape"][0]), spec["vocab"], seed=seed
+        )
+    if kind == "s2s":
+        return synthetic.make_seq2seq(
+            n, spec["src_len"], spec["tgt_len"], spec["vocab"], seed=seed
+        )
+    if kind == "taglr":
+        x, y = synthetic.make_classification(
+            n, spec["classes"], (64,), seed=seed, proto_seed=proto_seed
+        )
+        # sparse bag-of-words style expansion; projection is part of the
+        # "distribution" so it derives from proto_seed (shared train/test)
+        rngl = np.random.RandomState(proto_seed + 1)
+        proj = rngl.randn(64, spec["shape"][0]).astype(np.float32)
+        return (x @ proj > 1.0).astype(np.float32), y
+    raise ValueError(kind)
 
 
 def load_centralized(args) -> Dict[str, Any]:
@@ -186,8 +217,16 @@ def load(args) -> Tuple[list, int]:
     y_train, y_test = data["y_train"], data["y_test"]
 
     if method in ("hetero", "noniid", "dirichlet"):
+        name = str(getattr(args, "dataset", "mnist")).lower()
+        kind = DATASET_SPECS.get(name, {}).get("kind")
         if y_train.ndim == 1:
             part_labels = y_train
+        elif kind == "s2s":
+            # bucket by mean target token (ignore the -1 source positions)
+            flat = y_train.reshape(len(y_train), -1)
+            valid = flat >= 0
+            mean_tok = (flat * valid).sum(axis=1) / np.maximum(valid.sum(axis=1), 1)
+            part_labels = (mean_tok % data["class_num"]).astype(int)
         else:
             # NWP labels are sequences; bucket by sequence-mean token
             part_labels = (

@@ -1,11 +1,14 @@
 """Parsers for locally cached real dataset files (no downloads).
 
 The part of ``fedml_tpu/data/loaders.py`` that the ported slices reach: the
-LEAF json layout the next-word-prediction datasets are published in, the
-CIFAR python pickles, and the edge-case example pools of the edge-case
-backdoor.  The other image, tabular and volume parsers are
-ported with the slices that train on those datasets (ROADMAP.md queue A,
-item 3: data, the rest).
+LEAF json layout the next-word-prediction datasets (and femnist and
+stackoverflow_lr) are published in, the CIFAR python pickles, the NUS-WIDE
+multi-label features, and the edge-case example pools of the edge-case
+backdoor.  A dataset the JAX package has no parser for has no real files:
+``try_load_real`` returns None and the caller generates synthetic data, as
+in the JAX package.  The other image, tabular and volume parsers are ported
+with the slices that train on those datasets (ROADMAP.md queue A, item 3:
+data, the rest); their datasets raise while a cache directory exists.
 """
 
 from __future__ import annotations
@@ -19,8 +22,14 @@ import numpy as np
 
 Arrays = Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]
 
-LEAF_DATASETS = ("shakespeare", "fed_shakespeare", "stackoverflow_nwp", "stackoverflow_lr")
+LEAF_DATASETS = ("femnist", "shakespeare", "fed_shakespeare", "stackoverflow_nwp",
+                 "stackoverflow_lr")
 CIFAR_DATASETS = ("cifar10", "cifar100", "fed_cifar100")
+NUSWIDE_DATASETS = ("nuswide", "nus_wide")
+# the datasets whose JAX parser is not ported yet
+_UNPORTED_PARSERS = ("mnist", "fashionmnist", "cinic10", "uci", "lending_club", "imagenet",
+                     "ilsvrc2012", "tiny_imagenet", "gld23k", "gld160k", "landmarks",
+                     "fets2021")
 
 
 def load_leaf_json(root: str) -> Optional[Arrays]:
@@ -94,16 +103,77 @@ def try_load_real(name: str, cache_dir: str) -> Optional[Arrays]:
         parse = load_leaf_json
     elif name in CIFAR_DATASETS:
         parse = load_cifar_pickle
-    else:
+    elif name in NUSWIDE_DATASETS:
+        parse = load_nuswide
+    elif name in _UNPORTED_PARSERS:
         raise NotImplementedError(
             f"no parser for cached {name!r} files in the port yet "
             "(ROADMAP.md queue A, item 3: data, the rest)")
+    else:
+        return None  # no parser in the JAX package either
     for root in (os.path.join(cache_dir, name), cache_dir):
         if os.path.isdir(root):
             out = parse(root)
             if out is not None:
                 return out
     return None
+
+
+def load_nuswide(root: str, top_k: int = 5) -> Optional[Arrays]:
+    """NUS-WIDE low-level-features + multi-label groundtruth (reference
+    ``data/NUS_WIDE/nus_wide_dataset.py:8-60`` layout):
+    ``Groundtruth/TrainTestLabels/Labels_<name>_<Train|Test>.txt`` (one 0/1
+    per line) and ``Low_Level_Features/*_<Train|Test>_*.dat`` (whitespace-
+    separated floats per line, concatenated feature blocks).  A full mount
+    has 81 concept files; like the reference's ``get_top_k_labels`` the
+    ``top_k`` most frequent (by train positives) are kept so label width
+    matches the registered spec.  Returns multi-hot y [N, top_k]."""
+    import glob as _glob
+
+    lab_dir = os.path.join(root, "Groundtruth", "TrainTestLabels")
+    feat_dir = os.path.join(root, "Low_Level_Features")
+    if not (os.path.isdir(lab_dir) and os.path.isdir(feat_dir)):
+        return None
+    names = sorted(
+        os.path.basename(p)[len("Labels_"):-len("_Train.txt")]
+        for p in _glob.glob(os.path.join(lab_dir, "Labels_*_Train.txt"))
+    )
+    if not names:
+        return None
+    if len(names) > top_k:
+        counts = {}
+        for nm in names:
+            try:
+                counts[nm] = float(
+                    np.loadtxt(os.path.join(lab_dir, f"Labels_{nm}_Train.txt")).sum()
+                )
+            except (OSError, ValueError):
+                counts[nm] = -1.0
+        names = sorted(sorted(counts, key=counts.get, reverse=True)[:top_k])
+
+    def _labels(dtype):
+        cols = []
+        for nm in names:
+            p = os.path.join(lab_dir, f"Labels_{nm}_{dtype}.txt")
+            if not os.path.isfile(p):
+                return None
+            cols.append(np.loadtxt(p, dtype=np.float32).reshape(-1))
+        return np.stack(cols, axis=1)
+
+    def _feats(dtype):
+        blocks = []
+        for p in sorted(_glob.glob(os.path.join(feat_dir, f"*_{dtype}_*.dat"))):
+            blocks.append(np.loadtxt(p, dtype=np.float32, ndmin=2))
+        if not blocks:
+            return None
+        return np.concatenate(blocks, axis=1)
+
+    xt, yt = _feats("Train"), _labels("Train")
+    xe, ye = _feats("Test"), _labels("Test")
+    if any(v is None for v in (xt, yt, xe, ye)):
+        return None
+    n_tr, n_te = min(len(xt), len(yt)), min(len(xe), len(ye))
+    return xt[:n_tr], yt[:n_tr], xe[:n_te], ye[:n_te]
 
 
 def load_edge_case_pool(root: str) -> Optional[dict]:

@@ -1,25 +1,43 @@
 """ServerAggregator factory (counterpart of
 ``fedml_tpu/ml/aggregator/aggregator_creator.py``): the default branch, whose
-masked eval computes token-level metrics for next-word prediction.  The
-task-specific eval aggregators come with their trainers (ROADMAP.md queue A,
-item 4: model zoo and trainers)."""
+masked eval computes token-level metrics for next-word prediction and
+sequence tagging, and the task-eval branch for tag prediction, span
+extraction and seq2seq, which evaluates through the task trainer's
+``test``.  The other task evals come with their trainers (ROADMAP.md queue
+A, item 4: model zoo and trainers)."""
 
 from __future__ import annotations
 
 from ...core.alg_frame.server_aggregator import ServerAggregator
 from ..trainer.trainer_creator import (
     _AE_DATASETS, _DET_DATASETS, _LINKPRED_DATASETS, _MTL_DATASETS, _REG_DATASETS,
-    _S2S_DATASETS, _SEG_DATASETS, _SPAN_DATASETS, _TAG_DATASETS,
+    _S2S_DATASETS, _SEG_DATASETS, _SPAN_DATASETS, _TAG_DATASETS, trainer_class,
 )
 from .default_aggregator import DefaultServerAggregator
 
-_TASK_EVAL_DATASETS = (_TAG_DATASETS | _SPAN_DATASETS | _DET_DATASETS | _S2S_DATASETS
-                       | _LINKPRED_DATASETS | _MTL_DATASETS | _AE_DATASETS | _REG_DATASETS
-                       | _SEG_DATASETS)
+_TRAINER_EVAL_DATASETS = _TAG_DATASETS | _SPAN_DATASETS | _S2S_DATASETS
+_TASK_EVAL_DATASETS = (_DET_DATASETS | _LINKPRED_DATASETS | _MTL_DATASETS | _AE_DATASETS
+                       | _REG_DATASETS | _SEG_DATASETS)
+
+
+class _TrainerEvalAggregator(DefaultServerAggregator):
+    """Evaluates through a task trainer's ``test`` (tag BCE metrics, span
+    exact match, seq2seq token accuracy and exact match).  The probe trainer
+    is built once."""
+
+    def __init__(self, model, args, trainer_cls):
+        super().__init__(model, args)
+        self._probe = trainer_cls(model, args)
+
+    def test(self, test_data, device, args):
+        self._probe.set_model_params(self.variables)
+        return self._probe.test(test_data, device, args)
 
 
 def create_server_aggregator(model, args) -> ServerAggregator:
     dataset = str(getattr(args, "dataset", "")).lower()
+    if dataset in _TRAINER_EVAL_DATASETS:
+        return _TrainerEvalAggregator(model, args, trainer_class(dataset))
     if dataset in _TASK_EVAL_DATASETS:
         raise NotImplementedError(
             f"the task eval of dataset {dataset!r} is not ported yet "

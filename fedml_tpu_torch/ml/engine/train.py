@@ -106,20 +106,57 @@ def param_list(tree: Optional[Variables], names: Sequence[str]) -> Optional[Tens
     return None if tree is None else [tree[n] for n in names]
 
 
-def softmax_ce_loss(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor):
-    """Masked CE.  Handles both [B] labels and [B, L] per-token labels (NWP):
-    a per-example mask [B] broadcasts over trailing label axes.  Logits are
-    promoted to fp32.  Returns (mean, (total, count))."""
+def _ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-position CE in fp32 over the last axis of ``logits``: labels
+    ``logits.shape[:-1]``, every one in range."""
     v = logits.shape[-1]
-    per = F.cross_entropy(logits.float().reshape(-1, v), labels.reshape(-1).long(),
-                          reduction="none").reshape(labels.shape)
+    return F.cross_entropy(logits.float().reshape(-1, v), labels.reshape(-1).long(),
+                           reduction="none").reshape(labels.shape)
+
+
+def _masked_mean(per: torch.Tensor, mask: torch.Tensor):
+    """(mean, (total, count)) of ``per`` under a mask that broadcasts over
+    its trailing axes; the count is at least 1."""
     mask = mask.float().reshape(mask.shape + (1,) * (per.dim() - mask.dim()))
     total = (per * mask).sum()
     count = mask.expand(per.shape).sum().clamp_min(1.0)
     return total / count, (total, count)
 
 
-LOSS_FNS = {"ce": softmax_ce_loss}
+def softmax_ce_loss(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor):
+    """Masked CE.  Handles both [B] labels and [B, L] per-token labels (NWP):
+    a per-example mask [B] broadcasts over trailing label axes.  Logits are
+    promoted to fp32.  Returns (mean, (total, count))."""
+    return _masked_mean(_ce(logits, labels), mask)
+
+
+def sigmoid_bce_loss(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor):
+    """Masked multi-label BCE: labels are multi-hot [B, C] floats (tag
+    prediction); the per-example mask [B] broadcasts over label positions."""
+    per = F.binary_cross_entropy_with_logits(logits.float(), labels.float(), reduction="none")
+    return _masked_mean(per, mask)
+
+
+def span_ce_loss(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor):
+    """Span extraction: logits [B, L, 2], labels [B, 2] = (start, end); CE
+    over sequence positions for each endpoint, summed."""
+    per = _ce(logits[..., 0], labels[:, 0]) + _ce(logits[..., 1], labels[:, 1])
+    return _masked_mean(per, mask)
+
+
+def seq2seq_ce_loss(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor):
+    """Seq2seq teacher-forced CE over a causal LM's [B, L, V] logits; labels
+    [B, L] with -1 on the positions that carry no target (the source
+    prefix).  The -1 labels are clamped to 0 for the CE and masked out after
+    it, as in the JAX package, so the count is the target positions under
+    the example mask."""
+    per = _ce(logits, labels.clamp_min(0))
+    mask = mask.float().reshape(mask.shape + (1,) * (per.dim() - mask.dim()))
+    return _masked_mean(per, (labels >= 0).float() * mask)
+
+
+LOSS_FNS = {"ce": softmax_ce_loss, "bce": sigmoid_bce_loss, "span": span_ce_loss,
+            "s2s": seq2seq_ce_loss}
 
 
 def build_loss_fn(module: nn.Module, loss: str = "ce") -> Callable:
@@ -229,8 +266,7 @@ def make_eval_fn(module: nn.Module) -> Callable:
     def evaluate(x, y, mask):
         module.eval()
         logits = module(x).float()
-        per = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), y.reshape(-1).long(),
-                              reduction="none").reshape(y.shape)
+        per = _ce(logits, y)
         pred = logits.argmax(dim=-1)
         mask = mask.float().reshape(mask.shape + (1,) * (per.dim() - mask.dim()))
         full = mask.expand(per.shape)

@@ -84,6 +84,14 @@ class ModelTrainerCLS(ClientTrainer):
         self.last_result = result
         return result
 
+    @torch.no_grad()
+    def eval_logits(self, x) -> torch.Tensor:
+        """fp32 logits of the trainer's variables on ``x`` in one forward
+        (eval mode), on the trainer's device: the task trainers' evals."""
+        load_variables(self.module, self.variables)
+        self.module.eval()
+        return self.module(to_device(x, self._device())).float()
+
     def test(self, test_data, device, args):
         x, y = test_data
         dev = self._device()

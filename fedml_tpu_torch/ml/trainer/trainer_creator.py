@@ -1,8 +1,13 @@
 """Trainer factory (counterpart of ``fedml_tpu/ml/trainer/trainer_creator.py``):
 the dataset-family tables, the engine loss key per family, and
-``create_model_trainer``.  The classification and the next-word-prediction /
-sequence-tagging trainers are ported; the other task trainers come with the
-model zoo (ROADMAP.md queue A, item 4: model zoo and trainers)."""
+``create_model_trainer``.  The classification, next-word-prediction /
+sequence-tagging, tag-prediction, span-extraction and seq2seq trainers are
+ported; the other task trainers come with the model zoo (ROADMAP.md queue A,
+item 4: model zoo and trainers).
+
+Every trainer takes the grad hook it is given: the port's SCAFFOLD and
+FedDyn build their hooked trainer here, so the client loss is the
+dataset's (their JAX twins build the classification trainer)."""
 
 from __future__ import annotations
 
@@ -42,20 +47,31 @@ def loss_kind_for_dataset(dataset: str) -> str:
 
 
 _UNPORTED_FAMILIES = (
-    (_TAG_DATASETS, "ModelTrainerTAGPred"), (_SPAN_DATASETS, "ModelTrainerSpan"),
-    (_DET_DATASETS, "ModelTrainerDET"), (_S2S_DATASETS, "ModelTrainerS2S"),
-    (_LINKPRED_DATASETS, "ModelTrainerLinkPred"), (_MTL_DATASETS, "ModelTrainerMTL"),
-    (_AE_DATASETS, "ModelTrainerAE"), (_SEG_DATASETS, "ModelTrainerSeg"),
-    (_REG_DATASETS, "ModelTrainerReg"),
+    (_DET_DATASETS, "ModelTrainerDET"), (_LINKPRED_DATASETS, "ModelTrainerLinkPred"),
+    (_MTL_DATASETS, "ModelTrainerMTL"), (_AE_DATASETS, "ModelTrainerAE"),
+    (_SEG_DATASETS, "ModelTrainerSeg"), (_REG_DATASETS, "ModelTrainerReg"),
 )
 
 
-def create_model_trainer(model, args, grad_hook=None) -> ClientTrainer:
-    dataset = str(getattr(args, "dataset", "")).lower()
+def trainer_class(dataset: str):
+    """The ported trainer class of a dataset family (raises for the others)."""
+    dataset = dataset.lower()
     if dataset in _NWP_DATASETS or dataset in _SEQTAG_DATASETS:
         from .nwp_trainer import ModelTrainerNWP
 
-        return ModelTrainerNWP(model, args, grad_hook=grad_hook)
+        return ModelTrainerNWP
+    if dataset in _TAG_DATASETS:
+        from .tag_trainer import ModelTrainerTAGPred
+
+        return ModelTrainerTAGPred
+    if dataset in _SPAN_DATASETS:
+        from .span_trainer import ModelTrainerSpan
+
+        return ModelTrainerSpan
+    if dataset in _S2S_DATASETS:
+        from .s2s_trainer import ModelTrainerS2S
+
+        return ModelTrainerS2S
     for family, trainer in _UNPORTED_FAMILIES:
         if dataset in family:
             raise NotImplementedError(
@@ -63,4 +79,8 @@ def create_model_trainer(model, args, grad_hook=None) -> ClientTrainer:
                 "(ROADMAP.md queue A, item 4: model zoo and trainers)")
     from .cls_trainer import ModelTrainerCLS
 
-    return ModelTrainerCLS(model, args, grad_hook=grad_hook)
+    return ModelTrainerCLS
+
+
+def create_model_trainer(model, args, grad_hook=None) -> ClientTrainer:
+    return trainer_class(str(getattr(args, "dataset", "")))(model, args, grad_hook=grad_hook)

@@ -1,5 +1,5 @@
-"""Weights carried across: the JAX package's TransformerLM, ResNet and
-LogisticRegression variables onto the port's modules.
+"""Weights carried across: the JAX package's TransformerLM, NLP encoder,
+ResNet and LogisticRegression variables onto the port's modules.
 
 The flax variables arrive as a nested dict of numpy arrays (``{"params":
 {...}}`` or the bare params dict).  The TransformerLM's mapping:
@@ -15,6 +15,12 @@ flax leaf                                   torch parameter
 ``attn_norm``, ``mlp_norm``,                the RMSNorm ``weight``
 ``final_norm`` ``scale``
 ==========================================  ==========================================
+
+The encoders of ``models/nlp.py`` share the TransformerLM's ``embed``,
+``layer{i}`` and ``final_norm`` leaves, and end in one dense head with bias
+instead of ``lm_head``: ``cls_head``, ``tag_head`` or ``span_head``, its
+``kernel`` [in, out] to ``{head}.weight`` (transposed) and its ``bias`` to
+``{head}.bias``.
 
 The ResNets' (``CifarResNet``, ``ResNet18``), ``{c}`` a convolution and ``{n}``
 its GroupNorm:
@@ -63,14 +69,24 @@ def _kernel_to_weight(kernel: np.ndarray, in_dims: int) -> np.ndarray:
     return kernel.reshape(n_in, -1).T
 
 
+# the encoders' dense heads (models/nlp.py), each with a bias
+ENCODER_HEADS = ("cls_head", "tag_head", "span_head")
+
+
 def transformer_state_from_flax(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
-    """{torch parameter name: numpy array} for a flax TransformerLM tree."""
+    """{torch parameter name: numpy array} for a flax TransformerLM tree, or
+    for an NLP encoder's (its head in place of ``lm_head``)."""
     params = variables.get("params", variables)
     out: Dict[str, np.ndarray] = {
         "embed.weight": np.asarray(params["embed"]["embedding"]),
         "final_norm.weight": np.asarray(params["final_norm"]["scale"]),
-        "lm_head.weight": _kernel_to_weight(np.asarray(params["lm_head"]["kernel"]), 1),
     }
+    if "lm_head" in params:
+        out["lm_head.weight"] = _kernel_to_weight(np.asarray(params["lm_head"]["kernel"]), 1)
+    for head in ENCODER_HEADS:
+        if head in params:
+            out[f"{head}.weight"] = np.asarray(params[head]["kernel"]).T
+            out[f"{head}.bias"] = np.asarray(params[head]["bias"])
     i = 0
     while f"layer{i}" in params:
         p = params[f"layer{i}"]

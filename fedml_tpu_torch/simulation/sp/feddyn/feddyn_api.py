@@ -2,8 +2,10 @@
 ``fedml_tpu/simulation/sp/feddyn/feddyn_api.py``): dynamic regularization
 (Acar et al.).
 
-Each client keeps a state h_i.  The trainer is rebuilt with the grad hook
-g - h_i + alpha (p - anchor); after training h_i <- h_i - alpha (w_i -
+Each client keeps a state h_i.  The dataset's trainer is rebuilt with the
+grad hook g - h_i + alpha (p - anchor), so the client loss is the task's
+(the JAX twin builds the classification trainer for every dataset); after
+training h_i <- h_i - alpha (w_i -
 w_g), and the server takes the weighted mean minus h/alpha, where h is the
 sum of every h_i seen so far over ``client_num_in_total``.  The hook takes
 alpha*p - alpha*anchor in place, where the JAX hook takes alpha*(p -
@@ -22,7 +24,7 @@ from typing import Any, Dict, List, Tuple
 import torch
 
 from ....core.aggregate import tree_zeros_like, weighted_mean
-from ....ml.trainer.cls_trainer import ModelTrainerCLS
+from ....ml.trainer.trainer_creator import create_model_trainer
 from ...xla.algorithms import params_of
 from ..fedavg.fedavg_api import LOCAL_DP, ON_DEFENSE, FedAvgAPI
 
@@ -41,7 +43,7 @@ class FedDynAPI(FedAvgAPI):
             torch._foreach_add_(grads, params, alpha=alpha)
             torch._foreach_add_(grads, anchor, alpha=-alpha)
 
-        self.trainer = ModelTrainerCLS(model, args, grad_hook=hook)
+        self.trainer = create_model_trainer(model, args, grad_hook=hook)
         self.client_list = []
         self._setup_clients()
         self.h_clients: Dict[int, Any] = {}

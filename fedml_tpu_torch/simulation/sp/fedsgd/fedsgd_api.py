@@ -11,7 +11,11 @@ forward and backward over the padded client: K1 once and K2/K3 once a layer.
 
 The client's training is replaced, so the trainer's after-hook (local DP)
 does not run, and the aggregate is this rule, not the aggregator's: both
-hooks are refused, as the JAX twin skips them.
+hooks are refused, as the JAX twin skips them.  The gradient is of the
+classification CE, as in the JAX twin, so a dataset whose loss is another
+(tag prediction's BCE, span extraction's, seq2seq's with its -1 labels) is
+refused when the object is built, where the JAX twin takes the CE of those
+labels.
 """
 
 from __future__ import annotations
@@ -32,6 +36,11 @@ class FedSGDAPI(FedAvgAPI):
 
     def __init__(self, args, device, dataset, model):
         super().__init__(args, device, dataset, model)
+        if self.trainer.loss_kind != "ce":
+            raise NotImplementedError(
+                f"FedSGD's client gradient is of the ce loss; dataset "
+                f"{getattr(args, 'dataset', None)!r} trains with the {self.trainer.loss_kind} "
+                "loss (its JAX twin takes the ce loss of these labels)")
         self._grad_fns: Dict[int, Callable] = {}
         self.server_lr = float(getattr(args, "learning_rate", 0.01))
 

@@ -3,7 +3,10 @@
 averaging (Karimireddy et al.).
 
 Each client keeps a control variate c_i and the server a control c.  The
-trainer is rebuilt with the grad hook g - c_i + c; after K local steps (the
+dataset's trainer is rebuilt with the grad hook g - c_i + c, so the client
+loss is the task's (the JAX twin builds the classification trainer for
+every dataset, whose CE reads a seq2seq label -1 as the last token); after
+K local steps (the
 trainer's recorded steps) c_i+ = c_i - c + (w_g - w_i) / (K * lr), and after
 the FedAvg server step c <- c + (1/N) sum_i (c_i+ - c_i), N the
 population.  The hook adds c - c_i, folded once a client, where the JAX
@@ -23,7 +26,7 @@ from typing import Any, Dict, List, Tuple
 import torch
 
 from ....core.aggregate import tree_sub, tree_sum, tree_zeros_like
-from ....ml.trainer.cls_trainer import ModelTrainerCLS
+from ....ml.trainer.trainer_creator import create_model_trainer
 from ...xla.algorithms import params_of
 from ..fedavg.fedavg_api import LOCAL_DP, FedAvgAPI
 
@@ -38,7 +41,7 @@ class ScaffoldAPI(FedAvgAPI):
     def __init__(self, args, device, dataset, model):
         super().__init__(args, device, dataset, model)
         # a grad-hooked trainer, and the client slots bound to it
-        self.trainer = ModelTrainerCLS(model, args, grad_hook=_scaffold_hook)
+        self.trainer = create_model_trainer(model, args, grad_hook=_scaffold_hook)
         self.client_list = []
         self._setup_clients()
         self.lr = float(getattr(args, "learning_rate", 0.01))

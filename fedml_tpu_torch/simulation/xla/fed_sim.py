@@ -159,12 +159,11 @@ class XLASimulator:
         self.batch_size = int(getattr(args, "batch_size", 32))
         self.epochs = int(getattr(args, "epochs", 1))
         self.seed = int(getattr(args, "random_seed", 0))
+        # every ported loss runs in the round; tag prediction's class ids
+        # become one-hot at pack time (_pack_data), so it rides the bce loss
         ds = str(getattr(args, "dataset", "")).lower()
-        if ds in _TAG_DATASETS:
-            raise NotImplementedError(
-                f"dataset {ds!r} (multi-hot labels) is not ported yet "
-                "(ROADMAP.md queue A, item 4: model zoo and trainers, the bce loss)")
-        self.loss_kind = loss_kind_for_dataset(ds)
+        self._multihot_labels = ds in _TAG_DATASETS
+        self.loss_kind = "bce" if self._multihot_labels else loss_kind_for_dataset(ds)
 
         self._pack_data()
         self.variables = init_variables(model, self.device, seed=self.seed)
@@ -211,7 +210,8 @@ class XLASimulator:
         record each client's contiguous row range in an index table padded to
         ``padded_n`` (padding rows repeat the client's first row and are
         masked out by its count).  Float inputs are stored in
-        ``data_storage_dtype``; integer inputs (token ids) keep their dtype."""
+        ``data_storage_dtype``; integer inputs (token ids) keep their dtype.
+        Tag prediction's class ids are stored one-hot."""
         b = self.batch_size
         counts = np.array([self.local_num_dict[i] for i in range(self.num_clients)], np.int64)
         self.max_client_n = int(counts.max())
@@ -230,6 +230,10 @@ class XLASimulator:
                 # malicious client's shard is assembled
                 xi, yi = attacker.poison_local_data(i, self.num_clients, xi, yi)
                 self.poisoned_clients.append(i)
+            if self._multihot_labels and np.asarray(yi).ndim == 1:
+                # tag prediction with class ids: one-hot for the bce loss
+                # (mounted multi-label sets arrive multi-hot)
+                yi = np.eye(self.class_num, dtype=np.float32)[np.asarray(yi)]
             n = len(yi)
             xs.append(np.asarray(xi))
             ys.append(np.asarray(yi))
@@ -614,6 +618,10 @@ class XLASimulator:
             "test_acc": round(stats["test_correct"] / stats["test_total"], 4),
             "test_loss": round(stats["test_loss"] / stats["test_total"], 4),
         }
+        # task-specific extras (F1, exact match) pass through
+        for k, v in stats.items():
+            if k.startswith("test_") and k not in ("test_correct", "test_total", "test_loss"):
+                out[k] = round(float(v), 4)
         self.metrics.log(out)
         logger.info("eval: %s", out)
         return out

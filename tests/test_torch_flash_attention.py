@@ -29,7 +29,8 @@ def _one_thread():
 
 
 # (B, L, H, D, causal, block_q, block_k): causal and full, ragged L with
-# blocks of 16, and the mismatched blocks of test_mismatched_block_sizes
+# blocks of 16, the mismatched blocks of test_mismatched_block_sizes, and
+# the seq2seq decoder's call
 CASES = {
     "causal_L32": (1, 32, 2, 8, True, 16, 16),
     "full_L32": (1, 32, 2, 8, False, 16, 16),
@@ -37,6 +38,8 @@ CASES = {
     "ragged_full_L50": (2, 50, 2, 8, False, 16, 16),
     "mismatched_32_24": (1, 32, 1, 8, False, 32, 24),
     "mismatched_24_32": (1, 32, 1, 8, False, 24, 32),
+    # the seq2seq decoder's shape (L 24, 4 heads x 32) under one 128-row tile
+    "s2s_causal_L24": (2, 24, 4, 32, True, 128, 128),
 }
 
 

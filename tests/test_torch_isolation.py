@@ -53,11 +53,15 @@ SLICE_MODULES = [
     "fedml_tpu_torch.ml.engine.packed",
     "fedml_tpu_torch.ml.trainer.cls_trainer",
     "fedml_tpu_torch.ml.trainer.nwp_trainer",
+    "fedml_tpu_torch.ml.trainer.s2s_trainer",
+    "fedml_tpu_torch.ml.trainer.span_trainer",
+    "fedml_tpu_torch.ml.trainer.tag_trainer",
     "fedml_tpu_torch.ml.trainer.trainer_creator",
     "fedml_tpu_torch.ml.aggregator.aggregator_creator",
     "fedml_tpu_torch.ml.aggregator.default_aggregator",
     "fedml_tpu_torch.models.hub",
     "fedml_tpu_torch.models.linear",
+    "fedml_tpu_torch.models.nlp",
     "fedml_tpu_torch.models.transformer",
     "fedml_tpu_torch.models.resnet",
     "fedml_tpu_torch.models.convert",

@@ -4,7 +4,7 @@
   silently (the table of ``fedml_tpu_torch/simulation/sp/__init__.py``;
   ``test_torch_sp_zoo.py`` reads the same table off the JAX runs) raises
   ``NotImplementedError`` when the member is built, naming the member and
-  the hook.
+  the hook; so does FedSGD on a dataset whose loss is not the CE.
 * FedBuff under full participation, a buffer of the cohort, staleness 0 and
   the ``constant`` policy is bit-identical to the port's ``FedAvgAPI``.
 * FedNova's taus are the trainer's recorded steps (the JAX oracle
@@ -111,6 +111,26 @@ def test_member_refuses_the_hook_its_jax_twin_skips(lr_data, member, hook):
     with pytest.raises(NotImplementedError,
                        match=f"{_zoo.CLASSES[member]} does not run the {hook} hook"):
         _build(lr_data, member, **HOOK_KNOBS[hook])
+
+
+@pytest.mark.parametrize("dataset,model,loss", [
+    ("stackoverflow_lr", "lr", "bce"), ("squad_span", "transformer_span", "span"),
+    ("synthetic_s2s", "transformer_s2s", "s2s"),
+])
+def test_fedsgd_refuses_a_loss_other_than_ce(dataset, model, loss):
+    """FedSGD's gradient is of the CE loss in both packages; the JAX twin
+    takes it of span, seq2seq (-1) and multi-hot labels alike, the port
+    refuses those datasets when the member is built, naming the loss."""
+    config = _sp._config(_sp.LR_CONFIG, federated_optimizer="FedSGD")
+    config["data_args"].update(dataset=dataset, partition_method="homo",
+                               synthetic_train_size=32)
+    config["model_args"]["model"] = model
+    args = fedml_tpu_torch.init(fedml_tpu_torch.Arguments.from_dict(config),
+                                should_init_logs=False)
+    dataset_t, classes = fedml_tpu_torch.data.load(args)
+    with pytest.raises(NotImplementedError, match=f"trains with the {loss} loss"):
+        create_sp_algorithm("FedSGD", args, torch.device("cpu"), dataset_t,
+                            fedml_tpu_torch.models.hub.create(args, classes))
 
 
 # -- FedBuff's equivalence ---------------------------------------------------------

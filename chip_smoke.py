@@ -69,7 +69,7 @@
    whether it copies to contiguous; the boundary flush is timed on its own
    with CUDA events.
 9. The kernels line, the card line, and the last line
-   {"ok": true, "device": {...}}, printed after phase 14.
+   {"ok": true, "device": {...}}, printed after phase 15.
 10. The algorithm zoo.  (a) At the north-star width: BENCH_CONFIG with the
    algorithm's knobs changed and its cohort cut to ZOO_COHORT (8) clients
    (ZOO: FedProx, FedOpt/adam, FedNova, SCAFFOLD, FedDyn, AsyncFedAvg,
@@ -130,9 +130,9 @@
    full participation, a buffer of the cohort, staleness 0 and the constant
    policy against FedAvgAPI on the card, bit for bit (or within 1e-6, the
    reason logged).  (b) Each member and FedAvg on BENCH_CONFIG on sp (no
-   packing) with a cohort of 8 for 2 rounds (AsyncFedAvg: 16 updates;
-   FedBuff: 4 flushes of 4) on phase 8's dataset, decentralized on 16 nodes
-   with the data partitioned again at that count and cut to 8,000 images:
+   packing) with a cohort of 4 for 2 rounds (AsyncFedAvg: 8 updates;
+   FedBuff: 4 flushes of 2) on phase 8's dataset, decentralized on 8 nodes
+   with the data partitioned again at that count and cut to 4,000 images:
    round seconds, finite params, the member's invariant (SCAFFOLD's c =
    (1/N) sum_i c_i, FedDyn's h, FedNova's taus equal to the trainer's steps,
    FedBuff's flushes, HierarchicalFL's group sizes, decentralized's
@@ -158,6 +158,24 @@
    memory, launches against the steps, and one round under torch.profiler
    for the busy share.  (c) Phase 2's s2s rows (B 16 and the eval's B 102,
    L 24, H 4, D 32, fp32, causal) printed beside 14a's launches.
+15. The FedGraphNN family (the GCN heads at the hub's width: hidden 64, 2
+   layers, 16 nodes, 8 features, inputs [B, N, F+N]), with the TF32 flags as
+   the script found them.  No flash kernel lies on these paths, as no Pallas
+   kernel lies on them in the JAX package: every run's counts, set to 0 just
+   before it and read just after, must stay 0.  (a) The example configs as
+   they stand (sp_fedavg_linkpred_gcn, sp_spreadgnn_moleculenet_gcn and
+   app/fedgraphnn/fedml_config.yaml, adam) through the entry points, then
+   synthetic_graph gcn, ego_linkpred and recsys_linkpred gcn_linkpred,
+   ego_nodeclf gcn_nodeclf, freesolv gcn_reg and moleculenet_mtl gcn_mtl
+   under SpreadGNN with the linkpred example's knobs but SGD, each again on
+   the CPU: final params (every node's for SpreadGNN) within 2 lr (adam) or
+   GRAPH_CPU_ATOL (SGD).  (b) ego_linkpred and freesolv on the padded and the
+   packed round, 3 rounds, SGD: round seconds, samples/s, the labels kept
+   fp32, card against CPU within GRAPH_CPU_ATOL, and one round under
+   torch.profiler for the busy share and the aten ops a step.  (c)
+   decentralized FL (lr on mnist) and SpreadGNN (moleculenet_mtl) on backend
+   XLA, the in-mesh gossip round, against their sp twins on the card in turns
+   (XLA, sp, XLA, sp): every node's model within GRAPH_INMESH_ATOL.
 
 Any failure raises and the script exits non-zero with no result line.  It
 exits 2 when no CUDA device is visible.  Full details go to
@@ -2096,7 +2114,7 @@ def sp_backend_transformer_phase(ft, fa):
 # phase 13: the rest of the sp zoo.  13a: the zoo's example configs (and
 # FedBuff and AsyncFedAvg on sp_fedavg_mnist_lr) card against CPU, then
 # FedBuff against FedAvgAPI in FedBuff's equivalence configuration; 13b:
-# each member on BENCH_CONFIG at a cohort of 8 for 2 rounds; 13c: SCAFFOLD
+# each member on BENCH_CONFIG at a cohort of 4 for 2 rounds; 13c: SCAFFOLD
 # and FedSGD on slice 1's configuration under the flash kernels
 SP_ZOO_EXAMPLES = (
     ("sp_fedopt_mnist_lr", None), ("sp_fedprox_mnist_lr", None), ("sp_fednova_mnist_lr", None),
@@ -2106,9 +2124,10 @@ SP_ZOO_EXAMPLES = (
     ("sp_fedavg_mnist_lr", {"fl_mode": "async"}),
     ("sp_fedavg_mnist_lr", {"federated_optimizer": "Async_FedAvg"}),
 )
-# 13b: BENCH_CONFIG on sp with a cohort of 8, 2 rounds (AsyncFedAvg: 16
-# updates; FedBuff: 4 flushes of 4), only the member's knobs changed
-SP_ZOO_COHORT = 8
+# 13b: BENCH_CONFIG on sp with a cohort of 4, 2 rounds (AsyncFedAvg: 8
+# updates; FedBuff: 4 flushes of 2), only the member's knobs changed; the
+# depth is cut to keep the whole script near half its time limit
+SP_ZOO_COHORT = 4
 SP_ZOO = [
     ("FedAvg", {}),
     ("FedProx", {"federated_optimizer": "FedProx", "proximal_mu": 0.01}),
@@ -2117,15 +2136,15 @@ SP_ZOO = [
     ("FedSGD", {"federated_optimizer": "FedSGD"}),
     ("SCAFFOLD", {"federated_optimizer": "SCAFFOLD"}),
     ("FedDyn", {"federated_optimizer": "FedDyn", "feddyn_alpha": 0.01}),
-    ("AsyncFedAvg", {"federated_optimizer": "Async_FedAvg", "comm_round": 16}),
-    ("FedBuff", {"fl_mode": "async", "async_buffer_size": 4, "async_max_staleness": 2,
+    ("AsyncFedAvg", {"federated_optimizer": "Async_FedAvg", "comm_round": 8}),
+    ("FedBuff", {"fl_mode": "async", "async_buffer_size": 2, "async_max_staleness": 2,
                  "async_staleness_policy": "polynomial", "comm_round": 4}),
     ("HierarchicalFL", {"federated_optimizer": "HierarchicalFL", "group_num": 2,
                         "group_comm_round": 2}),
-    # every node trains every round: 16 nodes, the data partitioned again at
-    # that count and cut to 8,000 images (about the 500 a client of the others)
-    ("decentralized", {"federated_optimizer": "decentralized_fl", "client_num_in_total": 16,
-                       "synthetic_train_size": 8000}),
+    # every node trains every round: 8 nodes, the data partitioned again at
+    # that count and cut to 4,000 images (about the 500 a client of the others)
+    ("decentralized", {"federated_optimizer": "decentralized_fl", "client_num_in_total": 8,
+                       "synthetic_train_size": 4000}),
     ("TurboAggregate", {"federated_optimizer": "turbo_aggregate", "ta_group_num": 4}),
 ]
 
@@ -2255,8 +2274,8 @@ def _sp_zoo_invariant(name, api, steps) -> dict:
 
 
 def sp_zoo_resnet_phase(ft, fa, dataset, classes):
-    """13b: each member on BENCH_CONFIG (ResNet-56) on sp, a cohort of 8 for
-    2 rounds, on phase 8's dataset (decentralized: 16 nodes on its own):
+    """13b: each member on BENCH_CONFIG (ResNet-56) on sp, a cohort of 4 for
+    2 rounds, on phase 8's dataset (decentralized: 8 nodes on its own):
     round seconds, finite params, the member's invariant, peak memory over
     FedAvg's run on the same cohort, no flash launch."""
     import copy
@@ -2605,6 +2624,284 @@ def nlp_xla_phase(ft, fa):
     return paths, out
 
 
+# phase 15: the FedGraphNN family.  15a: the example configs as they stand
+# (sp_fedavg_linkpred_gcn, sp_spreadgnn_moleculenet_gcn and the fedgraphnn app
+# config, adam), then one short run of each head at the hub's width (hidden
+# 64, 2 layers, 16 nodes, 8 features) with the linkpred example's knobs but
+# SGD, each again on the CPU; 15b: ego_linkpred and freesolv on the padded
+# and the packed round; 15c: decentralized FL and SpreadGNN on backend XLA
+# (the in-mesh gossip round) against their sp twins, in turns.  No flash
+# kernel lies on these paths: every run's counts must stay 0
+GRAPH_EXAMPLES = ("examples/simulation/sp_fedavg_linkpred_gcn/fedml_config.yaml",
+                  "examples/simulation/sp_spreadgnn_moleculenet_gcn/fedml_config.yaml",
+                  "app/fedgraphnn/fedml_config.yaml")
+# (dataset, model, optimizer) of the SGD runs
+GRAPH_RUNS = (("synthetic_graph", "gcn", "FedAvg"), ("ego_linkpred", "gcn_linkpred", "FedAvg"),
+              ("recsys_linkpred", "gcn_linkpred", "FedAvg"),
+              ("ego_nodeclf", "gcn_nodeclf", "FedAvg"), ("freesolv", "gcn_reg", "FedAvg"),
+              ("moleculenet_mtl", "gcn_mtl", "SpreadGNN"))
+GRAPH_SGD = {"client_optimizer": "sgd", "learning_rate": 0.1}
+GRAPH_XLA_ROUNDS = 3
+# card against CPU, final params of an SGD run: fp32 with TF32 off on both,
+# sums in another order, 2 rounds of 16 steps a client
+GRAPH_CPU_ATOL = 1e-4
+# the adam examples: two runs that differ only in roundoff part by up to 2
+# lr a step (phase 14a's NLP_ADAM_CPU_ATOL_OVER_LR).  The fedgraphnn app
+# config trains 4 rounds to a test loss near 1e-4, where adam's normalised
+# steps take each coordinate's sign from a vanishing gradient: an "NVIDIA
+# H100 80GB HBM3, 700.00 W" ended it 7.2e-3 (1.43 lr) from the CPU, while
+# one-ulp changes of the init moved the CPU's own run by up to 0.057 lr
+GRAPH_ADAM_CPU_ATOL_OVER_LR = NLP_ADAM_CPU_ATOL_OVER_LR
+# 15c: the in-mesh round against its sp twin on the card; the padded shapes
+# agree (homo partitions of a power-of-two multiple of the batch a node), so
+# the two run the same kernels on the same rows
+GRAPH_INMESH_ATOL = 1e-6
+# 15c's decentralized run: the xla_decentralized_mnist_lr example with 64
+# images a node (it has 80, which the sp trainer pads to 128 and the in-mesh
+# round to 80)
+GRAPH_DECENTRALIZED_TRAIN = 512
+
+
+def _graph_config(path: str) -> dict:
+    import yaml
+
+    with open(os.path.join(ROOT, path)) as f:
+        config = yaml.safe_load(f)
+    config.setdefault("tracking_args", {})["log_file_dir"] = os.path.join(OUT_DIR, "log")
+    config["data_args"]["data_cache_dir"] = os.path.join(OUT_DIR, "no_data")  # synthetic
+    return config
+
+
+def _graph_runner(ft, config):
+    """A FedMLRunner through the entry points and its simulator object."""
+    import copy
+
+    args = ft.init(ft.Arguments.from_dict(copy.deepcopy(config)), should_init_logs=False)
+    dataset, classes = ft.data.load(args)
+    model = ft.models.hub.create(args, classes)
+    runner = ft.FedMLRunner(args, ft.device.get_device(args), dataset, model)
+    inner = runner.runner
+    return runner, getattr(inner, "fl_trainer", None) or inner.sim
+
+
+def _node_models(api) -> list:
+    """Every model an sp run ends with: the global model (a decentralized
+    run's consensus) and each node's."""
+    return [api.w_global, *getattr(api, "node_models", ())]
+
+
+def _models_diff(a, b):
+    """(max |param diff| over every model of two runs, the leaf it is in)."""
+    return max(((x[k].float().cpu() - y[k].float().cpu()).abs().max().item(), k)
+               for x, y in zip(_node_models(a), _node_models(b)) for k in x)
+
+
+def graph_sp_phase(ft, fa):
+    """15a: the example configs (GRAPH_EXAMPLES) as they stand, then each
+    head (GRAPH_RUNS) with the linkpred example's knobs but SGD, through the
+    entry points on the card and again on the CPU: final params (every
+    node's, for SpreadGNN) within 2 lr (adam) or GRAPH_CPU_ATOL (SGD).  The
+    counts are set to 0 just before each card run and read just after; none
+    may move.  Returns the launches and the runs' records."""
+    import copy
+
+    import torch
+
+    runs = []
+    for path in GRAPH_EXAMPLES:
+        config = _graph_config(path)
+        runs.append((path.split("/")[-2], config, GRAPH_ADAM_CPU_ATOL_OVER_LR
+                     * float(config["train_args"]["learning_rate"])))
+    base = _graph_config(GRAPH_EXAMPLES[0])
+    for dataset, model, optimizer in GRAPH_RUNS:
+        config = copy.deepcopy(base)
+        config["data_args"]["dataset"] = dataset
+        config["model_args"]["model"] = model
+        config["train_args"].update(GRAPH_SGD, federated_optimizer=optimizer)
+        if optimizer == "SpreadGNN":
+            config["train_args"]["topology_neighbor_num"] = 2
+        runs.append((f"{dataset} {model} {optimizer} (sgd)", config, GRAPH_CPU_ATOL))
+    out, total = {}, dict.fromkeys(fa.LAUNCHES, 0)
+    for name, config, atol in runs:
+        runner, api = _graph_runner(ft, config)
+        flags = _tf32_flags()
+        fa.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final = runner.run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(fa.LAUNCHES)
+        if _tf32_flags() != flags:
+            raise AssertionError(f"{name}: the run changed the TF32 flags")
+        if any(launches.values()):
+            raise AssertionError(f"{name}: flash kernels launched on a graph path: {launches}")
+        finite = all(bool(torch.isfinite(v).all()) for m in _node_models(api) for v in m.values())
+        if not finite or not math.isfinite(final["test_loss"]):
+            raise AssertionError(f"{name}: {final}")
+        cpu = copy.deepcopy(config)
+        cpu["device_args"] = {"device_type": "cpu"}
+        cpu_runner, cpu_api = _graph_runner(ft, cpu)
+        t0 = time.perf_counter()
+        cpu_final = cpu_runner.run()
+        cpu_seconds = time.perf_counter() - t0
+        diff, leaf = _models_diff(api, cpu_api)
+        log(f"  {name} ({type(api).__name__}, {type(api.trainer).__name__}, "
+            f"{api.args.client_num_in_total} clients, {api.args.comm_round} rounds, "
+            f"{api.args.client_optimizer}): {final} in {seconds:.2f} s (rounds "
+            f"{[round(x, 4) for x in api.round_times]} s); CPU {cpu_final} in "
+            f"{cpu_seconds:.2f} s; max |param diff| {diff:.3e} in {leaf} over "
+            f"{len(_node_models(api))} models (atol {atol:.1e})")
+        if diff > atol:
+            raise AssertionError(f"{name}: card vs CPU params differ by {diff:.3e}")
+        for k, v in launches.items():
+            total[k] += v
+        out[name] = {"final": final, "seconds": seconds, "round_seconds": list(api.round_times),
+                     "cpu_final": cpu_final, "cpu_seconds": cpu_seconds, "max_param_diff": diff,
+                     "max_diff_leaf": leaf, "atol": atol, "launches": launches}
+    return total, out
+
+
+def graph_xla_phase(ft, fa):
+    """15b: ego_linkpred and freesolv on the padded and the packed round,
+    GRAPH_XLA_ROUNDS rounds with the linkpred example's knobs but SGD: round
+    seconds, throughput(), the labels' dtype on the card (fp32: -1/0/1 pair
+    labels, [B, 1] targets), finite losses, the final params within
+    GRAPH_CPU_ATOL of a CPU run; then one more round under torch.profiler for
+    the card's busy share and the aten ops a step.  No counter may move.
+    Returns the launches and the runs' records."""
+    import copy
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    out, total = {}, dict.fromkeys(fa.LAUNCHES, 0)
+    for dataset, model in (("ego_linkpred", "gcn_linkpred"), ("freesolv", "gcn_reg")):
+        for pack in (False, True):
+            name = f"{dataset} {'packed' if pack else 'padded'}"
+            config = _graph_config(GRAPH_EXAMPLES[0])
+            config["data_args"]["dataset"] = dataset
+            config["model_args"]["model"] = model
+            config["comm_args"]["backend"] = "XLA"
+            config["train_args"].update(GRAPH_SGD, xla_pack=pack, comm_round=GRAPH_XLA_ROUNDS)
+            runner, sim = _graph_runner(ft, config)
+            if sim.y_all.dtype != torch.float32:
+                raise AssertionError(f"{name}: labels stored {sim.y_all.dtype}")
+            fa.reset_launches()
+            torch.cuda.synchronize()
+            final = runner.run()
+            torch.cuda.synchronize()
+            launches = dict(fa.LAUNCHES)
+            if any(launches.values()):
+                raise AssertionError(f"{name}: flash kernels launched: {launches}")
+            if not all(math.isfinite(x) for x in sim.round_losses) or \
+                    not all(bool(torch.isfinite(v).all()) for v in sim.variables.values()):
+                raise AssertionError(f"{name}: losses {sim.round_losses}")
+            cpu = copy.deepcopy(config)
+            cpu["device_args"] = {"device_type": "cpu"}
+            cpu_runner, cpu_sim = _graph_runner(ft, cpu)
+            cpu_runner.run()
+            diff = _max_param_diff(sim.variables, cpu_sim.variables)
+            if diff > GRAPH_CPU_ATOL:
+                raise AssertionError(f"{name}: card vs CPU params differ by {diff:.3e}")
+            tp = sim.throughput()
+            ids, real = sim._schedule(sim._client_sampling(1))
+            ids_counts = np.where(real > 0, sim.client_counts[ids], 0)
+            steps = int(sum(-(-int(n) // sim.batch_size) for n in ids_counts)) * sim.epochs
+            run = sim._run_packed_round if pack else sim._run_round
+            with ft.device.fp32_matmul():
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                             acc_events=True) as prof:
+                    t0 = time.perf_counter()
+                    float(run(1, ids, ids_counts))
+                    torch.cuda.synchronize()
+                    wall_ms = (time.perf_counter() - t0) * 1e3
+            events = [e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and e.self_device_time_total > 0 and "#" not in e.key]
+            device_ms = sum(e.self_device_time_total for e in events) / 1e3
+            aten = sum(1 for e in prof.profiler.kineto_results.events()
+                       if e.name().startswith("aten::"))
+            top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:5]
+            log(f"  {name}: rounds {[round(x, 4) for x in sim.round_times]} s, median "
+                f"{tp['median_round_s']:.4f} s, {tp['samples_per_sec']:,.1f} samples/s, losses "
+                f"{[round(x, 4) for x in sim.round_losses]}, final eval {final}; card vs CPU "
+                f"{diff:.3e} (atol {GRAPH_CPU_ATOL}); labels {tuple(sim.y_all.shape)} "
+                f"{sim.y_all.dtype}, loss {sim.loss_kind}")
+            log(f"  {name}: one round under the profiler: wall {wall_ms:.1f} ms, device busy "
+                f"{device_ms:.2f} ms ({100 * device_ms / wall_ms:.1f} %), {steps} steps, "
+                f"{aten / max(steps, 1):.0f} aten ops a step; top: "
+                + "; ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
+                            for e in top))
+            for k, v in launches.items():
+                total[k] += v
+            out[name] = {"round_seconds": list(sim.round_times), "throughput": tp,
+                         "round_losses": list(sim.round_losses), "final": final,
+                         "max_param_diff": diff, "launches": launches,
+                         "labels": [list(sim.y_all.shape), str(sim.y_all.dtype)],
+                         "profile": {"wall_ms": wall_ms, "device_ms": device_ms,
+                                     "steps": steps, "aten_ops_per_step": aten / max(steps, 1),
+                                     "top": [{"name": e.key, "device_ms":
+                                              e.self_device_time_total / 1e3, "calls": e.count}
+                                             for e in top]}}
+    return total, out
+
+
+def graph_inmesh_phase(ft, fa):
+    """15c: decentralized FL on lr / mnist (the xla_decentralized_mnist_lr
+    example, GRAPH_DECENTRALIZED_TRAIN images) and SpreadGNN on
+    moleculenet_mtl (the sp_spreadgnn example) on backend XLA, the in-mesh
+    gossip round, against their sp twins on the card, in turns (XLA, sp,
+    XLA, sp): every node's final model within GRAPH_INMESH_ATOL (bit for bit
+    where the kernels agree), each run's round seconds.  No counter may
+    move.  Returns the launches and the runs' records."""
+    import copy
+
+    import torch
+
+    dec = _graph_config("examples/simulation/xla_decentralized_mnist_lr/fedml_config.yaml")
+    dec["data_args"]["synthetic_train_size"] = GRAPH_DECENTRALIZED_TRAIN
+    spread = _graph_config(GRAPH_EXAMPLES[1])
+    out, total = {}, dict.fromkeys(fa.LAUNCHES, 0)
+    for name, config in (("decentralized_fl lr mnist", dec), ("SpreadGNN moleculenet_mtl", spread)):
+        apis, seconds = {}, {"XLA": [], "sp": []}
+        for backend in ("XLA", "sp", "XLA", "sp"):
+            c = copy.deepcopy(config)
+            c["comm_args"]["backend"] = backend
+            runner, api = _graph_runner(ft, c)
+            fa.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            final = runner.run()
+            torch.cuda.synchronize()
+            seconds[backend].append(time.perf_counter() - t0)
+            launches = dict(fa.LAUNCHES)
+            if any(launches.values()):
+                raise AssertionError(f"{name} {backend}: flash kernels launched: {launches}")
+            if not math.isfinite(final["test_loss"]):
+                raise AssertionError(f"{name} {backend}: {final}")
+            apis.setdefault(backend, (api, final, list(api.round_times)))
+        (xla, xla_final, xla_rounds), (sp, sp_final, sp_rounds) = apis["XLA"], apis["sp"]
+        if type(xla).__name__ not in ("DecentralizedInMeshAPI", "SpreadGNNInMeshAPI"):
+            raise AssertionError(f"{name}: backend XLA built {type(xla).__name__}")
+        nodes = int(xla.n_nodes)
+        diffs = [_max_param_diff(xla.node_params(i), sp.node_models[i]) for i in range(nodes)]
+        same = all(torch.equal(xla.node_params(i)[k], sp.node_models[i][k])
+                   for i in range(nodes) for k in sp.node_models[i])
+        log(f"  {name}: {type(xla).__name__} {nodes} nodes, padded_n {xla.padded_n}: "
+            f"{xla_final} in {[round(x, 3) for x in seconds['XLA']]} s (rounds "
+            f"{[round(x, 4) for x in xla_rounds]} s); {type(sp).__name__} {sp_final} in "
+            f"{[round(x, 3) for x in seconds['sp']]} s (rounds "
+            f"{[round(x, 4) for x in sp_rounds]} s); max |node diff| {max(diffs):.3e} "
+            f"(atol {GRAPH_INMESH_ATOL}), bit for bit {same}")
+        if max(diffs) > GRAPH_INMESH_ATOL:
+            raise AssertionError(f"{name}: in-mesh vs sp nodes differ by {max(diffs):.3e}")
+        out[name] = {"xla_final": xla_final, "sp_final": sp_final, "seconds": seconds,
+                     "xla_round_seconds": xla_rounds, "sp_round_seconds": sp_rounds,
+                     "max_node_diff": max(diffs), "bit_for_bit": same}
+    return total, out
+
+
 def ptxas_check(build, builds) -> dict:
     """Registers and spills of every kernel instantiation from ptxas's log;
     raises if an instantiation of a kernel of NO_SPILL spills."""
@@ -2877,12 +3174,29 @@ def main() -> int:
     nlp["seconds"] = time.perf_counter() - t14
     log(f"  phase 14 in {nlp['seconds']:.1f} s")
 
+    t15 = time.perf_counter()
+    graph = {"tf32_flags": flags_found}
+    phase("15a: the FedGraphNN family on sp: the example configs, then "
+          + ", ".join(f"{d} {m}" for d, m, _ in GRAPH_RUNS) + " (card vs CPU)")
+    graph_launches, graph["sp"] = graph_sp_phase(ft, fa)
+    phase(f"15b: ego_linkpred and freesolv on the padded and packed rounds "
+          f"({GRAPH_XLA_ROUNDS} rounds)")
+    graph_xla_launches, graph["xla"] = graph_xla_phase(ft, fa)
+    phase("15c: decentralized FL and SpreadGNN on backend XLA (the in-mesh gossip round) "
+          "against their sp twins, in turns")
+    graph_mesh_launches, graph["inmesh"] = graph_inmesh_phase(ft, fa)
+    if _tf32_flags() != flags_found:
+        raise AssertionError(f"tf32 flags {_tf32_flags()} after phase 15, found {flags_found}")
+    graph["seconds"] = time.perf_counter() - t15
+    log(f"  phase 15 in {graph['seconds']:.1f} s")
+
     phase("9: results")
 
     kernels = kernels_line(rows + fold_rows,
                            (launches, sp_launches, single_launches, zoo_launches, trust_launches,
                             sp_backend_launches, sp_zoo_launches, nlp_launches,
-                            *nlp_xla_launches))
+                            *nlp_xla_launches, graph_launches, graph_xla_launches,
+                            graph_mesh_launches))
     bench = bench_bf16_summary(rows)
     with open(os.path.join(OUT_DIR, "results.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -2900,6 +3214,7 @@ def main() -> int:
                    "sp_backend_launches": sp_backend_launches, "sp_zoo": sp_zoo,
                    "sp_zoo_launches": sp_zoo_launches, "nlp": nlp,
                    "nlp_launches": nlp_launches, "nlp_xla_launches": nlp_xla_launches,
+                   "graph": graph,
                    "phase_starts": starts, "seconds": time.perf_counter() - t_start}, f,
                   indent=1)
     log(f"== done in {time.perf_counter() - t_start:.1f} s")

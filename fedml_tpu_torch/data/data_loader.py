@@ -10,10 +10,11 @@ arrays and partition maps for the same config.  It returns the same 8-tuple::
 Data stay numpy ``(x, y)`` pairs; the simulator moves them to the device
 once (simulation/xla/fed_sim.py ``_pack_data``).  The whole dataset table is
 kept so names and class counts agree with the JAX package, but only the
-next-word-prediction and image kinds and the FedNLP family's (``seqcls``,
+next-word-prediction and image kinds, the FedNLP family's (``seqcls``,
 ``seqtag``, ``span``, ``s2s``, and ``taglr``, the projected bag of words of
-tag prediction) are ported: other kinds raise ``NotImplementedError`` naming
-the ROADMAP.md item that ports them.  Images
+tag prediction) and the FedGraphNN family's (``graph``, ``linkpred``,
+``mtl_graph``, ``nodeclf``, ``graphreg``) are ported: other kinds raise
+``NotImplementedError`` naming the ROADMAP.md item that ports them.  Images
 stay NHWC, as in the JAX package; the model's entry is the one place their
 layout changes.
 """
@@ -122,7 +123,8 @@ DATASET_SPECS: Dict[str, Dict[str, Any]] = {
 }
 
 
-_PORTED_KINDS = ("nwp", "image", "seqcls", "seqtag", "span", "s2s", "taglr")
+_PORTED_KINDS = ("nwp", "image", "seqcls", "seqtag", "span", "s2s", "taglr",
+                 "graph", "linkpred", "mtl_graph", "nodeclf", "graphreg")
 
 
 def _check_kind(name: str, spec: Dict[str, Any]) -> None:
@@ -150,6 +152,11 @@ def _generate(spec: Dict[str, Any], n: int, seed: int, scale_override: int = 0,
         return synthetic.make_sequence_classification(
             n, spec["classes"], int(spec["shape"][0]), spec["vocab"], seed=seed
         )
+    if kind == "graph":
+        return synthetic.make_graph_classification(
+            n, spec["num_nodes"], spec["feat_dim"], spec["classes"],
+            seed=seed, proto_seed=proto_seed,
+        )
     if kind == "seqtag":
         return synthetic.make_sequence_tagging(
             n, spec["classes"], int(spec["shape"][0]), spec["vocab"], seed=seed
@@ -161,6 +168,25 @@ def _generate(spec: Dict[str, Any], n: int, seed: int, scale_override: int = 0,
     if kind == "s2s":
         return synthetic.make_seq2seq(
             n, spec["src_len"], spec["tgt_len"], spec["vocab"], seed=seed
+        )
+    if kind == "linkpred":
+        return synthetic.make_link_prediction(
+            n, spec["num_nodes"], spec["feat_dim"], seed=seed,
+            bipartite=bool(spec.get("bipartite", False)), proto_seed=proto_seed,
+        )
+    if kind == "mtl_graph":
+        return synthetic.make_multitask_graphs(
+            n, spec["num_nodes"], spec["feat_dim"], spec["num_tasks"],
+            seed=seed, proto_seed=proto_seed,
+        )
+    if kind == "nodeclf":
+        return synthetic.make_node_classification(
+            n, spec["num_nodes"], spec["feat_dim"], spec["classes"],
+            seed=seed, proto_seed=proto_seed,
+        )
+    if kind == "graphreg":
+        return synthetic.make_graph_regression(
+            n, spec["num_nodes"], spec["feat_dim"], seed=seed, proto_seed=proto_seed,
         )
     if kind == "taglr":
         x, y = synthetic.make_classification(
@@ -219,8 +245,22 @@ def load(args) -> Tuple[list, int]:
     if method in ("hetero", "noniid", "dirichlet"):
         name = str(getattr(args, "dataset", "mnist")).lower()
         kind = DATASET_SPECS.get(name, {}).get("kind")
+        num_buckets = data["class_num"]
         if y_train.ndim == 1:
             part_labels = y_train
+        elif kind == "graphreg":
+            # continuous target: quartile-bin the property so the Dirichlet
+            # split skews by target range (class_num is 1 for regression)
+            t = y_train.reshape(len(y_train), -1)[:, 0]
+            part_labels = np.digitize(t, np.quantile(t, [0.25, 0.5, 0.75]))
+            num_buckets = 4
+        elif kind in ("linkpred", "mtl_graph"):
+            # labels carry -1 sentinels; bucket by positive-label count
+            # (graph density / task profile), clipped to the class range
+            pos = (y_train.reshape(len(y_train), -1) > 0).sum(axis=1)
+            if kind == "linkpred":
+                pos //= 2  # symmetric pairs: raw counts are always even
+            part_labels = (pos % data["class_num"]).astype(int)
         elif kind == "s2s":
             # bucket by mean target token (ignore the -1 source positions)
             flat = y_train.reshape(len(y_train), -1)
@@ -233,7 +273,7 @@ def load(args) -> Tuple[list, int]:
                 y_train.reshape(len(y_train), -1).mean(axis=1) % data["class_num"]
             ).astype(int)
         train_map = non_iid_partition_with_dirichlet_distribution(
-            part_labels, client_num, data["class_num"], alpha, seed=seed
+            part_labels, client_num, num_buckets, alpha, seed=seed
         )
     elif method in ("homo", "iid"):
         train_map = homo_partition(len(y_train), client_num, seed=seed)

@@ -2,8 +2,11 @@
 ``fedml_tpu/data/synthetic.py`` so the port draws bit-identical arrays from
 the same seeds.  Only the generators the ported slices need are here: the
 class-prototype images and features (``make_classification``), the
-next-word-prediction corpus, and the FedNLP task family's corpora (sequence
-classification, tagging, span extraction, seq2seq)."""
+next-word-prediction corpus, the FedNLP task family's corpora (sequence
+classification, tagging, span extraction, seq2seq) and the FedGraphNN
+family's graphs (graph classification, link prediction, multi-task, node
+classification, graph regression), each packed ``[n, N, F+N]`` (node
+features ‖ dense adjacency)."""
 
 from __future__ import annotations
 
@@ -152,4 +155,170 @@ def make_seq2seq(
     x[:, src_len] = 1  # SEP starts decoding
     x[:, src_len + 1 :] = tgt[:, : tgt_len - 1]
     y[:, src_len:] = tgt
+    return x, y
+
+
+def make_graph_classification(
+    n: int, num_nodes: int = 16, feat_dim: int = 8, num_classes: int = 4,
+    seed: int = 0, proto_seed: int = None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Synthetic graph-classification set packed as [n, N, F+N] (node
+    features ‖ dense adjacency — the layout models/gcn.py consumes).  Class
+    signal: per-class node-feature prototypes AND class-dependent edge
+    density, so both the feature and the structure path of a GNN carry
+    information."""
+    rng = np.random.RandomState(seed)
+    proto_rng = np.random.RandomState(seed if proto_seed is None else proto_seed)
+    protos = proto_rng.randn(num_classes, feat_dim).astype(np.float32)
+    densities = np.linspace(0.15, 0.6, num_classes)
+    y = rng.randint(0, num_classes, size=n).astype(np.int32)
+    x = np.zeros((n, num_nodes, feat_dim + num_nodes), np.float32)
+    for i in range(n):
+        c = y[i]
+        n_real = rng.randint(max(num_nodes // 2, 2), num_nodes + 1)
+        feats = protos[c] + 0.5 * rng.randn(n_real, feat_dim)
+        upper = rng.rand(n_real, n_real) < densities[c]
+        adj = np.triu(upper, 1)
+        adj = (adj | adj.T).astype(np.float32)
+        x[i, :n_real, :feat_dim] = feats
+        x[i, :n_real, feat_dim : feat_dim + n_real] = adj
+    return x, y
+
+
+def make_link_prediction(
+    n: int, num_nodes: int = 16, feat_dim: int = 8, seed: int = 0,
+    bipartite: bool = False, holdout: float = 0.3, proto_seed: int = None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Link-prediction subgraphs (reference app/fedgraphnn
+    ego_networks_link_pred; ``bipartite=True`` is the recsys
+    user-item variant, recsys_subgraph_link_pred).
+
+    Each sample: nodes carry a latent community (or user-group/item-category
+    when bipartite); edges form mostly within-community (across matching
+    user-group/item-category pairs when bipartite).  A ``holdout`` fraction
+    of true edges is removed from the observed adjacency and becomes the
+    positive labels; an equal number of true non-edges becomes the
+    negatives.  x [n, N, F+N] (features ‖ observed adjacency, the gcn.py
+    packing); y [n, N, N] f32 in {-1, 0, 1} (engine loss kind "linkpred")."""
+    rng = np.random.RandomState(seed)
+    prng = np.random.RandomState((seed if proto_seed is None else proto_seed) + 77)
+    protos = prng.randn(2, feat_dim).astype(np.float32)
+    x = np.zeros((n, num_nodes, feat_dim + num_nodes), np.float32)
+    y = np.full((n, num_nodes, num_nodes), -1.0, np.float32)
+    half = num_nodes // 2
+    for i in range(n):
+        if bipartite:
+            # nodes [0, half) = users, [half, N) = items; community = group
+            comm = np.concatenate([rng.randint(0, 2, half), rng.randint(0, 2, num_nodes - half)])
+            is_user = np.arange(num_nodes) < half
+            cross = is_user[:, None] != is_user[None, :]
+            p_edge = np.where(comm[:, None] == comm[None, :], 0.8, 0.05) * cross
+        else:
+            comm = rng.randint(0, 2, num_nodes)
+            p_edge = np.where(comm[:, None] == comm[None, :], 0.7, 0.05)
+        feats = protos[comm] + 0.4 * rng.randn(num_nodes, feat_dim)
+        upper = np.triu(rng.rand(num_nodes, num_nodes) < p_edge, 1)
+        true_adj = (upper | upper.T)
+        # hold out a fraction of true edges as positive labels
+        iu, ju = np.nonzero(np.triu(true_adj, 1))
+        if len(iu) == 0:
+            x[i, :, :feat_dim] = feats
+            continue
+        k = max(1, int(holdout * len(iu)))
+        pick = rng.choice(len(iu), size=k, replace=False)
+        obs = true_adj.copy()
+        obs[iu[pick], ju[pick]] = obs[ju[pick], iu[pick]] = False
+        # negatives: sample k true non-edges (off-diagonal)
+        neg_mask = ~true_adj & ~np.eye(num_nodes, dtype=bool)
+        if bipartite:
+            neg_mask &= cross
+        ni, nj = np.nonzero(np.triu(neg_mask, 1))
+        npick = rng.choice(len(ni), size=min(k, len(ni)), replace=False)
+        y[i, iu[pick], ju[pick]] = y[i, ju[pick], iu[pick]] = 1.0
+        y[i, ni[npick], nj[npick]] = y[i, nj[npick], ni[npick]] = 0.0
+        x[i, :, :feat_dim] = feats
+        x[i, :, feat_dim:] = obs.astype(np.float32)
+    return x, y
+
+
+def make_multitask_graphs(
+    n: int, num_nodes: int = 16, feat_dim: int = 8, num_tasks: int = 8,
+    seed: int = 0, proto_seed: int = None, label_frac: float = 0.7,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Multi-task molecular-property-style graphs with PARTIAL labels — the
+    SpreadGNN setting (reference research/SpreadGNN; moleculenet sider/tox21
+    carry per-task label masks).  Each graph has a latent prototype; task t's
+    binary label is sign(w_t · prototype); each (graph, task) entry is
+    observed with prob ``label_frac`` else -1.  x packed as [n, N, F+N]
+    (gcn.py layout); y [n, T] f32 in {-1, 0, 1} (engine loss "mtl_bce")."""
+    rng = np.random.RandomState(seed)
+    prng = np.random.RandomState(seed if proto_seed is None else proto_seed)
+    n_proto = 6
+    protos = prng.randn(n_proto, feat_dim).astype(np.float32)
+    task_w = prng.randn(num_tasks, feat_dim).astype(np.float32)
+    x = np.zeros((n, num_nodes, feat_dim + num_nodes), np.float32)
+    y = np.zeros((n, num_tasks), np.float32)
+    densities = np.linspace(0.15, 0.6, n_proto)
+    for i in range(n):
+        c = rng.randint(0, n_proto)
+        n_real = rng.randint(max(num_nodes // 2, 2), num_nodes + 1)
+        feats = protos[c] + 0.4 * rng.randn(n_real, feat_dim)
+        upper = rng.rand(n_real, n_real) < densities[c]
+        adj = np.triu(upper, 1)
+        adj = (adj | adj.T).astype(np.float32)
+        x[i, :n_real, :feat_dim] = feats
+        x[i, :n_real, feat_dim : feat_dim + n_real] = adj
+        labels = (task_w @ protos[c] > 0).astype(np.float32)
+        observed = rng.rand(num_tasks) < label_frac
+        y[i] = np.where(observed, labels, -1.0)
+    return x, y
+
+
+def make_node_classification(
+    n: int, num_nodes: int = 16, feat_dim: int = 8, num_classes: int = 3,
+    seed: int = 0, proto_seed: int = None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-node classification graphs (reference app/fedgraphnn
+    ego_networks_node_clf): each node's class is its community; features
+    carry the community prototype, edges form mostly within-community, so
+    both feature and structure paths are informative.  x [n, N, F+N]
+    (gcn.py packing); y [n, N] int32 node labels (padding nodes get 0 and
+    are silenced by the model's node mask)."""
+    rng = np.random.RandomState(seed)
+    prng = np.random.RandomState((seed if proto_seed is None else proto_seed) + 53)
+    protos = prng.randn(num_classes, feat_dim).astype(np.float32)
+    x = np.zeros((n, num_nodes, feat_dim + num_nodes), np.float32)
+    y = np.zeros((n, num_nodes), np.int32)
+    for i in range(n):
+        comm = rng.randint(0, num_classes, num_nodes)
+        feats = protos[comm] + 0.5 * rng.randn(num_nodes, feat_dim)
+        p_edge = np.where(comm[:, None] == comm[None, :], 0.5, 0.05)
+        upper = np.triu(rng.rand(num_nodes, num_nodes) < p_edge, 1)
+        adj = (upper | upper.T).astype(np.float32)
+        x[i, :, :feat_dim] = feats
+        x[i, :, feat_dim:] = adj
+        y[i] = comm
+    return x, y
+
+
+def make_graph_regression(
+    n: int, num_nodes: int = 16, feat_dim: int = 8, seed: int = 0,
+    proto_seed: int = None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Graph-level property regression (reference app/fedgraphnn
+    moleculenet_graph_reg): target = w · mean-node-features + density term
+    (both paths of a GNN carry signal).  y [n, 1] f32."""
+    rng = np.random.RandomState(seed)
+    prng = np.random.RandomState((seed if proto_seed is None else proto_seed) + 67)
+    w = prng.randn(feat_dim).astype(np.float32)
+    x = np.zeros((n, num_nodes, feat_dim + num_nodes), np.float32)
+    y = np.zeros((n, 1), np.float32)
+    for i in range(n):
+        feats = rng.randn(num_nodes, feat_dim).astype(np.float32)
+        density = rng.uniform(0.1, 0.6)
+        upper = np.triu(rng.rand(num_nodes, num_nodes) < density, 1)
+        adj = (upper | upper.T).astype(np.float32)
+        x[i, :, :feat_dim] = feats
+        x[i, :, feat_dim:] = adj
+        y[i, 0] = feats.mean(axis=0) @ w + 2.0 * density
     return x, y

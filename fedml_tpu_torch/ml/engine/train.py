@@ -155,8 +155,31 @@ def seq2seq_ce_loss(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tens
     return _masked_mean(per, (labels >= 0).float() * mask)
 
 
+def masked_sentinel_bce_loss(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor):
+    """BCE over the labeled entries only, -1 marking an unlabeled one: link
+    prediction ([B, N, N] pairwise scores; labeled are the held-out positives
+    and the sampled negatives) and multi-task property prediction with
+    partial labels ([B, T] task logits, the SpreadGNN setting).  The -1
+    labels are clamped to 0 for the BCE and masked out after it; the count
+    is the labeled entries under the example mask."""
+    per = F.binary_cross_entropy_with_logits(logits.float(), labels.float().clamp_min(0.0),
+                                             reduction="none")
+    mask = mask.float().reshape(mask.shape + (1,) * (per.dim() - mask.dim()))
+    return _masked_mean(per, (labels >= 0).float() * mask)
+
+
+def mse_loss(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor):
+    """Masked mean-squared error: each example's mean over its trailing axes
+    of (prediction - target)², the targets shaped as the predictions (graph
+    property regression)."""
+    sq = torch.square(logits.float() - labels.float())
+    per = sq.mean(dim=tuple(range(1, sq.dim()))) if sq.dim() > 1 else sq
+    return _masked_mean(per, mask)
+
+
 LOSS_FNS = {"ce": softmax_ce_loss, "bce": sigmoid_bce_loss, "span": span_ce_loss,
-            "s2s": seq2seq_ce_loss}
+            "s2s": seq2seq_ce_loss, "linkpred": masked_sentinel_bce_loss,
+            "mtl_bce": masked_sentinel_bce_loss, "mse": mse_loss}
 
 
 def build_loss_fn(module: nn.Module, loss: str = "ce") -> Callable:

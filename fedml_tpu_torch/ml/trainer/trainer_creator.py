@@ -1,9 +1,10 @@
 """Trainer factory (counterpart of ``fedml_tpu/ml/trainer/trainer_creator.py``):
 the dataset-family tables, the engine loss key per family, and
 ``create_model_trainer``.  The classification, next-word-prediction /
-sequence-tagging, tag-prediction, span-extraction and seq2seq trainers are
-ported; the other task trainers come with the model zoo (ROADMAP.md queue A,
-item 4: model zoo and trainers).
+sequence-tagging (node classification too: [B, N] node labels), tag-prediction,
+span-extraction, seq2seq, link-prediction, multi-task and regression trainers
+are ported; the other task trainers come with the model zoo (ROADMAP.md queue
+A, item 4: model zoo and trainers).
 
 Every trainer takes the grad hook it is given: the port's SCAFFOLD and
 FedDyn build their hooked trainer here, so the client loss is the
@@ -47,9 +48,8 @@ def loss_kind_for_dataset(dataset: str) -> str:
 
 
 _UNPORTED_FAMILIES = (
-    (_DET_DATASETS, "ModelTrainerDET"), (_LINKPRED_DATASETS, "ModelTrainerLinkPred"),
-    (_MTL_DATASETS, "ModelTrainerMTL"), (_AE_DATASETS, "ModelTrainerAE"),
-    (_SEG_DATASETS, "ModelTrainerSeg"), (_REG_DATASETS, "ModelTrainerReg"),
+    (_DET_DATASETS, "ModelTrainerDET"), (_AE_DATASETS, "ModelTrainerAE"),
+    (_SEG_DATASETS, "ModelTrainerSeg"),
 )
 
 
@@ -72,6 +72,18 @@ def trainer_class(dataset: str):
         from .s2s_trainer import ModelTrainerS2S
 
         return ModelTrainerS2S
+    if dataset in _LINKPRED_DATASETS:
+        from .graph_trainers import ModelTrainerLinkPred
+
+        return ModelTrainerLinkPred
+    if dataset in _MTL_DATASETS:
+        from .graph_trainers import ModelTrainerMTL
+
+        return ModelTrainerMTL
+    if dataset in _REG_DATASETS:
+        from .reg_trainer import ModelTrainerReg
+
+        return ModelTrainerReg
     for family, trainer in _UNPORTED_FAMILIES:
         if dataset in family:
             raise NotImplementedError(

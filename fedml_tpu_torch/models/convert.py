@@ -1,5 +1,5 @@
 """Weights carried across: the JAX package's TransformerLM, NLP encoder,
-ResNet and LogisticRegression variables onto the port's modules.
+ResNet, LogisticRegression and GCN variables onto the port's modules.
 
 The flax variables arrive as a nested dict of numpy arrays (``{"params":
 {...}}`` or the bare params dict).  The TransformerLM's mapping:
@@ -40,7 +40,14 @@ bias``                                             ``classifier.bias``
 The ``LogisticRegression``'s one layer: ``linear/kernel`` [in, out] to
 ``linear.weight`` (transposed), ``linear/bias`` to ``linear.bias``.
 
-The way back, one rule for the three families (``flax_leaf``): a parameter
+The GCNs' (``models/gcn.py``): every dense layer, ``gc{i}``, ``readout``,
+``embed``, ``node_head`` and ``reg_head``, its ``kernel`` [in, out] to
+``{layer}.weight`` (transposed) and its ``bias`` to ``{layer}.bias``; the
+link predictor's 0-d ``score_bias`` to ``score_bias``.  A GCN's ``embed`` is
+a dense layer, not an embedding: the layout tells the two apart by the
+``gc0`` layer beside it.
+
+The way back, one rule for the families (``flax_leaf``): a parameter
 ``a.b.weight`` is the leaf ``a/b/kernel`` (a 4-D convolution weight
 permuted OIHW -> HWIO, a 2-D dense weight transposed), ``a/b/embedding``
 (the embedding, unchanged) or ``a/b/scale`` (a norm's 1-D weight); ``.bias``
@@ -129,11 +136,26 @@ def linear_state_from_flax(variables: Mapping[str, Any]) -> Dict[str, np.ndarray
             "linear.bias": np.asarray(params["linear"]["bias"])}
 
 
+def gcn_state_from_flax(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """{torch parameter name: numpy array} for a flax GCN tree (any head)."""
+    params = variables.get("params", variables)
+    out: Dict[str, np.ndarray] = {}
+    for layer, leaves in params.items():
+        if layer == "score_bias":
+            out["score_bias"] = np.asarray(leaves)
+            continue
+        out[f"{layer}.weight"] = np.asarray(leaves["kernel"]).T
+        out[f"{layer}.bias"] = np.asarray(leaves["bias"])
+    return out
+
+
 def state_from_flax(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
     """The mapping of any model family, told apart by its first layer's leaf."""
     params = variables.get("params", variables)
     if set(params) == {"linear"}:
         return linear_state_from_flax(params)
+    if "gc0" in params:
+        return gcn_state_from_flax(params)
     if "conv_init" in params:
         return resnet_state_from_flax(params)
     return transformer_state_from_flax(params)
@@ -157,9 +179,14 @@ def variables_from_flax(variables: Mapping[str, Any], module: nn.Module,
     return out
 
 
-def flax_leaf(name: str, ndim: int) -> Tuple[Tuple[str, ...], Tuple[int, ...]]:
+def flax_leaf(name: str, ndim: int,
+              dense_embed: bool = False) -> Tuple[Tuple[str, ...], Tuple[int, ...]]:
     """(flax path under ``params``, permutation of the torch parameter's
-    axes into the flax leaf's row-major order) of the parameter ``name``."""
+    axes into the flax leaf's row-major order) of the parameter ``name``;
+    ``dense_embed`` reads an ``embed`` layer as dense (the GCN link
+    predictor's) rather than as an embedding."""
+    if ndim == 0:  # a bare 0-d parameter (the link predictor's score_bias)
+        return (name,), ()
     parts = name.split(".")
     if parts[0] == "layers":
         parts = [f"layer{parts[1]}"] + parts[2:]
@@ -171,7 +198,7 @@ def flax_leaf(name: str, ndim: int) -> Tuple[Tuple[str, ...], Tuple[int, ...]]:
     if ndim == 4:  # OIHW -> HWIO
         return module + ("kernel",), (2, 3, 1, 0)
     if ndim == 2:
-        if module[-1] == "embed":
+        if module[-1] == "embed" and not dense_embed:
             return module + ("embedding",), (0, 1)
         return module + ("kernel",), (1, 0)
     if ndim == 1:
@@ -188,8 +215,9 @@ class FlatLayout:
 
     def __init__(self, shapes: Sequence[Tuple[str, Tuple[int, ...]]]):
         rows = []
+        dense_embed = any(name.startswith("gc0.") for name, _ in shapes)  # a GCN
         for name, shape in shapes:
-            path, perm = flax_leaf(name, len(shape))
+            path, perm = flax_leaf(name, len(shape), dense_embed)
             rows.append((path, name, perm, tuple(shape[p] for p in perm)))
         rows.sort(key=lambda r: r[0])
         self.entries: List[Tuple[str, Tuple[str, ...], Tuple[int, ...], Tuple[int, ...],
@@ -227,7 +255,7 @@ class FlatLayout:
         for name, _, perm, fshape, off, n in self.entries:
             inv = tuple(int(i) for i in np.argsort(perm))
             v = vec[..., off:off + n].reshape(lead + fshape)
-            out[name] = v.permute(*range(len(lead)), *(len(lead) + i for i in inv))
+            out[name] = v.permute((*range(len(lead)), *(len(lead) + i for i in inv)))
         return out
 
     def unravel(self, vec: torch.Tensor, like: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

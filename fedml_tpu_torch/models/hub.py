@@ -5,9 +5,10 @@
 shapes and no storage, as the flax hub returns an uninitialised module.  The
 engine materialises it on the run's device and fills it from a seeded
 generator (``ml.engine.train.init_variables``).  The ``lr`` (the default),
-``transformer`` and ResNet keys and the FedNLP family's (the encoders of
-``models/nlp.py`` and the seq2seq TransformerLM) are ported; the other keys
-raise ``NotImplementedError`` naming the ROADMAP.md item that ports them.
+``transformer`` and ResNet keys, the FedNLP family's (the encoders of
+``models/nlp.py`` and the seq2seq TransformerLM) and the FedGraphNN family's
+(the GCN heads of ``models/gcn.py``) are ported; the other keys raise
+``NotImplementedError`` naming the ROADMAP.md item that ports them.
 """
 
 from __future__ import annotations
@@ -32,11 +33,12 @@ def _in_shape(dataset: str) -> tuple:
     return tuple(DATASET_SPECS.get(dataset, {}).get("shape", (32, 32, 3)))
 
 
-def _vocab(dataset: str, default: int) -> int:
-    """The dataset's vocabulary from its spec, else ``default``."""
+def _spec_int(dataset: str, key: str, default: int) -> int:
+    """An integer of the dataset's spec (``vocab``, ``feat_dim``,
+    ``num_tasks``), else ``default``."""
     from ..data.data_loader import DATASET_SPECS
 
-    return int(DATASET_SPECS.get(dataset, {}).get("vocab", default))
+    return int(DATASET_SPECS.get(dataset, {}).get(key, default))
 
 
 def _in_channels(dataset: str) -> int:
@@ -65,26 +67,50 @@ def create(args: Any, output_dim: int) -> nn.Module:
     if name in ("transformer_cls", "bert_cls", "distilbert"):
         from .nlp import TransformerClassifier
 
-        return TransformerClassifier(output_dim, vocab_size=_vocab(dataset, 2000), device="meta")
+        return TransformerClassifier(output_dim, vocab_size=_spec_int(dataset, "vocab", 2000),
+                                     device="meta")
     if name in ("transformer_tagger", "bert_tagger"):
         from .nlp import TransformerTagger
 
-        return TransformerTagger(output_dim, vocab_size=_vocab(dataset, 2000), device="meta")
+        return TransformerTagger(output_dim, vocab_size=_spec_int(dataset, "vocab", 2000),
+                                 device="meta")
     if name in ("transformer_span", "bert_qa"):
         from .nlp import TransformerSpanExtractor
 
         # compact head: at CI data scales a wide encoder memorizes spans
         # instead of learning the extraction rule
-        return TransformerSpanExtractor(vocab_size=_vocab(dataset, 200), d_model=48, d_ff=96,
-                                        device="meta")
+        return TransformerSpanExtractor(vocab_size=_spec_int(dataset, "vocab", 200), d_model=48,
+                                        d_ff=96, device="meta")
     if name in ("transformer_s2s", "bart_s2s", "seq2seq"):
         from .transformer import TransformerConfig, TransformerLM
 
         # causal decoder-only over [src | SEP | tgt], the loss masked to the
         # target positions: on the card its attention runs K1-K3
         return TransformerLM(TransformerConfig(
-            vocab_size=_vocab(dataset, max(output_dim, 64)), d_model=128, n_heads=4,
+            vocab_size=_spec_int(dataset, "vocab", max(output_dim, 64)), d_model=128, n_heads=4,
             n_layers=2, d_ff=256), device="meta")
+    if name in ("gcn", "graphsage", "gat"):
+        from .gcn import GCN
+
+        return GCN(output_dim, _spec_int(dataset, "feat_dim", 8), device="meta")
+    if name in ("gcn_linkpred", "gcn_link_pred"):
+        from .gcn import GCNLinkPred
+
+        return GCNLinkPred(_spec_int(dataset, "feat_dim", 8), device="meta")
+    if name in ("gcn_nodeclf", "gcn_node"):
+        from .gcn import GCNNodeClassifier
+
+        return GCNNodeClassifier(output_dim, _spec_int(dataset, "feat_dim", 8), device="meta")
+    if name in ("gcn_reg", "gcn_regressor"):
+        from .gcn import GCNRegressor
+
+        return GCNRegressor(_spec_int(dataset, "feat_dim", 8), device="meta")
+    if name in ("gcn_mtl", "gcn_multitask"):
+        from .gcn import GCN
+
+        # one logit a task
+        return GCN(_spec_int(dataset, "num_tasks", output_dim), _spec_int(dataset, "feat_dim", 8),
+                   device="meta")
     if name in _RESNETS:
         from . import resnet
 

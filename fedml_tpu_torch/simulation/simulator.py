@@ -3,7 +3,11 @@
 single-process round loop (``simulation/sp``), clients one after another
 through their trainer and the server aggregator's hooks; ``XLA`` (and
 ``MPI`` / ``NCCL``, as in the JAX package) runs the round simulator on one
-card."""
+card, or, for ``decentralized_fl`` and ``spreadgnn``, the in-mesh gossip
+round (``simulation/xla/decentralized.py``).  The round simulator refuses
+the other optimizers that have a program of their own in the JAX package
+(``create_inmesh_algorithm``: ROADMAP.md queue A, item 5: the other
+simulators)."""
 
 from __future__ import annotations
 
@@ -28,9 +32,19 @@ class SimulatorSingleProcess:
 
 class SimulatorXLA:
     def __init__(self, args, device, dataset, model):
-        from .xla.fed_sim import XLASimulator
+        opt = str(getattr(args, "federated_optimizer", "FedAvg")).lower()
+        if opt == "decentralized_fl":
+            from .xla.decentralized import DecentralizedInMeshAPI
 
-        self.sim = XLASimulator(args, dataset, model, device)
+            self.sim = DecentralizedInMeshAPI(args, device, dataset, model)
+        elif opt == "spreadgnn":
+            from .xla.decentralized import SpreadGNNInMeshAPI
+
+            self.sim = SpreadGNNInMeshAPI(args, device, dataset, model)
+        else:
+            from .xla.fed_sim import XLASimulator
+
+            self.sim = XLASimulator(args, dataset, model, device)
 
     def run(self):
         return self.sim.train()

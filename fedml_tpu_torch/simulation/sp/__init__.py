@@ -29,6 +29,7 @@ AsyncFedAvg       no     no      no      no      yes     yes    yes
 FedBuff (async)   yes(2) no      yes     yes     yes     yes    yes
 HierarchicalFL    no     no      no      no      yes(3)  yes    yes(3)
 decentralized     no     no      no      no      no      yes    no
+SpreadGNN         no     no      no      no      no      yes    no
 Turbo-Aggregate   no     yes     no      no      yes     yes    yes
 ================  =====  ======  ======  ======  ======  =====  =====
 
@@ -60,12 +61,13 @@ _MEMBERS = {
     "hierarchicalfl": ("hierarchical_fl.hier_api", "HierarchicalFLAPI"),
     "decentralized_fl": ("decentralized.decentralized_api", "DecentralizedFLAPI"),
     "turbo_aggregate": ("turboaggregate.ta_api", "TurboAggregateAPI"),
+    "spreadgnn": ("spreadgnn.spreadgnn_api", "SpreadGNNAPI"),
     "async_fedavg": ("async_fedavg.async_fedavg_api", "AsyncFedAvgAPI"),
 }
 _FEDBUFF = ("async_fedavg.fedbuff_api", "FedBuffAPI")
 # these come with their models
-_UNPORTED = dict.fromkeys(("spreadgnn", "classical_vertical", "split_nn", "fedgan", "fedgkt",
-                           "fednas", "fedseg"), _MODEL_ITEM)
+_UNPORTED = dict.fromkeys(("classical_vertical", "split_nn", "fedgan", "fedgkt", "fednas",
+                           "fedseg"), _MODEL_ITEM)
 
 
 def create_sp_algorithm(optimizer: str, args, device, dataset, model):

@@ -52,13 +52,16 @@ SLICE_MODULES = [
     "fedml_tpu_torch.ml.engine.train",
     "fedml_tpu_torch.ml.engine.packed",
     "fedml_tpu_torch.ml.trainer.cls_trainer",
+    "fedml_tpu_torch.ml.trainer.graph_trainers",
     "fedml_tpu_torch.ml.trainer.nwp_trainer",
+    "fedml_tpu_torch.ml.trainer.reg_trainer",
     "fedml_tpu_torch.ml.trainer.s2s_trainer",
     "fedml_tpu_torch.ml.trainer.span_trainer",
     "fedml_tpu_torch.ml.trainer.tag_trainer",
     "fedml_tpu_torch.ml.trainer.trainer_creator",
     "fedml_tpu_torch.ml.aggregator.aggregator_creator",
     "fedml_tpu_torch.ml.aggregator.default_aggregator",
+    "fedml_tpu_torch.models.gcn",
     "fedml_tpu_torch.models.hub",
     "fedml_tpu_torch.models.linear",
     "fedml_tpu_torch.models.nlp",
@@ -86,8 +89,11 @@ SLICE_MODULES = [
     "fedml_tpu_torch.simulation.sp.hierarchical_fl.hier_api",
     "fedml_tpu_torch.simulation.sp.decentralized.decentralized_api",
     "fedml_tpu_torch.simulation.sp.turboaggregate.ta_api",
+    "fedml_tpu_torch.simulation.sp.spreadgnn.spreadgnn_api",
     "fedml_tpu_torch.simulation.xla.algorithms",
+    "fedml_tpu_torch.simulation.xla.decentralized",
     "fedml_tpu_torch.simulation.xla.fed_sim",
+    "fedml_tpu_torch.simulation.xla.split",
     "fedml_tpu_torch.utils.metrics",
     "fedml_tpu_torch.utils.rng",
 ]

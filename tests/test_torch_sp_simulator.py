@@ -113,7 +113,8 @@ EXAMPLES = {"sp_fedavg_mnist_lr": "FedAvgAPI", "sp_fedavg_robust_mnist_lr": "Fed
 ZOO_CLASSES = {"FedOpt": "FedOptAPI", "FedProx": "FedProxAPI", "FedNova": "FedNovaAPI",
                "SCAFFOLD": "ScaffoldAPI", "FedDyn": "FedDynAPI", "FedSGD": "FedSGDAPI",
                "Async_FedAvg": "AsyncFedAvgAPI", "HierarchicalFL": "HierarchicalFLAPI",
-               "decentralized_fl": "DecentralizedFLAPI", "turbo_aggregate": "TurboAggregateAPI"}
+               "decentralized_fl": "DecentralizedFLAPI", "turbo_aggregate": "TurboAggregateAPI",
+               "SpreadGNN": "SpreadGNNAPI"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -434,11 +435,11 @@ def test_example_config_runs_on_the_port(name, tmp_path):
     ("FedDyn", "item 2"), ("FedSGD", "item 2"), ("Async_FedAvg", "item 2"),
     ("HierarchicalFL", "item 2"), ("decentralized_fl", "item 2"), ("turbo_aggregate", "item 2"),
     ("FedGKT", "item 4"), ("FedGAN", "item 4"), ("FedNAS", "item 4"), ("FedSeg", "item 4"),
-    ("split_nn", "item 4"), ("classical_vertical", "item 4"), ("SpreadGNN", "item 4"),
+    ("split_nn", "item 4"), ("classical_vertical", "item 4"), ("SpreadGNN", "item 2"),
 ])
 def test_other_sp_optimizers_raise_with_their_item(optimizer, item):
-    """The members of item 2 are ported now: each builds its class.  Those of
-    item 4 still raise, naming it."""
+    """The members of item 2, and SpreadGNN (ported with the graph family),
+    build their class.  Those of item 4 still raise, naming it."""
     from fedml_tpu_torch.simulation.sp import create_sp_algorithm
 
     args = fedml_tpu_torch.Arguments.from_dict(_config(LR_CONFIG, federated_optimizer=optimizer))
@@ -482,14 +483,16 @@ def test_sp_refusals_name_their_item(knobs, error, match):
                                      "nbaiot", "synthetic_seg", "freesolv"])
 def test_unported_trainer_families_raise_with_item_4(dataset):
     """The FedNLP family's trainers (tag prediction, span extraction,
-    seq2seq) are ported now: each builds its class.  The others still raise,
-    naming item 4."""
+    seq2seq) and the FedGraphNN family's (link prediction, multi-task,
+    regression) are ported now: each builds its class.  The others still
+    raise, naming item 4."""
     from fedml_tpu_torch.ml.trainer.trainer_creator import create_model_trainer
 
     args = fedml_tpu_torch.Arguments.from_dict(_config(LR_CONFIG))
     args.dataset = dataset
     ported = {"stackoverflow_lr": "ModelTrainerTAGPred", "squad_span": "ModelTrainerSpan",
-              "synthetic_s2s": "ModelTrainerS2S"}
+              "synthetic_s2s": "ModelTrainerS2S", "ego_linkpred": "ModelTrainerLinkPred",
+              "moleculenet_mtl": "ModelTrainerMTL", "freesolv": "ModelTrainerReg"}
     if dataset in ported:
         trainer = create_model_trainer(torch.nn.Linear(2, 2), args)
         assert type(trainer).__name__ == ported[dataset]
@@ -511,6 +514,24 @@ def test_ported_trainer_families():
         assert type(create_model_trainer(model, args)) is cls
     assert [ModelTrainerCLS.padded_size(n, 16) for n in (1, 16, 17, 64, 65)] == [
         16, 16, 32, 64, 128]
+
+
+@pytest.mark.parametrize("optimizer", ["classical_vertical", "split_nn", "FedGKT", "FedGAN",
+                                       "FedNAS", "turbo_aggregate", "HierarchicalFL"])
+def test_structural_optimizers_on_xla_raise_with_item_5(optimizer):
+    """Under ``backend: XLA`` the optimizers whose JAX twin is a program of
+    its own refuse, naming item 5; ``decentralized_fl`` and ``spreadgnn``
+    build theirs (``tests/test_torch_graph_simulation.py``)."""
+    from fedml_tpu_torch.simulation.simulator import create_simulator
+
+    config = _config(LR_CONFIG, federated_optimizer=optimizer)
+    config["comm_args"]["backend"] = "XLA"
+    args = fedml_tpu_torch.init(fedml_tpu_torch.Arguments.from_dict(config),
+                                should_init_logs=False)
+    dataset, classes = fedml_tpu_torch.data.load(args)
+    model = fedml_tpu_torch.models.hub.create(args, classes)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A, item 5:"):
+        create_simulator(args, torch.device("cpu"), dataset, model)
 
 
 def test_mpi_proc_backend_raises_with_item_5():

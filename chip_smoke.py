@@ -59,8 +59,8 @@
    models.hub.create -> FedMLRunner(...).run(): FedAvg of ResNet-56
    (GroupNorm, bf16 compute over fp32 params) on cifar10 (synthetic, 50,000
    NHWC images stored in bf16), 100 Dirichlet(0.5) clients, 32 a round
-   through the packed round, batch 64, SGD lr 0.001.  Cut: 3 rounds instead
-   of 6.  It checks the bf16 storage bit for bit, logs each round's seconds,
+   through the packed round, batch 64, SGD lr 0.001.  Cut: 2 rounds instead
+   of 6 (3 before phase 16 was added).  It checks the bf16 storage bit for bit, logs each round's seconds,
    real steps and bucket, throughput() and the peak memory, requires finite
    losses, and asserts that no flash kernel launched.  Then 8 clients of
    round 1's cohort run once more under torch.profiler: busy share, the top kernels, the
@@ -69,7 +69,7 @@
    whether it copies to contiguous; the boundary flush is timed on its own
    with CUDA events.
 9. The kernels line, the card line, and the last line
-   {"ok": true, "device": {...}}, printed after phase 15.
+   {"ok": true, "device": {...}}, printed after phase 16.
 10. The algorithm zoo.  (a) At the north-star width: BENCH_CONFIG with the
    algorithm's knobs changed and its cohort cut to ZOO_COHORT (8) clients
    (ZOO: FedProx, FedOpt/adam, FedNova, SCAFFOLD, FedDyn, AsyncFedAvg,
@@ -176,6 +176,24 @@
    decentralized FL (lr on mnist) and SpreadGNN (moleculenet_mtl) on backend
    XLA, the in-mesh gossip round, against their sp twins on the card in turns
    (XLA, sp, XLA, sp): every node's model within GRAPH_INMESH_ATOL.
+16. The vision model zoo with segmentation and detection, with the TF32
+   flags as the script found them.  No flash kernel lies on these paths (the
+   JAX package runs these convolutions outside any Pallas kernel): the
+   counts, set to 0 when the phase starts, must read 0 when it ends.  (a)
+   examples/simulation/sp_fedseg_synthetic_unet (FedSegAPI: its own loop,
+   SGD with momentum 0.9) and xla_fedseg_synthetic_unet (the round
+   simulator's FedAvg round) as they stand: the hub UNet on synthetic_seg,
+   pixel accuracy and mIoU.  (b) synthetic_det with tiny_detector on sp
+   (FedAvg) and on the packed round (the det loss, [B, 5] float labels):
+   class accuracy and box IoU.  Each run through the entry points and again
+   on the CPU, final params within VISION_CPU_ATOL; the round simulator's
+   runs log throughput() and one round under torch.profiler.  (c) One
+   forward and one SGD step of each new hub model at its width (cnn,
+   cnn_web, vgg11, vgg16, mobilenet, mobilenet_v3, efficientnet, unet,
+   tiny_detector, mlp and the rnn family; [8, 32, 32, 3] images, [8, 28, 28,
+   1] for the cnn keys, [8, 80] tokens, [8, 64] for mlp) in fp32 inside
+   device.fp32_matmul(), on the card and on the CPU from one seed: logits and
+   stepped params within VISION_STEP_RTOL, each card forward and step timed.
 
 Any failure raises and the script exits non-zero with no result line.  It
 exits 2 when no CUDA device is visible.  Full details go to
@@ -300,14 +318,15 @@ SP_BATCH, SP_LEN, SP_SHARDS, SP_LR = 8, 1024, 4, 1e-3
 # sp logits (ring, K4) against single-card logits (K1), fp32 with TF32 off:
 # the two sum each row's keys in another order, through 8 layers
 SP_PARITY_ATOL = 1e-3
-# slice 3: bench.py's _bench_args(1) (bench.py:97-128), 3 rounds instead of 6
+# slice 3: bench.py's _bench_args(1) (bench.py:97-128), 2 rounds instead of 6:
+# the third paid for phase 16
 BENCH_CONFIG = {
     "common_args": {"training_type": "simulation", "random_seed": 0, "run_id": "bench"},
     "data_args": {"dataset": "cifar10", "data_cache_dir": os.path.join(ROOT, "fedml_data"),
                   "partition_method": "hetero", "partition_alpha": 0.5},
     "model_args": {"model": "resnet56", "compute_dtype": "bf16"},
     "train_args": {"federated_optimizer": "FedAvg", "client_num_in_total": 100,
-                   "client_num_per_round": 32, "xla_pack": True, "comm_round": 3, "epochs": 1,
+                   "client_num_per_round": 32, "xla_pack": True, "comm_round": 2, "epochs": 1,
                    "batch_size": 64, "client_optimizer": "sgd", "learning_rate": 0.001},
     "validation_args": {"frequency_of_the_test": 0},
     "device_args": {"device_type": "gpu"},
@@ -2773,7 +2792,6 @@ def graph_xla_phase(ft, fa):
     import copy
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     out, total = {}, dict.fromkeys(fa.LAUNCHES, 0)
     for dataset, model in (("ego_linkpred", "gcn_linkpred"), ("freesolv", "gcn_reg")):
@@ -2805,46 +2823,56 @@ def graph_xla_phase(ft, fa):
             if diff > GRAPH_CPU_ATOL:
                 raise AssertionError(f"{name}: card vs CPU params differ by {diff:.3e}")
             tp = sim.throughput()
-            ids, real = sim._schedule(sim._client_sampling(1))
-            ids_counts = np.where(real > 0, sim.client_counts[ids], 0)
-            steps = int(sum(-(-int(n) // sim.batch_size) for n in ids_counts)) * sim.epochs
-            run = sim._run_packed_round if pack else sim._run_round
-            with ft.device.fp32_matmul():
-                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                             acc_events=True) as prof:
-                    t0 = time.perf_counter()
-                    float(run(1, ids, ids_counts))
-                    torch.cuda.synchronize()
-                    wall_ms = (time.perf_counter() - t0) * 1e3
-            events = [e for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA
-                      and e.self_device_time_total > 0 and "#" not in e.key]
-            device_ms = sum(e.self_device_time_total for e in events) / 1e3
-            aten = sum(1 for e in prof.profiler.kineto_results.events()
-                       if e.name().startswith("aten::"))
-            top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:5]
             log(f"  {name}: rounds {[round(x, 4) for x in sim.round_times]} s, median "
                 f"{tp['median_round_s']:.4f} s, {tp['samples_per_sec']:,.1f} samples/s, losses "
                 f"{[round(x, 4) for x in sim.round_losses]}, final eval {final}; card vs CPU "
                 f"{diff:.3e} (atol {GRAPH_CPU_ATOL}); labels {tuple(sim.y_all.shape)} "
                 f"{sim.y_all.dtype}, loss {sim.loss_kind}")
-            log(f"  {name}: one round under the profiler: wall {wall_ms:.1f} ms, device busy "
-                f"{device_ms:.2f} ms ({100 * device_ms / wall_ms:.1f} %), {steps} steps, "
-                f"{aten / max(steps, 1):.0f} aten ops a step; top: "
-                + "; ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
-                            for e in top))
+            prof = _profiled_round(ft, sim, name)
             for k, v in launches.items():
                 total[k] += v
             out[name] = {"round_seconds": list(sim.round_times), "throughput": tp,
                          "round_losses": list(sim.round_losses), "final": final,
                          "max_param_diff": diff, "launches": launches,
                          "labels": [list(sim.y_all.shape), str(sim.y_all.dtype)],
-                         "profile": {"wall_ms": wall_ms, "device_ms": device_ms,
-                                     "steps": steps, "aten_ops_per_step": aten / max(steps, 1),
-                                     "top": [{"name": e.key, "device_ms":
-                                              e.self_device_time_total / 1e3, "calls": e.count}
-                                             for e in top]}}
+                         "profile": prof}
     return total, out
+
+
+def _profiled_round(ft, sim, name: str) -> dict:
+    """Round 1's cohort once more under torch.profiler on a round simulator
+    (its padded or packed round): wall and device-busy ms, steps, aten ops a
+    step and the top kernels, logged and returned."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    ids, real = sim._schedule(sim._client_sampling(1))
+    ids_counts = np.where(real > 0, sim.client_counts[ids], 0)
+    steps = int(sum(-(-int(n) // sim.batch_size) for n in ids_counts)) * sim.epochs
+    run = sim._run_packed_round if sim.packed else sim._run_round
+    with ft.device.fp32_matmul():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            t0 = time.perf_counter()
+            float(run(1, ids, ids_counts))
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0 and "#" not in e.key]
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    aten = sum(1 for e in prof.profiler.kineto_results.events()
+               if e.name().startswith("aten::"))
+    top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:5]
+    log(f"  {name}: one round under the profiler: wall {wall_ms:.1f} ms, device busy "
+        f"{device_ms:.2f} ms ({100 * device_ms / wall_ms:.1f} %), {steps} steps, "
+        f"{aten / max(steps, 1):.0f} aten ops a step; top: "
+        + "; ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
+                    for e in top))
+    return {"wall_ms": wall_ms, "device_ms": device_ms, "steps": steps,
+            "aten_ops_per_step": aten / max(steps, 1),
+            "top": [{"name": e.key, "device_ms": e.self_device_time_total / 1e3,
+                     "calls": e.count} for e in top]}
 
 
 def graph_inmesh_phase(ft, fa):
@@ -2900,6 +2928,210 @@ def graph_inmesh_phase(ft, fa):
                      "xla_round_seconds": xla_rounds, "sp_round_seconds": sp_rounds,
                      "max_node_diff": max(diffs), "bit_for_bit": same}
     return total, out
+
+
+# Phase 16: the vision model zoo with segmentation and detection.  16a: the
+# two FedSeg example configs as they stand (the hub UNet on synthetic_seg:
+# sp's FedSegAPI and the round simulator's FedAvg round); 16b: synthetic_det
+# with tiny_detector on sp (FedAvg) and on the packed round; each run again on
+# the CPU.  16c: one forward and one SGD step of each new hub model at the
+# hub's width on the card and on the CPU.  No flash kernel lies on these
+# paths, as no Pallas kernel lies on them in the JAX package: the counts, set
+# to 0 when the phase starts, must read 0 when it ends
+VISION_EXAMPLES = ("examples/simulation/sp_fedseg_synthetic_unet/fedml_config.yaml",
+                   "examples/simulation/xla_fedseg_synthetic_unet/fedml_config.yaml")
+# 16b's runs: the sp example's knobs (4 clients, 2 a round, batch 16, SGD lr
+# 0.05) with FedAvg of tiny_detector on 256 synthetic_det images, 2 rounds
+VISION_DET = {"dataset": "synthetic_det", "model": "tiny_detector", "train": 256, "rounds": 2}
+# card against CPU, the final params of an SGD run (FedSeg's momentum 0.9
+# included): fp32 with TF32 off on both, sums in another order
+VISION_CPU_ATOL = 1e-4
+# 16c: hub key -> (dataset whose spec sizes the model, the input: [8, 32, 32, 3]
+# images, [8, 28, 28, 1] for the cnn keys, [8, 80] tokens, [8, 64] for mlp).
+# The aliases build the same classes (tests/test_torch_vision_models.py)
+VISION_KEYS = (("cnn", "mnist"), ("cnn_web", "mnist"), ("vgg11", "cifar10"),
+               ("vgg16", "cifar10"), ("mobilenet", "cifar10"), ("mobilenet_v3", "cifar10"),
+               ("efficientnet", "cifar10"), ("unet", "synthetic_seg"),
+               ("tiny_detector", "synthetic_det"), ("mlp", "agnews"), ("rnn", "shakespeare"),
+               ("rnn_fedshakespeare", "shakespeare"), ("rnn_stackoverflow", "shakespeare"))
+VISION_BATCH = 8
+VISION_LR = 0.05
+# 16c's card against CPU: the logits and the params after the step, fp32 with
+# TF32 off, relative to the largest |value| (the deep GroupNorm nets sum 14-28
+# normalised convolutions in another order)
+VISION_STEP_RTOL = 1e-4
+
+
+def _final_params(api) -> dict:
+    """The global model a run ends with (sp: ``w_global``; the round
+    simulator: ``variables``)."""
+    w = getattr(api, "w_global", None)
+    return w if w is not None else api.variables
+
+
+def _vision_config(path: str, det: bool = False, **train) -> dict:
+    config = _graph_config(path)
+    if det:
+        config["data_args"].update(dataset=VISION_DET["dataset"],
+                                   synthetic_train_size=VISION_DET["train"])
+        config["model_args"]["model"] = VISION_DET["model"]
+        config["train_args"].update(federated_optimizer="FedAvg", comm_round=VISION_DET["rounds"])
+    config["train_args"].update(train)
+    return config
+
+
+def vision_runs_phase(ft, fa):
+    """16a and 16b: each run through the entry points on the card and again
+    on the CPU, final params within VISION_CPU_ATOL; its seconds, rounds,
+    final eval (pixel accuracy and mIoU; class accuracy and box IoU), and for
+    the round simulator's runs throughput() and one more round under
+    torch.profiler.  Returns the runs' records."""
+    import copy
+
+    import torch
+
+    runs = [(path.split("/")[-2], _vision_config(path)) for path in VISION_EXAMPLES]
+    runs += [("synthetic_det tiny_detector sp", _vision_config(VISION_EXAMPLES[0], det=True)),
+             ("synthetic_det tiny_detector packed",
+              _vision_config(VISION_EXAMPLES[1], det=True, xla_pack=True))]
+    out = {}
+    for name, config in runs:
+        runner, api = _graph_runner(ft, config)
+        flags = _tf32_flags()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final = runner.run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        if _tf32_flags() != flags:
+            raise AssertionError(f"{name}: the run changed the TF32 flags")
+        params = _final_params(api)
+        if not all(bool(torch.isfinite(v).all()) for v in params.values()) or \
+                not all(math.isfinite(v) for k, v in final.items() if k != "round"):
+            raise AssertionError(f"{name}: {final}")
+        cpu = copy.deepcopy(config)
+        cpu["device_args"] = {"device_type": "cpu"}
+        cpu_runner, cpu_api = _graph_runner(ft, cpu)
+        t0 = time.perf_counter()
+        cpu_final = cpu_runner.run()
+        cpu_seconds = time.perf_counter() - t0
+        diff = _max_param_diff(params, _final_params(cpu_api))
+        rec = {"api": type(api).__name__, "final": final, "seconds": seconds,
+               "round_seconds": list(api.round_times), "cpu_final": cpu_final,
+               "cpu_seconds": cpu_seconds, "max_param_diff": diff}
+        extra = ""
+        if hasattr(api, "throughput"):
+            tp = api.throughput()
+            rec["throughput"] = tp
+            extra = (f", median round {tp['median_round_s']:.4f} s, "
+                     f"{tp['samples_per_sec']:,.1f} samples/s, loss {api.loss_kind}")
+        log(f"  {name} ({type(api).__name__}, {api.args.client_num_in_total} clients, "
+            f"{api.args.client_num_per_round} a round, {api.args.comm_round} rounds): {final} in "
+            f"{seconds:.2f} s (rounds {[round(x, 4) for x in api.round_times]} s{extra}); CPU "
+            f"{cpu_final} in {cpu_seconds:.2f} s; max |param diff| {diff:.3e} "
+            f"(atol {VISION_CPU_ATOL})")
+        if diff > VISION_CPU_ATOL:
+            raise AssertionError(f"{name}: card vs CPU params differ by {diff:.3e}")
+        if hasattr(api, "throughput"):
+            rec["profile"] = _profiled_round(ft, api, name)
+        out[name] = rec
+    return out
+
+
+def _vision_batch(key: str, classes: int):
+    """16c's seeded inputs and labels for hub ``key``: (x, y, loss kind)."""
+    rng = np.random.RandomState(16)
+    b = VISION_BATCH
+    if key.startswith("rnn"):
+        return (rng.randint(0, 90, (b, 80)).astype(np.int64),
+                rng.randint(0, 90, (b, 80)).astype(np.int64), "ce")
+    if key == "mlp":
+        return rng.randn(b, 64).astype(np.float32), rng.randint(0, classes, b), "ce"
+    hw = (28, 28, 1) if key.startswith("cnn") else (32, 32, 3)
+    x = rng.rand(b, *hw).astype(np.float32)
+    if key == "unet":
+        return x, rng.randint(0, classes, (b, 32, 32)), "ce"
+    if key == "tiny_detector":
+        y = np.concatenate([rng.randint(0, classes, (b, 1)), rng.rand(b, 4)], axis=1)
+        return x, y.astype(np.float32), "det"
+    return x, rng.randint(0, classes, b), "ce"
+
+
+def vision_models_phase(ft):
+    """16c: each VISION_KEYS model built by the hub at its width, filled from
+    one seed on the card and on the CPU: one forward (eval mode) and one SGD
+    step (lr VISION_LR, eval mode: dropout draws from each device's own
+    generator) on VISION_BATCH seeded samples, through the engine's loss,
+    inside device.fp32_matmul(); the logits and the stepped params within
+    VISION_STEP_RTOL of the CPU's.  Each card forward and step is timed after
+    a warm one.  Returns the records."""
+    import types
+
+    import torch
+    from fedml_tpu_torch.data.data_loader import DATASET_SPECS
+    from fedml_tpu_torch.ml.engine.train import LOSS_FNS, init_variables
+
+    dev = ft.device.get_device(types.SimpleNamespace())  # the card
+    out = {}
+    with ft.device.fp32_matmul():
+        for key, dataset in VISION_KEYS:
+            classes = int(DATASET_SPECS[dataset]["classes"])
+            x, y, loss_kind = _vision_batch(key, classes)
+            results = []  # the card's, then the CPU's
+            for device in (dev, torch.device("cpu")):
+                model = ft.models.hub.create(types.SimpleNamespace(model=key, dataset=dataset),
+                                             classes)
+                init_variables(model, device, seed=0)
+                model.eval()
+                xs, ys = torch.from_numpy(x).to(device), torch.from_numpy(y).to(device)
+                opt = torch.optim.SGD(model.parameters(), lr=VISION_LR)
+
+                def step():
+                    logits = model(xs)
+                    loss = LOSS_FNS[loss_kind](logits, ys, torch.ones(len(y), device=device))[0]
+                    opt.zero_grad(set_to_none=True)
+                    loss.backward()
+                    opt.step()
+                    return logits, loss
+
+                with torch.no_grad():
+                    logits = model(xs).float()
+                _, loss = step()
+                params = {k: v.detach().clone() for k, v in model.named_parameters()}
+                rec = {"logits": logits.cpu(), "loss": loss.item(),
+                       "params": {k: v.cpu() for k, v in params.items()}}
+                if device is dev:
+                    for _ in range(2):  # warm, then timed
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        with torch.no_grad():
+                            model(xs)
+                        torch.cuda.synchronize()
+                        t1 = time.perf_counter()
+                        step()
+                        torch.cuda.synchronize()
+                        t2 = time.perf_counter()
+                    rec["forward_ms"], rec["step_ms"] = (t1 - t0) * 1e3, (t2 - t1) * 1e3
+                    rec["n_params"] = sum(p.numel() for p in model.parameters())
+                    rec["class"] = type(model).__name__
+                results.append(rec)
+            card, cpu = results
+            scale = max(float(cpu["logits"].abs().max()), 1e-12)
+            logit_err = float((card["logits"] - cpu["logits"]).abs().max()) / scale
+            param_err = max(float((card["params"][k] - v).abs().max())
+                            / max(float(v.abs().max()), 1e-12) for k, v in cpu["params"].items())
+            log(f"  {key} ({card['class']}, {card['n_params']:,} params, {dataset}, x "
+                f"{list(x.shape)}): loss {card['loss']:.5f} (CPU {cpu['loss']:.5f}), forward "
+                f"{card['forward_ms']:.2f} ms, step {card['step_ms']:.2f} ms; card vs CPU "
+                f"logits {logit_err:.3e}, params after the step {param_err:.3e} (rtol "
+                f"{VISION_STEP_RTOL})")
+            if not math.isfinite(card["loss"]) or max(logit_err, param_err) > VISION_STEP_RTOL:
+                raise AssertionError(f"{key}: card vs CPU {logit_err:.3e} / {param_err:.3e}")
+            out[key] = {"class": card["class"], "params": card["n_params"], "dataset": dataset,
+                        "input": list(x.shape), "loss": card["loss"], "cpu_loss": cpu["loss"],
+                        "forward_ms": card["forward_ms"], "step_ms": card["step_ms"],
+                        "logits_rel_err": logit_err, "params_rel_err": param_err}
+    return out
 
 
 def ptxas_check(build, builds) -> dict:
@@ -3190,13 +3422,31 @@ def main() -> int:
     graph["seconds"] = time.perf_counter() - t15
     log(f"  phase 15 in {graph['seconds']:.1f} s")
 
+    t16 = time.perf_counter()
+    vision = {"tf32_flags": flags_found}
+    fa.reset_launches()
+    phase("16a-b: the FedSeg examples (sp, XLA), then synthetic_det tiny_detector on sp and "
+          "the packed round (card vs CPU)")
+    vision["runs"] = vision_runs_phase(ft, fa)
+    phase("16c: one forward and one SGD step of each new hub model (card vs CPU)")
+    vision["models"] = vision_models_phase(ft)
+    vision_launches = dict(fa.LAUNCHES)
+    log(f"  phase 16 launches {vision_launches}")
+    if any(vision_launches.values()):
+        raise AssertionError(f"flash kernels launched on a vision path: {vision_launches}")
+    if _tf32_flags() != flags_found:
+        raise AssertionError(f"tf32 flags {_tf32_flags()} after phase 16, found {flags_found}")
+    vision["launches"] = vision_launches
+    vision["seconds"] = time.perf_counter() - t16
+    log(f"  phase 16 in {vision['seconds']:.1f} s")
+
     phase("9: results")
 
     kernels = kernels_line(rows + fold_rows,
                            (launches, sp_launches, single_launches, zoo_launches, trust_launches,
                             sp_backend_launches, sp_zoo_launches, nlp_launches,
                             *nlp_xla_launches, graph_launches, graph_xla_launches,
-                            graph_mesh_launches))
+                            graph_mesh_launches, vision_launches))
     bench = bench_bf16_summary(rows)
     with open(os.path.join(OUT_DIR, "results.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -3214,7 +3464,7 @@ def main() -> int:
                    "sp_backend_launches": sp_backend_launches, "sp_zoo": sp_zoo,
                    "sp_zoo_launches": sp_zoo_launches, "nlp": nlp,
                    "nlp_launches": nlp_launches, "nlp_xla_launches": nlp_xla_launches,
-                   "graph": graph,
+                   "graph": graph, "vision": vision,
                    "phase_starts": starts, "seconds": time.perf_counter() - t_start}, f,
                   indent=1)
     log(f"== done in {time.perf_counter() - t_start:.1f} s")

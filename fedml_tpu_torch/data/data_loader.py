@@ -12,11 +12,12 @@ once (simulation/xla/fed_sim.py ``_pack_data``).  The whole dataset table is
 kept so names and class counts agree with the JAX package, but only the
 next-word-prediction and image kinds, the FedNLP family's (``seqcls``,
 ``seqtag``, ``span``, ``s2s``, and ``taglr``, the projected bag of words of
-tag prediction) and the FedGraphNN family's (``graph``, ``linkpred``,
-``mtl_graph``, ``nodeclf``, ``graphreg``) are ported: other kinds raise
-``NotImplementedError`` naming the ROADMAP.md item that ports them.  Images
-stay NHWC, as in the JAX package; the model's entry is the one place their
-layout changes.
+tag prediction), the FedGraphNN family's (``graph``, ``linkpred``,
+``mtl_graph``, ``nodeclf``, ``graphreg``) and the vision tasks'
+(``segmentation``: [H, W] int masks; ``detection``: [5] float labels, class
+then box) are ported: other kinds raise ``NotImplementedError`` naming the
+ROADMAP.md item that ports them.  Images stay NHWC, as in the JAX package;
+the model's entry is the one place their layout changes.
 """
 
 from __future__ import annotations
@@ -124,7 +125,8 @@ DATASET_SPECS: Dict[str, Dict[str, Any]] = {
 
 
 _PORTED_KINDS = ("nwp", "image", "seqcls", "seqtag", "span", "s2s", "taglr",
-                 "graph", "linkpred", "mtl_graph", "nodeclf", "graphreg")
+                 "graph", "linkpred", "mtl_graph", "nodeclf", "graphreg", "segmentation",
+                 "detection")
 
 
 def _check_kind(name: str, spec: Dict[str, Any]) -> None:
@@ -146,6 +148,10 @@ def _generate(spec: Dict[str, Any], n: int, seed: int, scale_override: int = 0,
         return synthetic.make_next_token_corpus(
             n, int(spec["shape"][0]), spec["vocab"], seed=seed, proto_seed=proto_seed
         )
+    if kind == "segmentation":
+        return synthetic.make_segmentation(
+            n, tuple(spec["shape"][:2]), seed=seed, proto_seed=proto_seed
+        )
     if kind == "seqcls":
         # class->vocab-band mapping is deterministic, so train/test share the
         # distribution without a proto_seed
@@ -164,6 +170,10 @@ def _generate(spec: Dict[str, Any], n: int, seed: int, scale_override: int = 0,
     if kind == "span":
         return synthetic.make_span_extraction(
             n, int(spec["shape"][0]), spec["vocab"], seed=seed
+        )
+    if kind == "detection":
+        return synthetic.make_detection(
+            n, tuple(spec["shape"][:2]), spec["classes"], seed=seed
         )
     if kind == "s2s":
         return synthetic.make_seq2seq(
@@ -248,6 +258,18 @@ def load(args) -> Tuple[list, int]:
         num_buckets = data["class_num"]
         if y_train.ndim == 1:
             part_labels = y_train
+        elif kind == "detection":
+            part_labels = y_train[:, 0].astype(int)  # object class column
+        elif kind == "segmentation":
+            # dominant FOREGROUND class per image: a mask-mean bucket would
+            # put ~every image in bucket 0 (background majority) and the
+            # Dirichlet split would degenerate to quantity-only
+            flat = y_train.reshape(len(y_train), -1)
+            counts = np.stack(
+                [(flat == c).sum(axis=1) for c in range(data["class_num"])], axis=1
+            )
+            fg = counts[:, 1:]
+            part_labels = np.where(fg.max(axis=1) > 0, fg.argmax(axis=1) + 1, 0)
         elif kind == "graphreg":
             # continuous target: quartile-bin the property so the Dirichlet
             # split skews by target range (class_num is 1 for regression)

@@ -3,8 +3,9 @@
 The part of ``fedml_tpu/data/loaders.py`` that the ported slices reach: the
 LEAF json layout the next-word-prediction datasets (and femnist and
 stackoverflow_lr) are published in, the CIFAR python pickles, the NUS-WIDE
-multi-label features, and the edge-case example pools of the edge-case
-backdoor.  A dataset the JAX package has no parser for has no real files:
+multi-label features, the FeTS 2021 NIfTI volumes (read without nibabel:
+the middle axial slice of each subject, resized), and the edge-case example
+pools of the edge-case backdoor.  A dataset the JAX package has no parser for has no real files:
 ``try_load_real`` returns None and the caller generates synthetic data, as
 in the JAX package.  The other image, tabular and volume parsers are ported
 with the slices that train on those datasets (ROADMAP.md queue A, item 3:
@@ -26,10 +27,10 @@ LEAF_DATASETS = ("femnist", "shakespeare", "fed_shakespeare", "stackoverflow_nwp
                  "stackoverflow_lr")
 CIFAR_DATASETS = ("cifar10", "cifar100", "fed_cifar100")
 NUSWIDE_DATASETS = ("nuswide", "nus_wide")
+FETS_DATASETS = ("fets2021",)
 # the datasets whose JAX parser is not ported yet
 _UNPORTED_PARSERS = ("mnist", "fashionmnist", "cinic10", "uci", "lending_club", "imagenet",
-                     "ilsvrc2012", "tiny_imagenet", "gld23k", "gld160k", "landmarks",
-                     "fets2021")
+                     "ilsvrc2012", "tiny_imagenet", "gld23k", "gld160k", "landmarks")
 
 
 def load_leaf_json(root: str) -> Optional[Arrays]:
@@ -105,6 +106,8 @@ def try_load_real(name: str, cache_dir: str) -> Optional[Arrays]:
         parse = load_cifar_pickle
     elif name in NUSWIDE_DATASETS:
         parse = load_nuswide
+    elif name in FETS_DATASETS:
+        parse = load_fets_nifti
     elif name in _UNPORTED_PARSERS:
         raise NotImplementedError(
             f"no parser for cached {name!r} files in the port yet "
@@ -174,6 +177,97 @@ def load_nuswide(root: str, top_k: int = 5) -> Optional[Arrays]:
         return None
     n_tr, n_te = min(len(xt), len(yt)), min(len(xe), len(ye))
     return xt[:n_tr], yt[:n_tr], xe[:n_te], ye[:n_te]
+
+
+# -- FeTS 2021 (medical segmentation, NIfTI volumes) ------------------------
+
+_NIFTI_DTYPES = {2: np.uint8, 4: np.int16, 8: np.int32, 16: np.float32,
+                 64: np.float64, 256: np.int8, 512: np.uint16}
+
+
+def _read_nifti(path: str) -> Optional[np.ndarray]:
+    """Minimal little-endian NIfTI-1 reader (no nibabel in the image):
+    348-byte header — dim[8] @40, datatype @70, vox_offset @108; data is
+    Fortran-ordered."""
+    import gzip
+    import struct
+
+    op = gzip.open if path.endswith(".gz") else open
+    try:
+        with op(path, "rb") as f:
+            buf = f.read()
+    except (OSError, EOFError, gzip.BadGzipFile):
+        return None  # corrupt/truncated volume: skip subject, don't abort load
+    if len(buf) < 352 or struct.unpack_from("<i", buf, 0)[0] != 348:
+        return None
+    dim = struct.unpack_from("<8h", buf, 40)
+    ndim = max(1, min(dim[0], 7))
+    shape = tuple(int(d) for d in dim[1 : 1 + ndim])
+    dt = _NIFTI_DTYPES.get(struct.unpack_from("<h", buf, 70)[0])
+    if dt is None or any(s <= 0 for s in shape):
+        return None
+    vox = int(struct.unpack_from("<f", buf, 108)[0]) or 352
+    n = int(np.prod(shape))
+    if vox + n * np.dtype(dt).itemsize > len(buf):
+        return None  # truncated data section
+    arr = np.frombuffer(buf, dtype=dt, offset=vox, count=n)
+    return arr.reshape(shape, order="F")
+
+
+def _mid_slice_resized(vol: np.ndarray, size: int) -> np.ndarray:
+    """Middle axial slice, nearest-neighbor resized to [size, size]."""
+    sl = vol[:, :, vol.shape[2] // 2] if vol.ndim >= 3 else vol
+    sl = np.asarray(sl, np.float32)
+    iy = np.linspace(0, sl.shape[0] - 1, size).astype(int)
+    ix = np.linspace(0, sl.shape[1] - 1, size).astype(int)
+    return sl[np.ix_(iy, ix)]
+
+
+def load_fets_nifti(root: str, size: int = 32) -> Optional[Arrays]:
+    """FeTS 2021 (reference ``data/FeTS2021``; BraTS per-subject layout):
+    ``<subject>/<subject>_{t1,t1ce,t2,flair}.nii[.gz]`` + ``_seg``.  Takes
+    the middle axial slice, stacks 3 modalities as channels (normalized
+    per-slice), maps seg labels {0,1,2,4} -> {0,1,2}, and splits subjects
+    80/20 (sorted order, deterministic)."""
+    subjects = sorted(
+        d for d in os.listdir(root) if os.path.isdir(os.path.join(root, d))
+    )
+    xs, ys = [], []
+    for s in subjects:
+        sdir = os.path.join(root, s)
+        files = {f.lower(): os.path.join(sdir, f) for f in os.listdir(sdir)}
+
+        def _mod(name):
+            # exact modality suffix: "_t1" must not match "..._t1ce.nii.gz"
+            for k, p in files.items():
+                if k.endswith((f"{name}.nii", f"{name}.nii.gz")):
+                    return _read_nifti(p)
+            return None
+
+        seg = _mod("_seg")
+        mods = [m for m in (_mod("_t1ce"), _mod("_t1"), _mod("_t2"), _mod("_flair"))
+                if m is not None][:3]
+        if seg is None or not mods:
+            continue
+        while len(mods) < 3:
+            mods.append(mods[-1])
+        chans = []
+        for m in mods:
+            sl = _mid_slice_resized(m, size)
+            denom = sl.max() - sl.min()
+            chans.append((sl - sl.min()) / (denom if denom > 0 else 1.0))
+        mask = _mid_slice_resized(seg, size).astype(np.int32)
+        mask = np.where(mask >= 2, 2, mask)
+        xs.append(np.stack(chans, axis=-1))
+        ys.append(mask)
+    if len(xs) < 2:
+        return None
+    x, y = np.stack(xs), np.stack(ys)
+    cut = max(1, int(0.8 * len(x)))
+    return x[:cut], y[:cut], x[cut:], y[cut:]
+
+
+# -- edge-case backdoor example pools (ARDIS / Southwest) --------------------
 
 
 def load_edge_case_pool(root: str) -> Optional[dict]:

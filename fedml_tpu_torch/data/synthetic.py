@@ -3,10 +3,11 @@
 the same seeds.  Only the generators the ported slices need are here: the
 class-prototype images and features (``make_classification``), the
 next-word-prediction corpus, the FedNLP task family's corpora (sequence
-classification, tagging, span extraction, seq2seq) and the FedGraphNN
+classification, tagging, span extraction, seq2seq), the FedGraphNN
 family's graphs (graph classification, link prediction, multi-task, node
 classification, graph regression), each packed ``[n, N, F+N]`` (node
-features ‖ dense adjacency)."""
+features ‖ dense adjacency), and the vision tasks' segmentation pairs and
+single-object detection images."""
 
 from __future__ import annotations
 
@@ -321,4 +322,65 @@ def make_graph_regression(
         x[i, :, :feat_dim] = feats
         x[i, :, feat_dim:] = adj
         y[i, 0] = feats.mean(axis=0) @ w + 2.0 * density
+    return x, y
+
+
+def make_segmentation(
+    n: int, image_hw: Tuple[int, int] = (32, 32), seed: int = 0, proto_seed: int = None
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Synthetic segmentation pairs: images [n, H, W, 3] with a random circle
+    (class 1) and/or rectangle (class 2) on textured background (class 0);
+    masks [n, H, W] int32.  Shape-faithful stand-in for VOC/COCO-style data
+    when no cache is mounted (FedSeg)."""
+    h, w = image_hw
+    rng = np.random.RandomState(seed)
+    # the class "appearance" (object colors) is the distribution — it derives
+    # from proto_seed so train and test share it (same contract as
+    # make_classification's prototypes)
+    proto_rng = np.random.RandomState(seed if proto_seed is None else proto_seed)
+    circle_color = np.array([0.9, 0.2, 0.2]) + 0.05 * proto_rng.randn(3)
+    rect_color = np.array([0.2, 0.2, 0.9]) + 0.05 * proto_rng.randn(3)
+    x = rng.rand(n, h, w, 3).astype(np.float32) * 0.2
+    masks = np.zeros((n, h, w), dtype=np.int32)
+    yy, xx = np.mgrid[0:h, 0:w]
+    for i in range(n):
+        if rng.rand() < 0.8:  # circle
+            cy, cx = rng.randint(h // 4, 3 * h // 4), rng.randint(w // 4, 3 * w // 4)
+            r = rng.randint(min(h, w) // 8, min(h, w) // 4)
+            circ = (yy - cy) ** 2 + (xx - cx) ** 2 <= r * r
+            masks[i][circ] = 1
+            x[i][circ] = circle_color + 0.1 * rng.randn(3)
+        if rng.rand() < 0.8:  # rectangle (drawn second: may occlude)
+            y0, x0 = rng.randint(0, h // 2), rng.randint(0, w // 2)
+            hh, ww = rng.randint(h // 6, h // 3), rng.randint(w // 6, w // 3)
+            rect = np.zeros((h, w), bool)
+            rect[y0 : y0 + hh, x0 : x0 + ww] = True
+            masks[i][rect] = 2
+            x[i][rect] = rect_color + 0.1 * rng.randn(3)
+    return x, masks
+
+
+def make_detection(
+    n: int, hw: Tuple[int, int], num_classes: int, seed: int = 0
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Single-object detection set (reference app/fedcv/object_detection
+    shape): one axis-aligned bright box per image, class = box color channel
+    pattern.  x [n, H, W, 3] f32; y [n, 5] f32 = (class, cx, cy, w, h) with
+    box coords normalized to [0, 1]."""
+    rng = np.random.RandomState(seed)
+    H, W = hw
+    x = (rng.rand(n, H, W, 3) * 0.15).astype(np.float32)
+    y = np.zeros((n, 5), np.float32)
+    for i in range(n):
+        cls = rng.randint(0, num_classes)
+        bw = rng.randint(W // 6, W // 2)
+        bh = rng.randint(H // 6, H // 2)
+        x0 = rng.randint(0, W - bw)
+        y0 = rng.randint(0, H - bh)
+        patch = np.full((bh, bw, 3), 0.2, np.float32)
+        patch[..., cls % 3] = 0.95  # class-dependent dominant channel
+        if cls >= 3:  # second pattern axis: bright frame
+            patch[0, :, :] = patch[-1, :, :] = patch[:, 0, :] = patch[:, -1, :] = 1.0
+        x[i, y0:y0 + bh, x0:x0 + bw] = patch
+        y[i] = (cls, (x0 + bw / 2) / W, (y0 + bh / 2) / H, bw / W, bh / H)
     return x, y

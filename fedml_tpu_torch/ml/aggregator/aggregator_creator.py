@@ -3,9 +3,9 @@
 masked eval computes token-level metrics for next-word prediction, sequence
 tagging and node classification, and the task-eval branch for tag
 prediction, span extraction, seq2seq, link prediction, multi-task
-prediction and graph regression, which evaluates through the task trainer's
-``test``.  The other task evals come with their trainers (ROADMAP.md queue
-A, item 4: model zoo and trainers)."""
+prediction, graph regression, segmentation and detection, which evaluates
+through the task trainer's ``test``.  The autoencoder's eval comes with its
+trainer (ROADMAP.md queue A, item 4: model zoo and trainers)."""
 
 from __future__ import annotations
 
@@ -17,15 +17,16 @@ from ..trainer.trainer_creator import (
 from .default_aggregator import DefaultServerAggregator
 
 _TRAINER_EVAL_DATASETS = (_TAG_DATASETS | _SPAN_DATASETS | _S2S_DATASETS | _LINKPRED_DATASETS
-                          | _MTL_DATASETS | _REG_DATASETS)
-_TASK_EVAL_DATASETS = _DET_DATASETS | _AE_DATASETS | _SEG_DATASETS
+                          | _MTL_DATASETS | _REG_DATASETS | _SEG_DATASETS | _DET_DATASETS)
+_TASK_EVAL_DATASETS = _AE_DATASETS
 
 
 class _TrainerEvalAggregator(DefaultServerAggregator):
     """Evaluates through a task trainer's ``test`` (tag BCE metrics, span
     exact match, seq2seq token accuracy and exact match, the labeled-entry
-    hits of link and multi-task prediction, regression SSE and hits).  The
-    probe trainer is built once."""
+    hits of link and multi-task prediction, regression SSE and hits, pixel
+    accuracy and mIoU, detection class accuracy and box IoU).  The probe
+    trainer is built once."""
 
     def __init__(self, model, args, trainer_cls):
         super().__init__(model, args)

@@ -38,7 +38,7 @@ from torch import nn
 from ...simulation.xla.algorithms import out_buffer, split_slots, store_out, tree_add_
 from ...models.convert import FlatLayout
 from .train import (LocalTrainResult, build_loss_fn, load_variables, make_optimizer,
-                    param_list, post_train_generator, resolve_grad_hook)
+                    param_list, post_train_generator, resolve_grad_hook, seed_dropout)
 
 Variables = Dict[str, torch.Tensor]
 
@@ -148,6 +148,9 @@ def build_packed_device_fn(
     step.  A client's step count ``tau`` counts its steps whose mask holds a
     valid sample, read from the schedule.
 
+    Dropout masks (``models/cnn.py``'s ``Dropout``) come from one generator
+    a round, seeded (seed, round, ``DROPOUT_SALT``), drawn in stream order.
+
     ``post_train(variables, gen)`` rewrites a client's final variables at its
     boundary (local DP), drawing from ``post_train_generator((seed, round,
     client), device)`` with ``seed_round`` = (seed, round) given per call.
@@ -185,6 +188,7 @@ def build_packed_device_fn(
             by_stream = y_all.index_select(0, flat).reshape(idx.shape + y_all.shape[1:])
         load_variables(module, variables)
         module.train()
+        seed_dropout(module, seed_round, dev)
         params = list(module.parameters())
         params0 = param_list(variables, names)
         opt = make_opt(params)

@@ -21,7 +21,11 @@ optimizer step.  Semantics follow the JAX engine:
 
 The shuffle uses a ``torch.Generator`` seeded from (seed..., epoch); its
 permutations are not ``jax.random``'s, so tests compare the two engines
-where the shuffle cannot matter (one full batch per epoch).
+where the shuffle cannot matter (one full batch per epoch).  Dropout masks
+(``models/cnn.py``'s ``Dropout``) come from one generator a client run,
+seeded from (seed..., ``DROPOUT_SALT``) on the data's device; they cannot be
+the JAX engine's either, so parity tests hold dropout models with dropout
+made deterministic on both sides.
 """
 
 from __future__ import annotations
@@ -47,6 +51,9 @@ PostTrain = Callable[[Variables, torch.Generator], Variables]
 # the salt of a client's post-train generator, the JAX package's
 # fold_in(rng, 104729)
 POST_TRAIN_SALT = 104729
+# the salt of a client run's dropout masks (the JAX engine folds each step's
+# dropout key out of the run's key instead)
+DROPOUT_SALT = 2718
 
 
 def post_train_generator(seed: Sequence[int], device) -> torch.Generator:
@@ -124,9 +131,10 @@ def _masked_mean(per: torch.Tensor, mask: torch.Tensor):
 
 
 def softmax_ce_loss(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor):
-    """Masked CE.  Handles both [B] labels and [B, L] per-token labels (NWP):
-    a per-example mask [B] broadcasts over trailing label axes.  Logits are
-    promoted to fp32.  Returns (mean, (total, count))."""
+    """Masked CE.  Handles [B] labels, [B, L] per-token labels (NWP) and
+    [B, H, W] per-pixel labels (segmentation): a per-example mask [B]
+    broadcasts over the trailing label axes.  Logits are promoted to fp32.
+    Returns (mean, (total, count))."""
     return _masked_mean(_ce(logits, labels), mask)
 
 
@@ -142,6 +150,20 @@ def span_ce_loss(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor)
     over sequence positions for each endpoint, summed."""
     per = _ce(logits[..., 0], labels[:, 0]) + _ce(logits[..., 1], labels[:, 1])
     return _masked_mean(per, mask)
+
+
+def detection_loss(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
+                   box_weight: float = 5.0):
+    """Single-object detection: logits [B, C+4] (class logits, then the box),
+    labels [B, 5] = (class, cx, cy, w, h); the class CE plus ``box_weight``
+    times the smooth-L1 (beta 1) of the box summed over its four
+    coordinates, masked per example."""
+    n_cls = logits.shape[-1] - 4
+    logits = logits.float()
+    per_cls = _ce(logits[:, :n_cls], labels[:, 0].long())
+    diff = (logits[:, n_cls:] - labels[:, 1:].float()).abs()
+    per_box = torch.where(diff < 1.0, 0.5 * diff * diff, diff - 0.5).sum(dim=-1)
+    return _masked_mean(per_cls + box_weight * per_box, mask)
 
 
 def seq2seq_ce_loss(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor):
@@ -178,8 +200,9 @@ def mse_loss(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor):
 
 
 LOSS_FNS = {"ce": softmax_ce_loss, "bce": sigmoid_bce_loss, "span": span_ce_loss,
-            "s2s": seq2seq_ce_loss, "linkpred": masked_sentinel_bce_loss,
-            "mtl_bce": masked_sentinel_bce_loss, "mse": mse_loss}
+            "det": detection_loss, "s2s": seq2seq_ce_loss,
+            "linkpred": masked_sentinel_bce_loss, "mtl_bce": masked_sentinel_bce_loss,
+            "mse": mse_loss}
 
 
 def build_loss_fn(module: nn.Module, loss: str = "ce") -> Callable:
@@ -205,6 +228,19 @@ def load_variables(module: nn.Module, variables: Variables) -> None:
 
 def get_variables(module: nn.Module) -> Variables:
     return {name: p.detach().clone() for name, p in module.named_parameters()}
+
+
+def seed_dropout(module: nn.Module, seed: Sequence[int], device) -> None:
+    """Point every ``Dropout`` of ``module`` at one generator on ``device``
+    seeded from (``seed``..., ``DROPOUT_SALT``): a run draws its masks in
+    call order, so a replay draws the same ones."""
+    from ...models.cnn import Dropout
+
+    layers = [m for m in module.modules() if isinstance(m, Dropout)]
+    if layers:
+        gen = seeded_generator((*seed, DROPOUT_SALT), device)
+        for m in layers:
+            m.generator = gen
 
 
 def shuffle_generator(seed: Sequence[int]) -> torch.Generator:
@@ -243,6 +279,7 @@ def build_local_train(
               seed: Sequence[int] = (0,), extra: Optional[Variables] = None) -> LocalTrainResult:
         load_variables(module, variables)
         module.train()
+        seed_dropout(module, seed, x.device)
         params = list(module.parameters())
         anchor, extra_l = param_list(variables, names), param_list(extra, names)
         opt = make_opt(params)

@@ -2,9 +2,10 @@
 the dataset-family tables, the engine loss key per family, and
 ``create_model_trainer``.  The classification, next-word-prediction /
 sequence-tagging (node classification too: [B, N] node labels), tag-prediction,
-span-extraction, seq2seq, link-prediction, multi-task and regression trainers
-are ported; the other task trainers come with the model zoo (ROADMAP.md queue
-A, item 4: model zoo and trainers).
+span-extraction, seq2seq, link-prediction, multi-task, regression,
+segmentation (the ``ce`` loss over [B, H, W] masks) and detection trainers
+are ported; the autoencoder's comes with its model (ROADMAP.md queue A,
+item 4: model zoo and trainers).
 
 Every trainer takes the grad hook it is given: the port's SCAFFOLD and
 FedDyn build their hooked trainer here, so the client loss is the
@@ -47,10 +48,7 @@ def loss_kind_for_dataset(dataset: str) -> str:
     return "ce"
 
 
-_UNPORTED_FAMILIES = (
-    (_DET_DATASETS, "ModelTrainerDET"), (_AE_DATASETS, "ModelTrainerAE"),
-    (_SEG_DATASETS, "ModelTrainerSeg"),
-)
+_UNPORTED_FAMILIES = ((_AE_DATASETS, "ModelTrainerAE"),)
 
 
 def trainer_class(dataset: str):
@@ -84,6 +82,14 @@ def trainer_class(dataset: str):
         from .reg_trainer import ModelTrainerReg
 
         return ModelTrainerReg
+    if dataset in _DET_DATASETS:
+        from .det_trainer import ModelTrainerDET
+
+        return ModelTrainerDET
+    if dataset in _SEG_DATASETS:
+        from .seg_trainer import ModelTrainerSeg
+
+        return ModelTrainerSeg
     for family, trainer in _UNPORTED_FAMILIES:
         if dataset in family:
             raise NotImplementedError(

@@ -1,5 +1,6 @@
 """Weights carried across: the JAX package's TransformerLM, NLP encoder,
-ResNet, LogisticRegression and GCN variables onto the port's modules.
+ResNet, LogisticRegression, GCN and vision-zoo variables onto the port's
+modules.
 
 The flax variables arrive as a nested dict of numpy arrays (``{"params":
 {...}}`` or the bare params dict).  The TransformerLM's mapping:
@@ -22,30 +23,19 @@ instead of ``lm_head``: ``cls_head``, ``tag_head`` or ``span_head``, its
 ``kernel`` [in, out] to ``{head}.weight`` (transposed) and its ``bias`` to
 ``{head}.bias``.
 
-The ResNets' (``CifarResNet``, ``ResNet18``), ``{c}`` a convolution and ``{n}``
-its GroupNorm:
-
-=================================================  ======================================
-flax leaf                                          torch parameter
-=================================================  ======================================
-``conv_init/kernel``,                              ``{c}.weight`` [O, I, H, W]
-``stage{s}_block{b}/{conv1,conv2,proj}/kernel``
-[H, W, I, O]
-``norm_init``, ``stage{s}_block{b}/{norm1,norm2,   ``{n}.weight``, ``{n}.bias``
-norm_proj}`` ``scale``, ``bias``
-``classifier/kernel`` [in, out], ``classifier/     ``classifier.weight`` (transposed),
-bias``                                             ``classifier.bias``
-=================================================  ======================================
-
-The ``LogisticRegression``'s one layer: ``linear/kernel`` [in, out] to
-``linear.weight`` (transposed), ``linear/bias`` to ``linear.bias``.
-
-The GCNs' (``models/gcn.py``): every dense layer, ``gc{i}``, ``readout``,
-``embed``, ``node_head`` and ``reg_head``, its ``kernel`` [in, out] to
-``{layer}.weight`` (transposed) and its ``bias`` to ``{layer}.bias``; the
-link predictor's 0-d ``score_bias`` to ``score_bias``.  A GCN's ``embed`` is
-a dense layer, not an embedding: the layout tells the two apart by the
-``gc0`` layer beside it.
+Every other family names its modules as flax does, so each leaf maps by
+``flax_leaf``'s rule below, read backwards (``params_state_from_flax``):
+the ResNets (``conv_init``, ``stage{s}_block{b}/{conv1,conv2,proj,norm1,
+norm2,norm_proj}``, ``classifier``), the ``LogisticRegression``
+(``linear``), the GCNs (``gc{i}``, ``readout``, ``embed``, ``node_head``,
+``reg_head`` and the link predictor's 0-d ``score_bias``) and the vision
+zoo (``models/{cnn,vgg,mobilenet,efficientnet,unet,detection,rnn}.py``,
+``MLP``), auto-names included (``block3.Conv_1``,
+``MBConv_2.SqueezeExcite_0.Dense_0``, ``LSTMCell_0.hf``).  A GCN's
+``embed`` is a dense layer, not an embedding: the rule tells the two apart
+by the ``gc0`` layer beside it.  A transposed convolution's weight is kept
+in flax's orientation ([in, out, kh, kw], ``models/unet.py``): its kernel
+[kh, kw, in, out] permutes by (2, 3, 0, 1) with no flip.
 
 The way back, one rule for the families (``flax_leaf``): a parameter
 ``a.b.weight`` is the leaf ``a/b/kernel`` (a 4-D convolution weight
@@ -108,57 +98,37 @@ def transformer_state_from_flax(variables: Mapping[str, Any]) -> Dict[str, np.nd
     return out
 
 
-def resnet_state_from_flax(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
-    """{torch parameter name: numpy array} for a flax ResNet (GroupNorm) tree."""
+def params_state_from_flax(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """{torch parameter name: numpy array} for a flax tree whose module names
+    are the torch ones (every family but the TransformerLM's): each leaf by
+    ``flax_leaf``'s rule."""
     params = variables.get("params", variables)
+    dense_embed = "gc0" in params  # a GCN
     out: Dict[str, np.ndarray] = {}
-    for module, leaves in params.items():
-        if module == "classifier":
-            out["classifier.weight"] = np.asarray(leaves["kernel"]).T
-            out["classifier.bias"] = np.asarray(leaves["bias"])
-            continue
-        # the stem's conv_init/norm_init, or a block's convolutions and norms
-        layers = {module: leaves} if module in ("conv_init", "norm_init") else {
-            f"{module}.{name}": leaf for name, leaf in leaves.items()}
-        for name, leaf in layers.items():
-            if "kernel" in leaf:  # HWIO -> OIHW
-                out[f"{name}.weight"] = np.asarray(leaf["kernel"]).transpose(3, 2, 0, 1)
-            else:
-                out[f"{name}.weight"] = np.asarray(leaf["scale"])
-                out[f"{name}.bias"] = np.asarray(leaf["bias"])
-    return out
 
-
-def linear_state_from_flax(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
-    """{torch parameter name: numpy array} for a flax LogisticRegression tree."""
-    params = variables.get("params", variables)
-    return {"linear.weight": np.asarray(params["linear"]["kernel"]).T,
-            "linear.bias": np.asarray(params["linear"]["bias"])}
-
-
-def gcn_state_from_flax(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
-    """{torch parameter name: numpy array} for a flax GCN tree (any head)."""
-    params = variables.get("params", variables)
-    out: Dict[str, np.ndarray] = {}
-    for layer, leaves in params.items():
-        if layer == "score_bias":
-            out["score_bias"] = np.asarray(leaves)
-            continue
-        out[f"{layer}.weight"] = np.asarray(leaves["kernel"]).T
-        out[f"{layer}.bias"] = np.asarray(leaves["bias"])
+    def walk(tree, path):
+        for key, leaf in tree.items():
+            if isinstance(leaf, Mapping):
+                walk(leaf, path + (key,))
+                continue
+            arr = np.asarray(leaf)
+            name = ".".join(path + (key if arr.ndim == 0 else
+                                    "bias" if key == "bias" else "weight",))
+            fpath, perm = flax_leaf(name, arr.ndim, dense_embed)
+            if fpath != path + (key,):
+                raise KeyError(f"flax leaf {'/'.join(path + (key,))} has no parameter")
+            out[name] = arr.transpose(np.argsort(perm)) if arr.ndim else arr
+    walk(params, ())
     return out
 
 
 def state_from_flax(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
-    """The mapping of any model family, told apart by its first layer's leaf."""
+    """The mapping of any model family: the TransformerLM's and the NLP
+    encoders' (told apart by their ``final_norm``), else the one rule."""
     params = variables.get("params", variables)
-    if set(params) == {"linear"}:
-        return linear_state_from_flax(params)
-    if "gc0" in params:
-        return gcn_state_from_flax(params)
-    if "conv_init" in params:
-        return resnet_state_from_flax(params)
-    return transformer_state_from_flax(params)
+    if "final_norm" in params:
+        return transformer_state_from_flax(params)
+    return params_state_from_flax(params)
 
 
 def variables_from_flax(variables: Mapping[str, Any], module: nn.Module,
@@ -195,8 +165,9 @@ def flax_leaf(name: str, ndim: int,
         return module + ("bias",), tuple(range(ndim))
     if leaf != "weight":
         raise KeyError(f"no flax leaf for parameter {name}")
-    if ndim == 4:  # OIHW -> HWIO
-        return module + ("kernel",), (2, 3, 1, 0)
+    if ndim == 4:  # OIHW -> HWIO; a transposed convolution's [I, O, H, W] -> HWIO
+        perm = (2, 3, 0, 1) if module[-1].startswith("ConvTranspose") else (2, 3, 1, 0)
+        return module + ("kernel",), perm
     if ndim == 2:
         if module[-1] == "embed" and not dense_embed:
             return module + ("embedding",), (0, 1)

@@ -6,8 +6,13 @@ shapes and no storage, as the flax hub returns an uninitialised module.  The
 engine materialises it on the run's device and fills it from a seeded
 generator (``ml.engine.train.init_variables``).  The ``lr`` (the default),
 ``transformer`` and ResNet keys, the FedNLP family's (the encoders of
-``models/nlp.py`` and the seq2seq TransformerLM) and the FedGraphNN family's
-(the GCN heads of ``models/gcn.py``) are ported; the other keys raise
+``models/nlp.py`` and the seq2seq TransformerLM), the FedGraphNN family's
+(the GCN heads of ``models/gcn.py``) and the vision zoo's (``cnn``,
+``cnn_web``, ``vgg11``/``vgg16``, ``mobilenet``, ``mobilenet_v3``,
+``efficientnet``, ``unet``, ``tiny_detector``, ``mlp`` and the ``rnn``
+family) are ported.  flax infers a layer's input width at init; here the
+dataset's spec gives it (its sample shape, its vocabulary).  The other keys
+(``gan``, ``darts``, ``gkt_*``, ``autoencoder``) raise
 ``NotImplementedError`` naming the ROADMAP.md item that ports them.
 """
 
@@ -24,6 +29,9 @@ logger = logging.getLogger(__name__)
 
 # the models the JAX hub plumbs compute_dtype into; the transformer is not one
 _RESNETS = {"resnet20", "resnet56", "resnet18", "resnet18_gn"}
+# the JAX hub's keys whose models come with the structural sp members
+_UNPORTED = {"gan", "mnist_gan", "gkt_client", "resnet8_gkt", "gkt_server", "resnet55_gkt",
+             "darts", "darts_network", "autoencoder", "ae", "anomaly_ae"}
 
 
 def _in_shape(dataset: str) -> tuple:
@@ -45,6 +53,11 @@ def _in_channels(dataset: str) -> int:
     """Input channels of an image dataset (flax infers them at init)."""
     shape = _in_shape(dataset)
     return int(shape[-1]) if len(shape) == 3 else 1
+
+
+def _image(dataset: str) -> dict:
+    """An image model's input: its spatial size and channels."""
+    return dict(in_hw=_in_shape(dataset)[:2], in_channels=_in_channels(dataset))
 
 
 def create(args: Any, output_dim: int) -> nn.Module:
@@ -111,6 +124,59 @@ def create(args: Any, output_dim: int) -> nn.Module:
         # one logit a task
         return GCN(_spec_int(dataset, "num_tasks", output_dim), _spec_int(dataset, "feat_dim", 8),
                    device="meta")
+    if name in ("cnn", "cnn_dropout"):
+        from .cnn import CNN_DropOut
+
+        return CNN_DropOut(only_digits=(output_dim <= 10), num_classes=output_dim,
+                           device="meta", **_image(dataset))
+    if name in ("cnn_web",):
+        from .cnn import CNN_WEB
+
+        return CNN_WEB(output_dim=output_dim, device="meta", **_image(dataset))
+    if name in ("vgg11", "vgg16"):
+        from .vgg import VGG
+
+        return VGG(num_classes=output_dim, depth=int(name[3:]),
+                   in_channels=_in_channels(dataset), device="meta")
+    if name in ("mobilenet", "mobilenet_v1"):
+        from .mobilenet import MobileNetV1
+
+        return MobileNetV1(num_classes=output_dim, in_channels=_in_channels(dataset),
+                           device="meta")
+    if name in ("mobilenet_v3",):
+        from .mobilenet import MobileNetV3Small
+
+        return MobileNetV3Small(num_classes=output_dim, in_channels=_in_channels(dataset),
+                                device="meta")
+    if name in ("efficientnet", "efficientnet_b0"):
+        from .efficientnet import EfficientNet
+
+        return EfficientNet(num_classes=output_dim, in_channels=_in_channels(dataset),
+                            device="meta")
+    if name in ("unet", "deeplabv3", "deeplabv3_plus"):
+        from .unet import UNet
+
+        return UNet(num_classes=output_dim, in_channels=_in_channels(dataset), device="meta")
+    if name in ("tiny_detector", "yolo_lite"):
+        from .detection import TinyDetector
+
+        return TinyDetector(num_classes=output_dim, device="meta", **_image(dataset))
+    if name in ("mlp",):
+        from .linear import MLP
+
+        return MLP(math.prod(_in_shape(dataset)), output_dim, device="meta")
+    if name in ("rnn", "rnn_fedavg", "rnn_originalfedavg", "lstm", "lstm_tagpred"):
+        from .rnn import RNN_OriginalFedAvg
+
+        return RNN_OriginalFedAvg(vocab_size=max(output_dim, 90), device="meta")
+    if name in ("rnn_fedshakespeare",):
+        from .rnn import RNN_FedShakespeare
+
+        return RNN_FedShakespeare(vocab_size=max(output_dim, 90), device="meta")
+    if name in ("rnn_stackoverflow", "rnn_nwp"):
+        from .rnn import RNN_StackOverFlow
+
+        return RNN_StackOverFlow(vocab_size=output_dim, device="meta")
     if name in _RESNETS:
         from . import resnet
 
@@ -119,9 +185,11 @@ def create(args: Any, output_dim: int) -> nn.Module:
             return resnet.ResNet18(num_classes=output_dim, norm="gn", **kw)
         blocks = {"resnet20": 3, "resnet56": 9}[name]
         return resnet.CifarResNet(blocks, num_classes=output_dim, norm=_norm(args), **kw)
-    raise NotImplementedError(
-        f"model {name!r} for dataset {dataset!r} is not ported yet "
-        "(ROADMAP.md queue A, item 4: model zoo and trainers)")
+    if name in _UNPORTED:
+        raise NotImplementedError(
+            f"model {name!r} for dataset {dataset!r} is not ported yet "
+            "(ROADMAP.md queue A, item 4: model zoo and trainers)")
+    raise ValueError(f"unknown model {name!r} for dataset {dataset!r}")
 
 
 def _norm(args: Any) -> str:

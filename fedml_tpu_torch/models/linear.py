@@ -6,8 +6,9 @@ width at init, so here the caller names it (the hub takes it from the
 dataset's shape).  Init is flax ``Dense``'s: a lecun-normal kernel (a normal
 truncated at two standard deviations, std 1/sqrt(fan_in)) and a zero bias.
 
-``MLP`` and the rest of ``linear.py`` are not ported yet (ROADMAP.md queue A,
-item 4: model zoo and trainers).
+``MLP`` is the two-hidden-layer perceptron of the tabular tasks: flattened
+input, ``Dense_0`` and ``Dense_1`` (``hidden``, relu each) and ``Dense_2``,
+the flax auto-names, with the same init.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ import math
 
 import torch
 from torch import nn
+
+from .resnet import flax_init
 
 _TRUNC_STD = 0.87962566103423978  # std of a unit normal truncated to [-2, 2]
 
@@ -34,3 +37,18 @@ class LogisticRegression(nn.Module):
             std = 1.0 / math.sqrt(w.shape[1]) / _TRUNC_STD
             nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
             self.linear.bias.zero_()
+
+
+class MLP(nn.Module):
+    def __init__(self, in_features: int, output_dim: int, hidden: int = 128, device=None):
+        super().__init__()
+        self.Dense_0 = nn.Linear(in_features, hidden, device=device)
+        self.Dense_1 = nn.Linear(hidden, hidden, device=device)
+        self.Dense_2 = nn.Linear(hidden, output_dim, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = torch.relu(self.Dense_0(x.reshape(x.shape[0], -1).float()))
+        return self.Dense_2(torch.relu(self.Dense_1(x)))
+
+    def init_parameters(self, generator: torch.Generator) -> None:
+        flax_init(self, generator)

@@ -65,25 +65,30 @@ def _pad_same(x: torch.Tensor, k: int, stride: int, value: float = 0.0):
 
 class SameConv(nn.Conv2d):
     """flax ``nn.Conv(features, (k, k), strides, padding="SAME",
-    use_bias=False)`` computing in ``dtype``."""
+    use_bias=bias, feature_group_count=groups)`` computing in ``dtype``."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
-                 dtype: torch.dtype = torch.float32, device=None):
-        super().__init__(cin, cout, k, stride=stride, bias=False, device=device)
+                 dtype: torch.dtype = torch.float32, device=None, *, bias: bool = False,
+                 groups: int = 1):
+        super().__init__(cin, cout, k, stride=stride, bias=bias, groups=groups, device=device)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, padding = _pad_same(x, self.kernel_size[0], self.stride[0])
-        return F.conv2d(x, self.weight.to(self.compute_dtype), stride=self.stride,
-                        padding=padding)
+        bias = None if self.bias is None else self.bias.to(self.compute_dtype)
+        return F.conv2d(x, self.weight.to(self.compute_dtype), bias, stride=self.stride,
+                        padding=padding, groups=self.groups)
 
 
 class GroupNorm(nn.GroupNorm):
-    """flax ``nn.GroupNorm(group_size=16)``: fp32 statistics and normalisation,
-    the result in ``dtype``."""
+    """flax ``nn.GroupNorm``: fp32 statistics and normalisation, the result in
+    ``dtype``.  ``num_groups`` defaults to groups of 16 channels (flax
+    ``group_size=16``, the ResNets')."""
 
-    def __init__(self, channels: int, dtype: torch.dtype = torch.float32, device=None):
-        super().__init__(channels // GROUP_SIZE, channels, eps=GN_EPSILON, device=device)
+    def __init__(self, channels: int, dtype: torch.dtype = torch.float32, device=None, *,
+                 num_groups: int = 0):
+        super().__init__(num_groups or channels // GROUP_SIZE, channels, eps=GN_EPSILON,
+                         device=device)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -161,24 +166,45 @@ class _ResNet(nn.Module):
                         self.classifier.bias.to(self.dtype))
 
     def init_parameters(self, generator: torch.Generator) -> None:
-        """Fill the parameters in place with flax's initialisers (see the
-        module docstring); convolution weights end ``channels_last``."""
-        with torch.no_grad():
-            for module in self.modules():
-                if isinstance(module, (SameConv, nn.Linear)):
-                    w = module.weight
-                    fan_in = w[0].numel()
-                    std = 1.0 / math.sqrt(fan_in) / _TRUNC_STD
-                    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
-                                          generator=generator)
-                    if module.bias is not None:
-                        module.bias.zero_()
-                elif isinstance(module, GroupNorm):
-                    module.weight.fill_(1.0)
-                    module.bias.zero_()
-                if isinstance(module, SameConv):
-                    module.weight.data = module.weight.data.contiguous(
-                        memory_format=torch.channels_last)
+        flax_init(self, generator)
+
+
+def lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+    """flax's default kernel init in place: a normal truncated at two standard
+    deviations, rescaled to std 1/sqrt(fan_in)."""
+    std = 1.0 / math.sqrt(fan_in) / _TRUNC_STD
+    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
+def flax_init(root: nn.Module, generator: torch.Generator) -> None:
+    """Fill ``root``'s parameters in place with flax's default initialisers, in
+    ``root.modules()`` order: convolution and dense kernels lecun-normal
+    (fan-in: a convolution's weight per output channel, a transposed
+    convolution's kh*kw*in, a dense layer's input width), embeddings
+    N(0, 1/dim), every bias zero, norm scales one; a dense layer marked
+    ``orthogonal`` (an LSTM cell's recurrent kernels) takes an orthogonal
+    kernel.  Convolution weights end ``channels_last``."""
+    with torch.no_grad():
+        for module in root.modules():
+            if getattr(module, "orthogonal", False):
+                nn.init.orthogonal_(module.weight, generator=generator)
+            elif isinstance(module, (nn.Conv2d, nn.Linear)):
+                lecun_normal_(module.weight, module.weight[0].numel(), generator)
+            elif isinstance(module, nn.ConvTranspose2d):
+                w = module.weight  # [in, out, kh, kw]
+                lecun_normal_(w, w.shape[0] * w.shape[2] * w.shape[3], generator)
+            elif isinstance(module, nn.Embedding):
+                module.weight.normal_(0.0, 1.0 / math.sqrt(module.weight.shape[1]),
+                                      generator=generator)
+            elif isinstance(module, nn.GroupNorm):
+                module.weight.fill_(1.0)
+            else:
+                continue
+            if getattr(module, "bias", None) is not None:
+                module.bias.zero_()
+            if isinstance(module, (nn.Conv2d, nn.ConvTranspose2d)):
+                module.weight.data = module.weight.data.contiguous(
+                    memory_format=torch.channels_last)
 
 
 class CifarResNet(_ResNet):

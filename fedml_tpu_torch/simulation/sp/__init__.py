@@ -2,9 +2,10 @@
 ``fedml_tpu/simulation/sp/__init__.py``).
 
 FedAvg and its zoo are ported, each a subclass of ``FedAvgAPI`` at its JAX
-twin's path; ``fl_mode: async`` with FedAvg runs FedBuff.  The members that
-come with their models raise ``NotImplementedError`` naming the ROADMAP.md
-item that ports them.
+twin's path; ``fl_mode: async`` with FedAvg runs FedBuff; FedSeg runs a loop
+of its own (``fedseg/fedseg_api.py``).  The structural members that come
+with their models (FedGAN, FedNAS, FedGKT, split NN, classical vertical FL)
+raise ``NotImplementedError`` naming the ROADMAP.md item that ports them.
 
 The JAX members do not all pass through the trust hooks that ``FedAvgAPI``
 runs: some replace the client's training (no local DP after-hook), some
@@ -31,6 +32,7 @@ HierarchicalFL    no     no      no      no      yes(3)  yes    yes(3)
 decentralized     no     no      no      no      no      yes    no
 SpreadGNN         no     no      no      no      no      yes    no
 Turbo-Aggregate   no     yes     no      no      yes     yes    yes
+FedSeg            no     no      no      no      no      no     no
 ================  =====  ======  ======  ======  ======  =====  =====
 
 (1) FedNova pairs each tau with its update by object identity before the
@@ -63,11 +65,12 @@ _MEMBERS = {
     "turbo_aggregate": ("turboaggregate.ta_api", "TurboAggregateAPI"),
     "spreadgnn": ("spreadgnn.spreadgnn_api", "SpreadGNNAPI"),
     "async_fedavg": ("async_fedavg.async_fedavg_api", "AsyncFedAvgAPI"),
+    "fedseg": ("fedseg.fedseg_api", "FedSegAPI"),
 }
 _FEDBUFF = ("async_fedavg.fedbuff_api", "FedBuffAPI")
 # these come with their models
-_UNPORTED = dict.fromkeys(("classical_vertical", "split_nn", "fedgan", "fedgkt", "fednas",
-                           "fedseg"), _MODEL_ITEM)
+_UNPORTED = dict.fromkeys(("classical_vertical", "split_nn", "fedgan", "fedgkt", "fednas"),
+                          _MODEL_ITEM)
 
 
 def create_sp_algorithm(optimizer: str, args, device, dataset, model):

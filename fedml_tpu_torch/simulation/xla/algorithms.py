@@ -590,8 +590,8 @@ _REGISTRY = {
     "fedavg": FedAvgInMesh,
     "fedprox": FedAvgInMesh,  # the engines' grad hook from args.proximal_mu
     "fedsgd": FedAvgInMesh,  # E=1, full batch: configured via args
-    # FedSeg is FedAvg round-wise; a segmentation dataset still raises in
-    # the data loader (ROADMAP.md queue A, item 3: data, the rest)
+    # FedSeg is FedAvg round-wise: the per-pixel CE rides the ce loss and the
+    # segmentation eval the aggregator's ModelTrainerSeg
     "fedseg": FedAvgInMesh,
     "fedopt": FedOptInMesh,
     "fednova": FedNovaInMesh,

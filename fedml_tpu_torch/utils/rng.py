@@ -9,6 +9,8 @@ is ``random_seed``; the salts are the JAX package's key offsets):
 stream                                  seed tuple
 ======================================  ===================================
 a client's shuffles (padded round)      (s, round, client, epoch)
+a client run's dropout masks            (s, round, client, 2718)
+a packed round's dropout masks          (s, round, 2718)
 a client's local DP noise               (s, round, client, 104729)
 the security tail's attack draw         (s, 999331, round, 0)
 the security tail's defense draw        (s, 999331, round, 1)

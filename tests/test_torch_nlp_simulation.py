@@ -29,6 +29,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from jax.sharding import NamedSharding, PartitionSpec
 
 import fedml_tpu
 import fedml_tpu_torch
@@ -129,7 +130,9 @@ def test_zoo_member_on_seq2seq_matches_jax(member):
 def _xla_runs(config):
     """The JAX XLASimulator on a one-device mesh and the port's, from the
     same init: (global params after each round, JAX then port; the port's
-    simulator)."""
+    simulator).  The JAX init is placed where the round puts its outputs
+    (replicated on the mesh), so round 1 reuses round 0's compiled program
+    instead of compiling it again for another input placement."""
     jargs = fedml_tpu.init(fedml_tpu.Arguments.from_dict(copy.deepcopy(config)),
                            should_init_logs=False)
     jdataset, classes = fedml_tpu.data.data_loader.load(jargs)
@@ -141,6 +144,9 @@ def _xla_runs(config):
                 jax.random.PRNGKey(seed), sample)))
         jsim = jfed_sim.XLASimulator(jargs, jdataset, jmodel,
                                      mesh=create_fl_mesh(devices=jax.devices()[:1]))
+    repl = NamedSharding(jsim.mesh, PartitionSpec())
+    jsim.variables = jax.device_put(jsim.variables, repl)
+    jsim.server_state = jax.device_put(jsim.server_state, repl)
     jstates, tstates = [], []
     round_fn = jsim._round_fn
 

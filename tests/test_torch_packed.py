@@ -112,7 +112,7 @@ def device_rounds():
         jvars, (), jnp.asarray(x), jnp.asarray(y),
         *(jnp.asarray(a[0]) for a in sched[:5]), jnp.asarray(sched.n_steps[0]),
         jax.random.PRNGKey(1), None)
-    jout = (convert.resnet_state_from_flax(jax.tree_util.tree_map(np.asarray, acc)),
+    jout = (convert.params_state_from_flax(jax.tree_util.tree_map(np.asarray, acc)),
             float(wsum), float(lsum), float(cnt))
 
     module = resnet20(num_classes=10, device="meta")

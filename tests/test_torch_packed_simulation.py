@@ -95,7 +95,7 @@ def runs():
 
     def recorded_round(*a):
         out = round_fn(*a)
-        jlog["variables"].append(convert.resnet_state_from_flax(
+        jlog["variables"].append(convert.params_state_from_flax(
             jax.tree_util.tree_map(np.asarray, out[0])))
         return out
 

@@ -91,7 +91,7 @@ def _logits_and_grads(blocks, dtype_name, jparams):
     tm = _port_like({"params": jparams}, resnet.CifarResNet(blocks, dtype=tdt, device="meta"))
     tlogits = tm(torch.from_numpy(x))
     tloss(tlogits, torch.from_numpy(y), torch.from_numpy(m))[0].backward()
-    jg = convert.resnet_state_from_flax(
+    jg = convert.params_state_from_flax(
         jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), jgrads))
     return ((tlogits.detach().float().numpy(), np.asarray(jlogits, np.float32)),
             {n: (p.grad.numpy(), jg[n]) for n, p in tm.named_parameters()})
@@ -141,7 +141,7 @@ def _block_outputs():
     tb.to_empty(device="cpu")
     # a block's leaves are mapped under the name of the block that holds them
     params = {"b": jax.tree_util.tree_map(np.asarray, jvars)["params"]}
-    state = {k[2:]: v for k, v in convert.resnet_state_from_flax(params).items()}
+    state = {k[2:]: v for k, v in convert.params_state_from_flax(params).items()}
     load_variables(tb, {k: torch.from_numpy(np.array(v)) for k, v in state.items()})
     out = tb(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
     return out.detach().numpy(), np.asarray(jb.apply(jvars, x))

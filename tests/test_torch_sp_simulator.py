@@ -438,11 +438,21 @@ def test_example_config_runs_on_the_port(name, tmp_path):
     ("split_nn", "item 4"), ("classical_vertical", "item 4"), ("SpreadGNN", "item 2"),
 ])
 def test_other_sp_optimizers_raise_with_their_item(optimizer, item):
-    """The members of item 2, and SpreadGNN (ported with the graph family),
-    build their class.  Those of item 4 still raise, naming it."""
+    """The members of item 2, SpreadGNN (ported with the graph family) and
+    FedSeg (with the vision family, on a segmentation dataset) build their
+    class.  The structural members of item 4 still raise, naming themselves
+    and the item."""
     from fedml_tpu_torch.simulation.sp import create_sp_algorithm
 
     args = fedml_tpu_torch.Arguments.from_dict(_config(LR_CONFIG, federated_optimizer=optimizer))
+    if optimizer == "FedSeg":
+        args.dataset, args.model, args.synthetic_train_size = "synthetic_seg", "unet", 64
+        args = fedml_tpu_torch.init(args, should_init_logs=False)
+        dataset, classes = fedml_tpu_torch.data.load(args)
+        api = create_sp_algorithm(optimizer, args, torch.device("cpu"), dataset,
+                                  fedml_tpu_torch.models.hub.create(args, classes))
+        assert type(api).__name__ == "FedSegAPI" and type(api.net).__name__ == "UNet"
+        return
     if item == "item 2":
         args = fedml_tpu_torch.init(args, should_init_logs=False)
         dataset, classes = fedml_tpu_torch.data.load(args)
@@ -450,7 +460,8 @@ def test_other_sp_optimizers_raise_with_their_item(optimizer, item):
                                   fedml_tpu_torch.models.hub.create(args, classes))
         assert type(api).__name__ == ZOO_CLASSES[optimizer]
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue A, {item}:"):
+    with pytest.raises(NotImplementedError,
+                       match=f"'{optimizer}' is not ported .*ROADMAP.md queue A, {item}:"):
         create_sp_algorithm(optimizer, args, torch.device("cpu"), None, None)
 
 
@@ -483,16 +494,18 @@ def test_sp_refusals_name_their_item(knobs, error, match):
                                      "nbaiot", "synthetic_seg", "freesolv"])
 def test_unported_trainer_families_raise_with_item_4(dataset):
     """The FedNLP family's trainers (tag prediction, span extraction,
-    seq2seq) and the FedGraphNN family's (link prediction, multi-task,
-    regression) are ported now: each builds its class.  The others still
-    raise, naming item 4."""
+    seq2seq), the FedGraphNN family's (link prediction, multi-task,
+    regression) and the vision tasks' (detection, segmentation) are ported
+    now: each builds its class.  The autoencoder's still raises, naming
+    item 4."""
     from fedml_tpu_torch.ml.trainer.trainer_creator import create_model_trainer
 
     args = fedml_tpu_torch.Arguments.from_dict(_config(LR_CONFIG))
     args.dataset = dataset
     ported = {"stackoverflow_lr": "ModelTrainerTAGPred", "squad_span": "ModelTrainerSpan",
               "synthetic_s2s": "ModelTrainerS2S", "ego_linkpred": "ModelTrainerLinkPred",
-              "moleculenet_mtl": "ModelTrainerMTL", "freesolv": "ModelTrainerReg"}
+              "moleculenet_mtl": "ModelTrainerMTL", "freesolv": "ModelTrainerReg",
+              "synthetic_det": "ModelTrainerDET", "synthetic_seg": "ModelTrainerSeg"}
     if dataset in ported:
         trainer = create_model_trainer(torch.nn.Linear(2, 2), args)
         assert type(trainer).__name__ == ported[dataset]

@@ -69,9 +69,9 @@
    whether it copies to contiguous; the boundary flush is timed on its own
    with CUDA events.
 9. The kernels line, the card line, and the last line
-   {"ok": true, "device": {...}}, printed after phase 16.
+   {"ok": true, "device": {...}}, printed after phase 17.
 10. The algorithm zoo.  (a) At the north-star width: BENCH_CONFIG with the
-   algorithm's knobs changed and its cohort cut to ZOO_COHORT (8) clients
+   algorithm's knobs changed and its cohort cut to ZOO_COHORT (4) clients
    (ZOO: FedProx, FedOpt/adam, FedNova, SCAFFOLD, FedDyn, AsyncFedAvg,
    FedBuff with a buffer of 4), 2 rounds each, through the entry points,
    on one cifar10 dataset made once: round seconds, throughput(), losses,
@@ -111,7 +111,7 @@
    card (the robust one also with a zero attack in place of the random one).
    Deterministic runs (no DP, no random attack) must agree with the CPU's
    final params within SP_BACKEND_CPU_ATOL.  (b) BENCH_CONFIG on sp (no
-   packing, a cohort of 16, an eval after each of 2 rounds) on phase 8's
+   packing, a cohort of 8, an eval after each of 2 rounds) on phase 8's
    dataset, round 0 under torch.profiler for the card's busy share: round seconds and
    samples/s beside phase 8's packed round, each client's bucket and real
    steps, peak memory, no flash launch; then round 1's cohort in turns with
@@ -194,6 +194,29 @@
    1] for the cnn keys, [8, 80] tokens, [8, 64] for mlp) in fp32 inside
    device.fp32_matmul(), on the card and on the CPU from one seed: logits and
    stepped params within VISION_STEP_RTOL, each card forward and step timed.
+17. The structural sp members with their models and the in-mesh FedGAN and
+   FedNAS rounds, with the TF32 flags as the script found them.  No flash
+   kernel lies on these paths (the JAX package runs them outside any Pallas
+   kernel): the counts, set to 0 when the phase starts, must read 0 when it
+   ends.  (a) The example configs as they stand: sp_fedgan_mnist_gan
+   (FedGanAPI: the GAN pair at gan_latent_dim 64, adam), sp_fednas_cifar10_darts
+   (FedNASAPI: DARTS at width 16), sp_fedgkt_cifar10 (FedGKTAPI: the edge net
+   at width 32, the server tower at width 64 with 3 blocks),
+   xla_fedgan_mnist_gan and xla_fednas_cifar10_darts (the in-mesh rounds).
+   (b) Split NN on mnist with xla_split_nn_mnist_mlp's knobs and vertical FL
+   on synthetic with xla_vfl_synthetic_lr's, each on backend sp.  Each run
+   through the entry points and again on the CPU: finite losses and final
+   state, the final eval beside the CPU's, the run's seconds; the SGD-driven
+   trees within STRUCTURAL_CPU_ATOL of the CPU's, the adam-driven ones (G and
+   D, the alphas) within 2 lr for each adam step and with their update
+   within STRUCTURAL_UPDATE_RTOL of the CPU's (relative norm), the GAN's
+   d_fake_score within STRUCTURAL_SCORE_ATOL.  sp_fedgkt_cifar10 is chaotic
+   at its learning rate: its gap is held to STRUCTURAL_CHAOS_RATIO times the
+   gap a CPU run opens when its initial weights move by one part in 10^6,
+   and the same config at STRUCTURAL_GKT_TIGHT_LR runs too, held to
+   STRUCTURAL_CPU_ATOL.  (c) The in-mesh FedNAS round against its sp twin on
+   the card in turns (XLA, sp, XLA, sp): the weights and alphas within
+   STRUCTURAL_INMESH_ATOL, the genotypes equal, each run's seconds.
 
 Any failure raises and the script exits non-zero with no result line.  It
 exits 2 when no CUDA device is visible.  Full details go to
@@ -336,9 +359,10 @@ BENCH_CONFIG = {
 # torch.profiler
 PROFILE_CLIENTS = 8
 # phase 10a: the algorithm zoo on BENCH_CONFIG, the algorithm's knobs
-# changed and the cohort cut to ZOO_COHORT clients, 2 rounds each
+# changed and the cohort cut to ZOO_COHORT clients (8 until phase 17 was
+# added), 2 rounds each
 ZOO_ROUNDS = 2
-ZOO_COHORT = 8
+ZOO_COHORT = 4
 ZOO = [
     ("FedProx", {"federated_optimizer": "FedProx", "proximal_mu": 0.01}),
     ("FedOpt", {"federated_optimizer": "FedOpt", "server_optimizer": "adam",
@@ -1805,8 +1829,9 @@ SP_BACKEND_DEFAULT_ROUNDS = 5
 SP_BACKEND_EXAMPLES = ("sp_fedavg_mnist_lr", "sp_fedavg_robust_mnist_lr", "sp_fedavg_cdp_mnist_lr",
                "sp_fedavg_ldp_mnist_lr")
 SP_BACKEND_ROUNDS = 2
-# 12b: BENCH_CONFIG on sp with its cohort cut to this many clients
-SP_BACKEND_COHORT = 16
+# 12b: BENCH_CONFIG on sp with its cohort cut to this many clients (16
+# until phase 17 was added)
+SP_BACKEND_COHORT = 8
 # card against CPU, final params of a deterministic sp run of lr: the two sum
 # each product in another order (TF32 off), through a few rounds of SGD
 SP_BACKEND_CPU_ATOL = 1e-4
@@ -3134,6 +3159,248 @@ def vision_models_phase(ft):
     return out
 
 
+# Phase 17: the structural sp members (FedGAN, FedNAS, FedGKT, split NN,
+# classical vertical FL) with their models (gan, darts, gkt) and the in-mesh
+# FedGAN and FedNAS rounds.  17a: the five example configs as they stand;
+# 17b: split NN and vertical FL on sp with the knobs of the xla_* examples
+# that name them; each run again on the CPU.  17c: the in-mesh FedNAS round
+# against its sp twin on the card, in turns.  No flash kernel lies on these
+# paths, as no Pallas kernel lies on them in the JAX package: the counts, set
+# to 0 when the phase starts, must read 0 when it ends
+STRUCTURAL_EXAMPLES = ("sp_fedgan_mnist_gan", "sp_fednas_cifar10_darts", "sp_fedgkt_cifar10",
+                       "xla_fedgan_mnist_gan", "xla_fednas_cifar10_darts")
+STRUCTURAL_SPLIT = ("xla_split_nn_mnist_mlp", "xla_vfl_synthetic_lr")
+# sp_fedgkt_cifar10 as it stands is chaotic: at its learning_rate 0.05 the
+# tower's last loss of round 0 reads tens (about 2 at STRUCTURAL_GKT_TIGHT_LR),
+# and a CPU run whose initial weights move by STRUCTURAL_CHAOS_EPS (relative)
+# ends about as far from the unperturbed run as the card does, so no bound
+# near roundoff holds between two devices.  Its card-vs-CPU gap is held,
+# tree by tree, to STRUCTURAL_CHAOS_RATIO times that perturbed run's (the
+# two read 0.98-1.0 apart); the same config at STRUCTURAL_GKT_TIGHT_LR is
+# held to STRUCTURAL_CPU_ATOL
+STRUCTURAL_CHAOS_EPS = 1e-6
+STRUCTURAL_CHAOS_RATIO = 10.0
+STRUCTURAL_GKT_TIGHT_LR = 0.001
+# card against CPU: the SGD-driven trees (fp32, TF32 off on both, sums in
+# another order) within STRUCTURAL_CPU_ATOL; the adam-driven ones (G and D,
+# the alphas) within this many lr for each adam step a client takes, leaf by
+# leaf, and with their update (final - initial) within
+# STRUCTURAL_UPDATE_RTOL of the CPU's update in relative norm, the bar of
+# tests/test_torch_structural_sp.py (port against JAX there: GAN 0.0029-0.074,
+# alphas 4.1e-5; a client weighted twice or dropped, or a wrong adam
+# setting, 0.20-0.55); the GAN's health score within STRUCTURAL_SCORE_ATOL
+STRUCTURAL_CPU_ATOL = 1e-4
+STRUCTURAL_ADAM_ATOL_OVER_LR = NLP_ADAM_CPU_ATOL_OVER_LR
+STRUCTURAL_UPDATE_RTOL = {"G": 0.15, "D": 0.15, "alphas": 1e-3}
+STRUCTURAL_SCORE_ATOL = 1e-3
+# 17c: the in-mesh FedNAS round against its sp twin: one loop over the same
+# clients in another order (tests/test_torch_gan_nas_inmesh.py's bar)
+STRUCTURAL_INMESH_ATOL = {"w": 1e-5, "alphas": 1e-5}
+
+
+def _example_config(name: str) -> dict:
+    return _graph_config(f"examples/simulation/{name}/fedml_config.yaml")
+
+
+def _structural_trees(api) -> dict:
+    """{group: (variables, the optimizer that drives them)} of a structural
+    member's final state."""
+    name = type(api).__name__
+    if name in ("FedGanAPI", "GANInMeshAPI"):
+        return {"G": (api.g_params, "adam"), "D": (api.d_params, "adam")}
+    if name in ("FedNASAPI", "NASInMeshAPI"):
+        return {"w": (api.params, "sgd"), "alphas": ({"alphas": api.alphas}, "adam")}
+    if name == "FedGKTAPI":
+        trees = {f"client {c}": (p, "sgd") for c, p in sorted(api.client_params.items())}
+        trees["server"] = (api.server_params, "sgd")
+        return trees
+    if name == "SplitNNAPI":
+        return {"front": (api.front_params, "sgd"), "back": (api.back_params, "sgd")}
+    if name == "VerticalFLAPI":
+        return {"w": ({**{f"w{k}": w for k, w in enumerate(api.w)}, "b": api.b}, "sgd")}
+    raise AssertionError(f"not a structural member: {name}")
+
+
+def _adam_bound(api) -> float:
+    """STRUCTURAL_ADAM_ATOL_OVER_LR lr for each adam step a client takes over
+    the run (FedNAS: its most full batches)."""
+    args = api.args
+    if type(api).__name__ in ("FedGanAPI", "GANInMeshAPI"):
+        lr, steps = api.lr, int(args.gan_local_steps) * int(args.comm_round)
+    else:
+        lr = api.a_lr
+        steps = (max(int(n) // api.bs for n in api.local_num.values()) * int(args.epochs)
+                 * int(args.comm_round))
+    return STRUCTURAL_ADAM_ATOL_OVER_LR * lr * steps
+
+
+def _update_rel_err(tree, ref, init) -> float:
+    """||tree - ref|| / ||ref - init|| over a whole tree, in float64."""
+    gap = sum(float((tree[k].double().cpu() - ref[k].double().cpu()).square().sum())
+              for k in init)
+    update = sum(float((ref[k].double().cpu() - init[k].double().cpu()).square().sum())
+                 for k in init)
+    return (gap / update) ** 0.5
+
+
+def _cloned_trees(api) -> dict:
+    return {g: {k: v.detach().clone() for k, v in t.items()}
+            for g, (t, _) in _structural_trees(api).items()}
+
+
+def _perturb_gkt(api, eps: float) -> None:
+    """Every initial weight of a FedGKTAPI (the shared edge params and the
+    tower) times 1 + eps N(0, 1), from a seeded CPU generator."""
+    import torch
+
+    gen = torch.Generator().manual_seed(17)
+    with torch.no_grad():
+        for p in [*api._proto_client_params.values(), *api.server_net.parameters()]:
+            p.mul_(1 + eps * torch.randn(p.shape, generator=gen).to(p.device))
+
+
+def _losses_finite(api) -> bool:
+    return all(math.isfinite(v) for r in api.round_losses
+               for v in (r if isinstance(r, tuple) else (r,)))
+
+
+def structural_runs_phase(ft):
+    """17a and 17b: each run through the entry points on the card and again
+    on the CPU: finite losses and trees, the final eval (d_fake_score,
+    test_acc, the genotype) beside the CPU's, its seconds and rounds; each
+    tree of the final state within STRUCTURAL_CPU_ATOL (SGD) or 2 lr a step
+    and STRUCTURAL_UPDATE_RTOL (adam) of the CPU's, the GAN's d_fake_score
+    within STRUCTURAL_SCORE_ATOL; the chaotic GKT example's gap within
+    STRUCTURAL_CHAOS_RATIO times a perturbed CPU run's, the GKT config at
+    STRUCTURAL_GKT_TIGHT_LR within STRUCTURAL_CPU_ATOL.  Returns the runs'
+    records."""
+    import copy
+
+    import torch
+
+    runs = [(name, _example_config(name)) for name in STRUCTURAL_EXAMPLES]
+    tight = _example_config("sp_fedgkt_cifar10")
+    tight["train_args"]["learning_rate"] = STRUCTURAL_GKT_TIGHT_LR
+    runs.insert(3, (f"sp_fedgkt_cifar10 at learning_rate {STRUCTURAL_GKT_TIGHT_LR}", tight))
+    for name in STRUCTURAL_SPLIT:
+        config = _example_config(name)
+        config["comm_args"]["backend"] = "sp"
+        runs.append((f"{name} on sp", config))
+    out = {}
+    for name, config in runs:
+        chaotic = name == "sp_fedgkt_cifar10"
+        runner, api = _graph_runner(ft, config)
+        flags = _tf32_flags()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final = runner.run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        if _tf32_flags() != flags:
+            raise AssertionError(f"{name}: the run changed the TF32 flags")
+        cpu = copy.deepcopy(config)
+        cpu["device_args"] = {"device_type": "cpu"}
+        cpu_runner, cpu_api = _graph_runner(ft, cpu)
+        cpu_init = _cloned_trees(cpu_api)
+        t0 = time.perf_counter()
+        cpu_final = cpu_runner.run()
+        cpu_seconds = time.perf_counter() - t0
+        trees, cpu_trees = _structural_trees(api), _structural_trees(cpu_api)
+        spread = {}
+        if chaotic:  # the gap a perturbed CPU run opens
+            moved_runner, moved = _graph_runner(ft, cpu)
+            _perturb_gkt(moved, STRUCTURAL_CHAOS_EPS)
+            moved_runner.run()
+            spread = {g: _max_param_diff(t, cpu_trees[g][0])
+                      for g, (t, _) in _structural_trees(moved).items()}
+        checks = {}
+        for group, (tree, opt) in trees.items():
+            if not all(bool(torch.isfinite(v).all()) for v in tree.values()):
+                raise AssertionError(f"{name}: {group} is not finite")
+            if chaotic:
+                atol = STRUCTURAL_CHAOS_RATIO * spread[group]
+            else:
+                atol = _adam_bound(api) if opt == "adam" else STRUCTURAL_CPU_ATOL
+            check = {"optimizer": opt, "atol": atol, "spread": spread.get(group),
+                     "max_diff": _max_param_diff(tree, cpu_trees[group][0])}
+            if opt == "adam":
+                check["update_rel_err"] = _update_rel_err(tree, cpu_trees[group][0],
+                                                          cpu_init[group])
+                check["update_rtol"] = STRUCTURAL_UPDATE_RTOL[group]
+            checks[group] = check
+        if not api.round_losses or not _losses_finite(api):
+            raise AssertionError(f"{name}: losses {api.round_losses}")
+        score_diff = None
+        if "d_fake_score" in final:
+            score_diff = abs(final["d_fake_score"] - cpu_final["d_fake_score"])
+        log(f"  {name} ({type(api).__name__}, {api.args.client_num_in_total} clients, "
+            f"{api.args.client_num_per_round} a round, {api.args.comm_round} rounds): {final} in "
+            f"{seconds:.3f} s (rounds {[round(x, 4) for x in api.round_times]} s, losses "
+            f"{api.round_losses[-1]}); CPU {cpu_final} in {cpu_seconds:.3f} s; card vs CPU "
+            + ", ".join(f"{g} {c['max_diff']:.3e} (atol {c['atol']:.1e}"
+                        + (f", {STRUCTURAL_CHAOS_RATIO:g}x a perturbed CPU run's "
+                           f"{c['spread']:.3e}" if chaotic else "")
+                        + (f"; update {c['update_rel_err']:.3e} of the CPU's (rtol "
+                           f"{c['update_rtol']:g})" if "update_rel_err" in c else "")
+                        + f", {c['optimizer']})" for g, c in checks.items())
+            + ("" if score_diff is None else
+               f"; d_fake_score {score_diff:.1e} apart (atol {STRUCTURAL_SCORE_ATOL:g})"))
+        bad = {g: c for g, c in checks.items()
+               if c["max_diff"] > c["atol"] or c.get("update_rel_err", 0.0) > c.get(
+                   "update_rtol", math.inf)}
+        if bad:
+            raise AssertionError(f"{name}: card vs CPU outside the bounds: {bad}")
+        if score_diff is not None and score_diff > STRUCTURAL_SCORE_ATOL:
+            raise AssertionError(f"{name}: d_fake_score {final['d_fake_score']} against the "
+                                 f"CPU's {cpu_final['d_fake_score']}")
+        out[name] = {"api": type(api).__name__, "final": final, "cpu_final": cpu_final,
+                     "seconds": seconds, "cpu_seconds": cpu_seconds,
+                     "round_seconds": list(api.round_times),
+                     "round_losses": list(api.round_losses), "checks": checks}
+    return out
+
+
+def structural_inmesh_phase(ft):
+    """17c: xla_fednas_cifar10_darts (the in-mesh FedNAS round) and the same
+    config on sp, in turns on the card (XLA, sp, XLA, sp): the weights and
+    the alphas within STRUCTURAL_INMESH_ATOL, the genotypes equal, each run's
+    seconds and round seconds.  Returns the record."""
+    import copy
+
+    import torch
+
+    config = _example_config("xla_fednas_cifar10_darts")
+    apis, seconds, rounds = {}, {"XLA": [], "sp": []}, {"XLA": [], "sp": []}
+    for backend in ("XLA", "sp", "XLA", "sp"):
+        c = copy.deepcopy(config)
+        c["comm_args"]["backend"] = backend
+        runner, api = _graph_runner(ft, c)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final = runner.run()
+        torch.cuda.synchronize()
+        seconds[backend].append(time.perf_counter() - t0)
+        rounds[backend].append(list(api.round_times))
+        apis.setdefault(backend, (api, final))
+    (mesh, mesh_final), (sp, sp_final) = apis["XLA"], apis["sp"]
+    if type(mesh).__name__ != "NASInMeshAPI" or type(sp).__name__ != "FedNASAPI":
+        raise AssertionError(f"built {type(mesh).__name__} and {type(sp).__name__}")
+    diffs = {"w": _max_param_diff(mesh.params, sp.params),
+             "alphas": _max_param_diff({"a": mesh.alphas}, {"a": sp.alphas})}
+    log(f"  NASInMeshAPI {mesh_final} in {[round(x, 3) for x in seconds['XLA']]} s (rounds "
+        f"{rounds['XLA']} s); FedNASAPI {sp_final} in {[round(x, 3) for x in seconds['sp']]} s "
+        f"(rounds {rounds['sp']} s); in-mesh vs sp: weights {diffs['w']:.3e} (atol "
+        f"{STRUCTURAL_INMESH_ATOL['w']}), alphas {diffs['alphas']:.3e} (atol "
+        f"{STRUCTURAL_INMESH_ATOL['alphas']}), genotypes equal "
+        f"{mesh_final['genotype'] == sp_final['genotype']}")
+    if (any(diffs[k] > STRUCTURAL_INMESH_ATOL[k] for k in diffs)
+            or mesh_final["genotype"] != sp_final["genotype"]):
+        raise AssertionError(f"in-mesh FedNAS vs sp: {diffs}, genotypes "
+                             f"{mesh_final['genotype']} and {sp_final['genotype']}")
+    return {"xla_final": mesh_final, "sp_final": sp_final, "seconds": seconds,
+            "round_seconds": rounds, "max_diff": diffs}
+
+
 def ptxas_check(build, builds) -> dict:
     """Registers and spills of every kernel instantiation from ptxas's log;
     raises if an instantiation of a kernel of NO_SPILL spills."""
@@ -3440,13 +3707,32 @@ def main() -> int:
     vision["seconds"] = time.perf_counter() - t16
     log(f"  phase 16 in {vision['seconds']:.1f} s")
 
+    t17 = time.perf_counter()
+    structural = {"tf32_flags": flags_found}
+    fa.reset_launches()
+    phase("17a-b: the structural example configs (FedGAN, FedNAS, FedGKT; sp and XLA), then "
+          "split NN and vertical FL on sp (card vs CPU)")
+    structural["runs"] = structural_runs_phase(ft)
+    phase("17c: the in-mesh FedNAS round against its sp twin, in turns")
+    structural["inmesh"] = structural_inmesh_phase(ft)
+    structural_launches = dict(fa.LAUNCHES)
+    log(f"  phase 17 launches {structural_launches}")
+    if any(structural_launches.values()):
+        raise AssertionError(f"flash kernels launched on a structural path: "
+                             f"{structural_launches}")
+    if _tf32_flags() != flags_found:
+        raise AssertionError(f"tf32 flags {_tf32_flags()} after phase 17, found {flags_found}")
+    structural["launches"] = structural_launches
+    structural["seconds"] = time.perf_counter() - t17
+    log(f"  phase 17 in {structural['seconds']:.1f} s")
+
     phase("9: results")
 
     kernels = kernels_line(rows + fold_rows,
                            (launches, sp_launches, single_launches, zoo_launches, trust_launches,
                             sp_backend_launches, sp_zoo_launches, nlp_launches,
                             *nlp_xla_launches, graph_launches, graph_xla_launches,
-                            graph_mesh_launches, vision_launches))
+                            graph_mesh_launches, vision_launches, structural_launches))
     bench = bench_bf16_summary(rows)
     with open(os.path.join(OUT_DIR, "results.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -3464,7 +3750,7 @@ def main() -> int:
                    "sp_backend_launches": sp_backend_launches, "sp_zoo": sp_zoo,
                    "sp_zoo_launches": sp_zoo_launches, "nlp": nlp,
                    "nlp_launches": nlp_launches, "nlp_xla_launches": nlp_xla_launches,
-                   "graph": graph, "vision": vision,
+                   "graph": graph, "vision": vision, "structural": structural,
                    "phase_starts": starts, "seconds": time.perf_counter() - t_start}, f,
                   indent=1)
     log(f"== done in {time.perf_counter() - t_start:.1f} s")

@@ -10,7 +10,9 @@ arrays and partition maps for the same config.  It returns the same 8-tuple::
 Data stay numpy ``(x, y)`` pairs; the simulator moves them to the device
 once (simulation/xla/fed_sim.py ``_pack_data``).  The whole dataset table is
 kept so names and class counts agree with the JAX package, but only the
-next-word-prediction and image kinds, the FedNLP family's (``seqcls``,
+next-word-prediction, image and ``feature`` kinds (the tabular rows of
+``synthetic``, ``uci`` and ``lending_club``, from the image kind's
+generator, as in the JAX package), the FedNLP family's (``seqcls``,
 ``seqtag``, ``span``, ``s2s``, and ``taglr``, the projected bag of words of
 tag prediction), the FedGraphNN family's (``graph``, ``linkpred``,
 ``mtl_graph``, ``nodeclf``, ``graphreg``) and the vision tasks'
@@ -124,7 +126,7 @@ DATASET_SPECS: Dict[str, Dict[str, Any]] = {
 }
 
 
-_PORTED_KINDS = ("nwp", "image", "seqcls", "seqtag", "span", "s2s", "taglr",
+_PORTED_KINDS = ("nwp", "image", "feature", "seqcls", "seqtag", "span", "s2s", "taglr",
                  "graph", "linkpred", "mtl_graph", "nodeclf", "graphreg", "segmentation",
                  "detection")
 
@@ -140,7 +142,7 @@ def _generate(spec: Dict[str, Any], n: int, seed: int, scale_override: int = 0,
               proto_seed: int = 0):
     kind = spec["kind"]
     n = int(scale_override or n)
-    if kind == "image":
+    if kind in ("image", "feature"):
         return synthetic.make_classification(
             n, spec["classes"], tuple(spec["shape"]), seed=seed, proto_seed=proto_seed
         )

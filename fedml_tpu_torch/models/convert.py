@@ -30,12 +30,15 @@ norm2,norm_proj}``, ``classifier``), the ``LogisticRegression``
 (``linear``), the GCNs (``gc{i}``, ``readout``, ``embed``, ``node_head``,
 ``reg_head`` and the link predictor's 0-d ``score_bias``) and the vision
 zoo (``models/{cnn,vgg,mobilenet,efficientnet,unet,detection,rnn}.py``,
-``MLP``), auto-names included (``block3.Conv_1``,
-``MBConv_2.SqueezeExcite_0.Dense_0``, ``LSTMCell_0.hf``).  A GCN's
-``embed`` is a dense layer, not an embedding: the rule tells the two apart
-by the ``gc0`` layer beside it.  A transposed convolution's weight is kept
-in flax's orientation ([in, out, kh, kw], ``models/unet.py``): its kernel
-[kh, kw, in, out] permutes by (2, 3, 0, 1) with no flip.
+``MLP``) and the structural members' models
+(``models/{gan,darts,gkt}.py``), auto-names included (``block3.Conv_1``,
+``MBConv_2.SqueezeExcite_0.Dense_0``, ``LSTMCell_0.hf``,
+``MixedOp_3.GroupNorm_1``).  A GCN's ``embed`` is a dense layer, not an
+embedding: the rule tells the two apart by the ``gc0`` layer beside it.  A
+transposed convolution's weight (``ConvTranspose_{i}``, the GAN's
+``deconv1`` and ``deconv2``) is kept in flax's orientation ([in, out, kh,
+kw], ``models/unet.py``): its kernel [kh, kw, in, out] permutes by (2, 3, 0,
+1) with no flip.
 
 The way back, one rule for the families (``flax_leaf``): a parameter
 ``a.b.weight`` is the leaf ``a/b/kernel`` (a 4-D convolution weight
@@ -66,6 +69,8 @@ def _kernel_to_weight(kernel: np.ndarray, in_dims: int) -> np.ndarray:
     return kernel.reshape(n_in, -1).T
 
 
+# the names of transposed convolutions (models/unet.py, models/gan.py)
+_TRANSPOSED = ("ConvTranspose", "deconv")
 # the encoders' dense heads (models/nlp.py), each with a bias
 ENCODER_HEADS = ("cls_head", "tag_head", "span_head")
 
@@ -166,7 +171,7 @@ def flax_leaf(name: str, ndim: int,
     if leaf != "weight":
         raise KeyError(f"no flax leaf for parameter {name}")
     if ndim == 4:  # OIHW -> HWIO; a transposed convolution's [I, O, H, W] -> HWIO
-        perm = (2, 3, 0, 1) if module[-1].startswith("ConvTranspose") else (2, 3, 1, 0)
+        perm = (2, 3, 0, 1) if module[-1].startswith(_TRANSPOSED) else (2, 3, 1, 0)
         return module + ("kernel",), perm
     if ndim == 2:
         if module[-1] == "embed" and not dense_embed:

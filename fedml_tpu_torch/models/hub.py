@@ -10,10 +10,12 @@ generator (``ml.engine.train.init_variables``).  The ``lr`` (the default),
 (the GCN heads of ``models/gcn.py``) and the vision zoo's (``cnn``,
 ``cnn_web``, ``vgg11``/``vgg16``, ``mobilenet``, ``mobilenet_v3``,
 ``efficientnet``, ``unet``, ``tiny_detector``, ``mlp`` and the ``rnn``
-family) are ported.  flax infers a layer's input width at init; here the
-dataset's spec gives it (its sample shape, its vocabulary).  The other keys
-(``gan``, ``darts``, ``gkt_*``, ``autoencoder``) raise
-``NotImplementedError`` naming the ROADMAP.md item that ports them.
+family) are ported, and so are the structural members' (``gan``: the
+generator at the default latent width, as the JAX hub builds it; ``darts``;
+``gkt_client``, ``gkt_server``).  flax infers a layer's input width at init;
+here the dataset's spec gives it (its sample shape, its vocabulary; the GKT
+server's input is the client net's default width).  The autoencoder keys
+raise ``NotImplementedError`` naming the ROADMAP.md item that ports them.
 """
 
 from __future__ import annotations
@@ -29,9 +31,8 @@ logger = logging.getLogger(__name__)
 
 # the models the JAX hub plumbs compute_dtype into; the transformer is not one
 _RESNETS = {"resnet20", "resnet56", "resnet18", "resnet18_gn"}
-# the JAX hub's keys whose models come with the structural sp members
-_UNPORTED = {"gan", "mnist_gan", "gkt_client", "resnet8_gkt", "gkt_server", "resnet55_gkt",
-             "darts", "darts_network", "autoencoder", "ae", "anomaly_ae"}
+# the JAX hub's keys of the IoT autoencoder (queue A, item 4d)
+_UNPORTED = {"autoencoder", "ae", "anomaly_ae"}
 
 
 def _in_shape(dataset: str) -> tuple:
@@ -177,6 +178,24 @@ def create(args: Any, output_dim: int) -> nn.Module:
         from .rnn import RNN_StackOverFlow
 
         return RNN_StackOverFlow(vocab_size=output_dim, device="meta")
+    if name in ("gan", "mnist_gan"):
+        from .gan import MNISTGenerator
+
+        return MNISTGenerator(device="meta")
+    if name in ("gkt_client", "resnet8_gkt"):
+        from .gkt import GKTClientNet
+
+        return GKTClientNet(num_classes=output_dim, in_channels=_in_channels(dataset),
+                            device="meta")
+    if name in ("gkt_server", "resnet55_gkt"):
+        from .gkt import GKTServerNet
+
+        return GKTServerNet(num_classes=output_dim, device="meta")
+    if name in ("darts", "darts_network"):
+        from .darts import DARTSNetwork
+
+        return DARTSNetwork(num_classes=output_dim, in_channels=_in_channels(dataset),
+                            device="meta")
     if name in _RESNETS:
         from . import resnet
 
@@ -188,7 +207,7 @@ def create(args: Any, output_dim: int) -> nn.Module:
     if name in _UNPORTED:
         raise NotImplementedError(
             f"model {name!r} for dataset {dataset!r} is not ported yet "
-            "(ROADMAP.md queue A, item 4: model zoo and trainers)")
+            "(ROADMAP.md queue A, item 4: model zoo and trainers, 4d: IoT)")
     raise ValueError(f"unknown model {name!r} for dataset {dataset!r}")
 
 

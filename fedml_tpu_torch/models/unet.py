@@ -34,13 +34,24 @@ def _gn(c: int, device) -> GroupNorm:
 
 
 class ConvTranspose(nn.ConvTranspose2d):
-    """flax ``nn.ConvTranspose(features, (k, k), strides=(k, k))`` with bias."""
+    """flax ``nn.ConvTranspose(features, (k, k), strides=(s, s),
+    padding="SAME")`` with bias; ``stride`` defaults to ``k``.
 
-    def __init__(self, cin: int, cout: int, k: int, device=None):
-        super().__init__(cin, cout, k, stride=k, device=device)
+    lax pads the stride-dilated input by (a, b) with a = k - 1 when s > k - 1,
+    else ceil((k + s - 2) / 2), and b = k + s - 2 - a; torch's ``padding=p``
+    pads it by k - 1 - p on each side, so p = k - 1 - a (0 at k = s = 2, 1 at
+    the GAN's k 4, s 2).  Only the symmetric cases are built."""
+
+    def __init__(self, cin: int, cout: int, k: int, device=None, *, stride: int = 0):
+        s = stride or k
+        pad_a = k - 1 if s > k - 1 else -(-(k + s - 2) // 2)
+        if 2 * pad_a != k + s - 2:
+            raise ValueError(f"SAME transposed convolution k {k}, stride {s} pads unevenly")
+        super().__init__(cin, cout, k, stride=s, padding=k - 1 - pad_a, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv_transpose2d(x, self.weight.flip(2, 3), self.bias, stride=self.stride)
+        return F.conv_transpose2d(x, self.weight.flip(2, 3), self.bias, stride=self.stride,
+                                  padding=self.padding)
 
 
 class _ConvBlock(nn.Module):

@@ -4,10 +4,11 @@ single-process round loop (``simulation/sp``), clients one after another
 through their trainer and the server aggregator's hooks; ``XLA`` (and
 ``MPI`` / ``NCCL``, as in the JAX package) runs the round simulator on one
 card, or, for ``decentralized_fl`` and ``spreadgnn``, the in-mesh gossip
-round (``simulation/xla/decentralized.py``).  The round simulator refuses
-the other optimizers that have a program of their own in the JAX package
-(``create_inmesh_algorithm``: ROADMAP.md queue A, item 5: the other
-simulators)."""
+round (``simulation/xla/decentralized.py``), for ``fedgan`` and ``fednas``
+the in-mesh FedGAN and FedNAS rounds (``simulation/xla/gan_nas.py``).  The
+round simulator refuses the other optimizers that have a program of their
+own in the JAX package (``create_inmesh_algorithm``: ROADMAP.md queue A,
+item 5: the other simulators)."""
 
 from __future__ import annotations
 
@@ -41,6 +42,14 @@ class SimulatorXLA:
             from .xla.decentralized import SpreadGNNInMeshAPI
 
             self.sim = SpreadGNNInMeshAPI(args, device, dataset, model)
+        elif opt == "fedgan":
+            from .xla.gan_nas import GANInMeshAPI
+
+            self.sim = GANInMeshAPI(args, device, dataset, model)
+        elif opt == "fednas":
+            from .xla.gan_nas import NASInMeshAPI
+
+            self.sim = NASInMeshAPI(args, device, dataset, model)
         else:
             from .xla.fed_sim import XLASimulator
 

@@ -2,10 +2,11 @@
 ``fedml_tpu/simulation/sp/__init__.py``).
 
 FedAvg and its zoo are ported, each a subclass of ``FedAvgAPI`` at its JAX
-twin's path; ``fl_mode: async`` with FedAvg runs FedBuff; FedSeg runs a loop
-of its own (``fedseg/fedseg_api.py``).  The structural members that come
-with their models (FedGAN, FedNAS, FedGKT, split NN, classical vertical FL)
-raise ``NotImplementedError`` naming the ROADMAP.md item that ports them.
+twin's path; ``fl_mode: async`` with FedAvg runs FedBuff.  FedSeg and the
+structural members (FedGAN, FedNAS, FedGKT, split NN, classical vertical FL)
+each run a loop of their own (``fedseg/``, ``fedgan/``, ``fednas/``,
+``fedgkt/``, ``split_nn/``, ``classical_vertical_fl/``), as their JAX twins
+do, and share ``fedavg_api.own_loop_setup``'s checks.
 
 The JAX members do not all pass through the trust hooks that ``FedAvgAPI``
 runs: some replace the client's training (no local DP after-hook), some
@@ -33,6 +34,11 @@ decentralized     no     no      no      no      no      yes    no
 SpreadGNN         no     no      no      no      no      yes    no
 Turbo-Aggregate   no     yes     no      no      yes     yes    yes
 FedSeg            no     no      no      no      no      no     no
+FedGAN            no     no      no      no      no      no     no
+FedNAS            no     no      no      no      no      no     no
+FedGKT            no     no      no      no      no      no     no
+split NN          no     no      no      no      no      no     no
+vertical FL       no     no      no      no      no      no     no
 ================  =====  ======  ======  ======  ======  =====  =====
 
 (1) FedNova pairs each tau with its update by object identity before the
@@ -50,7 +56,6 @@ from __future__ import annotations
 
 import importlib
 
-_MODEL_ITEM = "ROADMAP.md queue A, item 4: model zoo and trainers"
 # lower-cased optimizer -> (module under simulation/sp, class); JAX's _dispatch
 _MEMBERS = {
     "fedavg": ("fedavg.fedavg_api", "FedAvgAPI"),
@@ -65,12 +70,14 @@ _MEMBERS = {
     "turbo_aggregate": ("turboaggregate.ta_api", "TurboAggregateAPI"),
     "spreadgnn": ("spreadgnn.spreadgnn_api", "SpreadGNNAPI"),
     "async_fedavg": ("async_fedavg.async_fedavg_api", "AsyncFedAvgAPI"),
+    "classical_vertical": ("classical_vertical_fl.vfl_api", "VerticalFLAPI"),
+    "split_nn": ("split_nn.split_nn_api", "SplitNNAPI"),
+    "fedgan": ("fedgan.fedgan_api", "FedGanAPI"),
+    "fedgkt": ("fedgkt.gkt_api", "FedGKTAPI"),
+    "fednas": ("fednas.fednas_api", "FedNASAPI"),
     "fedseg": ("fedseg.fedseg_api", "FedSegAPI"),
 }
 _FEDBUFF = ("async_fedavg.fedbuff_api", "FedBuffAPI")
-# these come with their models
-_UNPORTED = dict.fromkeys(("classical_vertical", "split_nn", "fedgan", "fedgkt", "fednas"),
-                          _MODEL_ITEM)
 
 
 def create_sp_algorithm(optimizer: str, args, device, dataset, model):
@@ -85,10 +92,6 @@ def create_sp_algorithm(optimizer: str, args, device, dataset, model):
         member = _FEDBUFF
     elif opt in _MEMBERS:
         member = _MEMBERS[opt]
-    elif opt in _UNPORTED:
-        raise NotImplementedError(
-            f"federated_optimizer {optimizer!r} is not ported to the sp simulator yet "
-            f"({_UNPORTED[opt]})")
     else:
         raise ValueError(f"unknown federated_optimizer {optimizer!r}")
     module = importlib.import_module(f"{__name__}.{member[0]}")

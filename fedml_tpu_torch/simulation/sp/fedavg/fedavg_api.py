@@ -82,6 +82,32 @@ def active_hooks() -> set:
     return on
 
 
+def own_loop_setup(args, member: str, frequency: bool = True, skip=XLA_ROUND_KNOBS) -> int:
+    """The checks of a member that runs a loop of its own (FedSeg, the
+    structural members, the in-mesh FedGAN and FedNAS rounds): the unported
+    knobs refused (less ``skip``), every trust hook switched on refused (the
+    JAX twin skips them all silently; the table is in
+    ``simulation/sp/__init__.py``), and, where the member reads it,
+    ``frequency_of_the_test`` returned, refused at 0 or below (else 0)."""
+    refuse_unported_knobs(args, skip=skip)
+    on = active_hooks()
+    attacker = FedMLAttacker.get_instance()
+    if attacker.is_attack_enabled():
+        on.add(f"{attacker.attack_type} attack")
+    if on:
+        raise NotImplementedError(
+            f"{member} does not run the {' or the '.join(sorted(on))} hook (its JAX twin "
+            "skips it silently; the table is in simulation/sp/__init__.py)")
+    if not frequency:
+        return 0
+    freq = int(getattr(args, "frequency_of_the_test", 5))
+    if freq <= 0:
+        raise ValueError(
+            f"frequency_of_the_test must be >= 1 for the sp simulator (got {freq}): "
+            "the round tests the global model at round_idx % frequency_of_the_test == 0")
+    return freq
+
+
 class Client:
     """A reusable client slot."""
 

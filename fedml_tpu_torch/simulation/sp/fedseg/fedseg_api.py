@@ -32,15 +32,13 @@ from torch import nn
 
 from ....core.aggregate import weighted_mean
 from ....core.sampling import client_sampling
-from ....core.security.fedml_attacker import FedMLAttacker
 from ....device import fp32_matmul
 from ....ml.engine.train import _ce, get_variables, init_variables, load_variables
 from ....ml.trainer.cls_trainer import to_device
 from ....ml.trainer.seg_trainer import EVAL_BATCH, dataset_miou
 from ....models.unet import UNet, iou_counts
 from ....utils.metrics import MetricsLogger
-from ...xla.fed_sim import XLA_ROUND_KNOBS, refuse_unported_knobs
-from ..fedavg.fedavg_api import active_hooks
+from ..fedavg.fedavg_api import own_loop_setup
 
 logger = logging.getLogger(__name__)
 
@@ -53,20 +51,7 @@ class FedSegAPI:
             _tn, _ten, _tg, self.test_global, self.local_num, self.local_train, _lt,
             self.class_num,
         ) = dataset
-        refuse_unported_knobs(args, skip=XLA_ROUND_KNOBS)
-        on = active_hooks()
-        attacker = FedMLAttacker.get_instance()
-        if attacker.is_attack_enabled():
-            on.add(f"{attacker.attack_type} attack")
-        if on:
-            raise NotImplementedError(
-                f"FedSegAPI does not run the {' or the '.join(sorted(on))} hook (its JAX twin "
-                "skips it silently; the table is in simulation/sp/__init__.py)")
-        self.freq = int(getattr(args, "frequency_of_the_test", 5))
-        if self.freq <= 0:
-            raise ValueError(
-                f"frequency_of_the_test must be >= 1 for the sp simulator (got {self.freq}): "
-                "the round tests the global model at round_idx % frequency_of_the_test == 0")
+        self.freq = own_loop_setup(args, "FedSegAPI")
         self.bs = int(getattr(args, "batch_size", 8))
         self.lr = float(getattr(args, "learning_rate", 0.01))
         self.net = model if isinstance(model, nn.Module) else UNet(self.class_num, device="meta")

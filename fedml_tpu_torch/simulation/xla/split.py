@@ -2,7 +2,8 @@
 (counterpart of ``fedml_tpu/simulation/xla/split.py``).
 
 Only ``_pad_clients`` is ported: the in-mesh decentralized round
-(``simulation/xla/decentralized.py``) packs its nodes' data with it.  The
+(``simulation/xla/decentralized.py``) and the in-mesh FedGAN and FedNAS
+rounds (``simulation/xla/gan_nas.py``) pack their clients' data with it.  The
 split-computation programs themselves (VFL, SplitNN, FedGKT) are not ported
 yet (ROADMAP.md queue A, item 5: the other simulators); ``SimulatorXLA``
 refuses their optimizers.

@@ -18,10 +18,16 @@ pack-time data poisoning of a client    (s + 2027, client)
 the attacker's list hooks               (s + 2027,), drawn in turn
 the defender's list hooks               (s + 1013,), drawn in turn
 central DP and ``add_noise``            (s + 7919,), drawn in turn
+FedGAN's latents of a client run        (s, 6011, round, client), on the CPU
+FedGAN's health draw of a round         (s, 6013, round), on the CPU
+DARTS's ``init_alphas``                 (s, 3571), on the CPU
+vertical FL's weights of a party        (s, 8161, party), on the CPU
 ======================================  ===================================
 
 The same tuple gives the same draws on one device type; a CUDA generator
-draws other numbers than a CPU one.
+draws other numbers than a CPU one.  The streams marked "on the CPU" draw
+from a CPU generator and move the draw to the run's device, so a run on the
+card and one on the CPU start from the same numbers.
 """
 
 from __future__ import annotations
@@ -30,6 +36,12 @@ from typing import Sequence
 
 import numpy as np
 import torch
+
+# the salts of the structural members' streams (table above)
+GAN_LATENT_SALT = 6011
+GAN_HEALTH_SALT = 6013
+ALPHAS_SALT = 3571
+VFL_WEIGHT_SALT = 8161
 
 
 def seeded_generator(seed: Sequence[int], device="cpu") -> torch.Generator:

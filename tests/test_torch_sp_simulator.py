@@ -438,13 +438,24 @@ def test_example_config_runs_on_the_port(name, tmp_path):
     ("split_nn", "item 4"), ("classical_vertical", "item 4"), ("SpreadGNN", "item 2"),
 ])
 def test_other_sp_optimizers_raise_with_their_item(optimizer, item):
-    """The members of item 2, SpreadGNN (ported with the graph family) and
-    FedSeg (with the vision family, on a segmentation dataset) build their
-    class.  The structural members of item 4 still raise, naming themselves
-    and the item."""
+    """The members of item 2, SpreadGNN (ported with the graph family),
+    FedSeg (with the vision family, on a segmentation dataset) and the
+    structural members of item 4 (with their models) build their class;
+    none raises any more."""
     from fedml_tpu_torch.simulation.sp import create_sp_algorithm
 
     args = fedml_tpu_torch.Arguments.from_dict(_config(LR_CONFIG, federated_optimizer=optimizer))
+    structural = {"FedGKT": ("FedGKTAPI", "cifar10"), "FedGAN": ("FedGanAPI", "mnist"),
+                  "FedNAS": ("FedNASAPI", "cifar10"), "split_nn": ("SplitNNAPI", "mnist"),
+                  "classical_vertical": ("VerticalFLAPI", "synthetic")}
+    if optimizer in structural:
+        cls, args.dataset = structural[optimizer]
+        args = fedml_tpu_torch.init(args, should_init_logs=False)
+        dataset, classes = fedml_tpu_torch.data.load(args)
+        api = create_sp_algorithm(optimizer, args, torch.device("cpu"), dataset,
+                                  fedml_tpu_torch.models.hub.create(args, classes))
+        assert type(api).__name__ == cls
+        return
     if optimizer == "FedSeg":
         args.dataset, args.model, args.synthetic_train_size = "synthetic_seg", "unet", 64
         args = fedml_tpu_torch.init(args, should_init_logs=False)
@@ -534,7 +545,8 @@ def test_ported_trainer_families():
 def test_structural_optimizers_on_xla_raise_with_item_5(optimizer):
     """Under ``backend: XLA`` the optimizers whose JAX twin is a program of
     its own refuse, naming item 5; ``decentralized_fl`` and ``spreadgnn``
-    build theirs (``tests/test_torch_graph_simulation.py``)."""
+    build theirs (``tests/test_torch_graph_simulation.py``), and so do
+    ``fedgan`` and ``fednas`` (``tests/test_torch_gan_nas_inmesh.py``)."""
     from fedml_tpu_torch.simulation.simulator import create_simulator
 
     config = _config(LR_CONFIG, federated_optimizer=optimizer)
@@ -543,6 +555,11 @@ def test_structural_optimizers_on_xla_raise_with_item_5(optimizer):
                                 should_init_logs=False)
     dataset, classes = fedml_tpu_torch.data.load(args)
     model = fedml_tpu_torch.models.hub.create(args, classes)
+    inmesh = {"FedGAN": "GANInMeshAPI", "FedNAS": "NASInMeshAPI"}
+    if optimizer in inmesh:
+        assert type(create_simulator(args, torch.device("cpu"), dataset, model).sim
+                    ).__name__ == inmesh[optimizer]
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A, item 5:"):
         create_simulator(args, torch.device("cpu"), dataset, model)
 

@@ -69,7 +69,7 @@
    whether it copies to contiguous; the boundary flush is timed on its own
    with CUDA events.
 9. The kernels line, the card line, and the last line
-   {"ok": true, "device": {...}}, printed after phase 17.
+   {"ok": true, "device": {...}}, printed after phase 18.
 10. The algorithm zoo.  (a) At the north-star width: BENCH_CONFIG with the
    algorithm's knobs changed and its cohort cut to ZOO_COHORT (4) clients
    (ZOO: FedProx, FedOpt/adam, FedNova, SCAFFOLD, FedDyn, AsyncFedAvg,
@@ -217,6 +217,32 @@
    STRUCTURAL_CPU_ATOL.  (c) The in-mesh FedNAS round against its sp twin on
    the card in turns (XLA, sp, XLA, sp): the weights and alphas within
    STRUCTURAL_INMESH_ATOL, the genotypes equal, each run's seconds.
+18. The IoT autoencoder path and the in-mesh rounds of vertical FL, split
+   NN, FedGKT, hierarchical FL and Turbo-Aggregate, with the TF32 flags as
+   the script found them.  No flash kernel lies on these paths (no Pallas
+   kernel lies on them in the JAX package): the counts, set to 0 when the
+   phase starts, must read 0 when it ends.  (a) The six example configs as
+   they stand: sp_fedavg_iot_autoencoder (FedAvg of the autoencoder at hidden
+   32 and bottleneck 8 on iot_anomaly, adam), xla_vfl_synthetic_lr,
+   xla_split_nn_mnist_mlp (split_hidden 128), xla_fedgkt_cifar10_cnn (the
+   edge net at width 32, the tower at width 64 with 3 blocks),
+   xla_hierarchical_fl_mnist_lr and xla_turbo_aggregate_mnist_lr, each
+   through the entry points and again on the CPU: finite losses and trees,
+   the final eval beside the CPU's, the seconds; the SGD-driven trees within
+   STRUCTURAL_CPU_ATOL (the GKT example, if past it, within
+   STRUCTURAL_CHAOS_RATIO times a perturbed CPU run's gap), the autoencoder
+   within 2 lr an adam step and its update within IOT_UPDATE_RTOL.  (b)
+   nbaiot at its spec's size (115 features, 8,000 train and 1,600 test rows)
+   with the IoT example's knobs (adam) and again with SGD at IOT_SPEC_LR, on
+   sp and on the packed round, each again on the CPU: test_acc and
+   test_anomaly_recall beside the CPU's, the anomaly threshold and the test
+   errors' sum within IOT_EVAL_RTOL (adam, past it: within
+   STRUCTURAL_CHAOS_RATIO times the largest gap of CPU runs rounded once
+   more after every step, and the card again with the CPU's single-tensor adam
+   within IOT_EVAL_RTOL).  (c) The in-mesh hierarchical and
+   Turbo-Aggregate rounds against their sp twins on the card in turns (XLA,
+   sp, XLA, sp), on clients of 64 rows: equal bit for bit, each run's
+   seconds.
 
 Any failure raises and the script exits non-zero with no result line.  It
 exits 2 when no CUDA device is visible.  Full details go to
@@ -3203,22 +3229,34 @@ def _example_config(name: str) -> dict:
 
 
 def _structural_trees(api) -> dict:
-    """{group: (variables, the optimizer that drives them)} of a structural
-    member's final state."""
+    """{group: (variables, the optimizer that drives them)} of the final
+    state of a run of phase 17 or 18."""
     name = type(api).__name__
     if name in ("FedGanAPI", "GANInMeshAPI"):
         return {"G": (api.g_params, "adam"), "D": (api.d_params, "adam")}
     if name in ("FedNASAPI", "NASInMeshAPI"):
         return {"w": (api.params, "sgd"), "alphas": ({"alphas": api.alphas}, "adam")}
-    if name == "FedGKTAPI":
+    if name in ("FedGKTAPI", "GKTInMeshAPI"):
         trees = {f"client {c}": (p, "sgd") for c, p in sorted(api.client_params.items())}
         trees["server"] = (api.server_params, "sgd")
         return trees
-    if name == "SplitNNAPI":
+    if name in ("SplitNNAPI", "SplitNNInMeshAPI"):
         return {"front": (api.front_params, "sgd"), "back": (api.back_params, "sgd")}
     if name == "VerticalFLAPI":
         return {"w": ({**{f"w{k}": w for k, w in enumerate(api.w)}, "b": api.b}, "sgd")}
-    raise AssertionError(f"not a structural member: {name}")
+    if name == "VFLInMeshAPI":
+        return {"w": ({"w": api.w, "b": api.b}, "sgd")}
+    if name == "HierarchicalInMeshAPI":
+        trees = {f"group {g}": (m, "sgd") for g, m in enumerate(api.group_models)}
+        trees["global"] = (api.w_global, "sgd")
+        return trees
+    if name == "TurboAggregateInMeshAPI":
+        return {"global": (api.w_global, "sgd")}
+    if name == "FedAvgAPI":
+        return {"global": (api.w_global, str(api.args.client_optimizer))}
+    if name == "XLASimulator":
+        return {"global": (api.variables, str(api.args.client_optimizer))}
+    raise AssertionError(f"not a run of phase 17 or 18: {name}")
 
 
 def _adam_bound(api) -> float:
@@ -3259,6 +3297,32 @@ def _perturb_gkt(api, eps: float) -> None:
             p.mul_(1 + eps * torch.randn(p.shape, generator=gen).to(p.device))
 
 
+def _card_and_cpu(ft, config, name):
+    """One config through the entry points on the card, then on the CPU:
+    (card api, final, seconds, cpu api, the CPU run's initial trees, cpu
+    final, cpu seconds)."""
+    import copy
+
+    import torch
+
+    runner, api = _graph_runner(ft, config)
+    flags = _tf32_flags()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    final = runner.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if _tf32_flags() != flags:
+        raise AssertionError(f"{name}: the run changed the TF32 flags")
+    cpu = copy.deepcopy(config)
+    cpu["device_args"] = {"device_type": "cpu"}
+    cpu_runner, cpu_api = _graph_runner(ft, cpu)
+    cpu_init = _cloned_trees(cpu_api)
+    t0 = time.perf_counter()
+    cpu_final = cpu_runner.run()
+    return api, final, seconds, cpu_api, cpu_init, cpu_final, time.perf_counter() - t0
+
+
 def _losses_finite(api) -> bool:
     return all(math.isfinite(v) for r in api.round_losses
                for v in (r if isinstance(r, tuple) else (r,)))
@@ -3289,22 +3353,10 @@ def structural_runs_phase(ft):
     out = {}
     for name, config in runs:
         chaotic = name == "sp_fedgkt_cifar10"
-        runner, api = _graph_runner(ft, config)
-        flags = _tf32_flags()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        final = runner.run()
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        if _tf32_flags() != flags:
-            raise AssertionError(f"{name}: the run changed the TF32 flags")
+        api, final, seconds, cpu_api, cpu_init, cpu_final, cpu_seconds = _card_and_cpu(
+            ft, config, name)
         cpu = copy.deepcopy(config)
         cpu["device_args"] = {"device_type": "cpu"}
-        cpu_runner, cpu_api = _graph_runner(ft, cpu)
-        cpu_init = _cloned_trees(cpu_api)
-        t0 = time.perf_counter()
-        cpu_final = cpu_runner.run()
-        cpu_seconds = time.perf_counter() - t0
         trees, cpu_trees = _structural_trees(api), _structural_trees(cpu_api)
         spread = {}
         if chaotic:  # the gap a perturbed CPU run opens
@@ -3399,6 +3451,295 @@ def structural_inmesh_phase(ft):
                              f"{mesh_final['genotype']} and {sp_final['genotype']}")
     return {"xla_final": mesh_final, "sp_final": sp_final, "seconds": seconds,
             "round_seconds": rounds, "max_diff": diffs}
+
+
+# Phase 18: the IoT autoencoder path and the in-mesh rounds of vertical FL,
+# split NN, FedGKT, hierarchical FL and Turbo-Aggregate.  18a: the six example
+# configs as they stand, each again on the CPU; 18b: nbaiot at its spec's
+# size (115 features, 8,000 train and 1,600 test rows) on sp and on the packed
+# round, each again on the CPU; 18c: the in-mesh hierarchical and
+# Turbo-Aggregate rounds against their sp twins on the card, in turns.  No
+# flash kernel lies on these paths, as no Pallas kernel lies on them in the
+# JAX package: the counts, set to 0 when the phase starts, must read 0 when
+# it ends
+INMESH_EXAMPLES = ("sp_fedavg_iot_autoencoder", "xla_vfl_synthetic_lr", "xla_split_nn_mnist_mlp",
+                   "xla_fedgkt_cifar10_cnn", "xla_hierarchical_fl_mnist_lr",
+                   "xla_turbo_aggregate_mnist_lr")
+# 18a's adam-driven autoencoder (sp_fedavg_iot_autoencoder): leaf by leaf within
+# STRUCTURAL_ADAM_ATOL_OVER_LR lr for each adam step a client takes, and its
+# update within IOT_UPDATE_RTOL of the CPU's (relative norm), the bar of 17a's
+# alphas; the SGD-driven trees within STRUCTURAL_CPU_ATOL, xla_fedgkt_cifar10_cnn
+# (lr 0.05 with momentum, as the chaotic sp_fedgkt_cifar10) within it or, past
+# it, within STRUCTURAL_CHAOS_RATIO times the gap a CPU run opens when its
+# initial weights move by STRUCTURAL_CHAOS_EPS
+IOT_UPDATE_RTOL = 1e-3
+# 18b: the anomaly threshold and the test set's error sum, card against CPU,
+# relative: runs with SGD at IOT_SPEC_LR within IOT_EVAL_RTOL; runs with the
+# IoT example's adam within the larger of IOT_EVAL_RTOL and
+# STRUCTURAL_CHAOS_RATIO times the largest gap of IOT_WITNESS_SEEDS CPU runs
+# whose weights are rounded once more after every step (each times
+# 1 + IOT_WITNESS_EPS N(0, 1), from a CPU generator of the seed), and, where
+# past IOT_EVAL_RTOL, again on the card with the CPU's single-tensor adam
+# (foreach off) within IOT_EVAL_RTOL.  At this size (125 adam steps a client
+# a round) an "NVIDIA H100 80GB HBM3, 700.00 W" parted from its host's CPU by
+# 6.7e-3 in the threshold after 2 rounds on sp, one such witness by 6.9e-3,
+# the card's single-tensor adam by 5.8e-6 (PERF.md)
+IOT_EVAL_RTOL = 1e-4
+IOT_SPEC_LR = 0.05
+IOT_WITNESS_EPS = 2.0 ** -24
+IOT_WITNESS_SEEDS = (1, 2, 3, 4)
+# 18c: in-mesh against sp on one card, clients of 64 rows in batches of 16, so
+# the sp bucket and padded_n agree: the in-mesh rounds are their sp twins with
+# only the padding changed, so every tree is equal bit for bit
+
+
+def _adam_steps(api) -> int:
+    """The adam steps a client of an sp run takes, at most."""
+    args = api.args
+    most = max(api.train_data_local_num_dict.values())
+    return -(-most // int(args.batch_size)) * int(args.epochs) * int(args.comm_round)
+
+
+def _ae_threshold(api, variables) -> dict:
+    """The anomaly threshold (median + 3 * 1.4826 * MAD of the test errors,
+    ModelTrainerAE's) and the errors' sum of ``variables`` on the run's test
+    set, in one forward on the run's device."""
+    import torch
+
+    from fedml_tpu_torch.ml.engine.train import load_variables
+    from fedml_tpu_torch.ml.trainer.ae_trainer import median
+
+    x, _flags = api.test_data_global if hasattr(api, "test_data_global") else api.test_global
+    module = api.module
+    load_variables(module, variables)
+    with torch.no_grad():
+        xs = torch.from_numpy(np.asarray(x, np.float32)).to(next(module.parameters()).device)
+        err = torch.square(module(xs) - xs.reshape(xs.shape[0], -1)).mean(dim=-1)
+        med = median(err)
+        thresh = med + 3.0 * 1.4826 * median((err - med).abs())
+    return {"threshold": float(thresh), "error_sum": float(err.sum())}
+
+
+def inmesh_examples_phase(ft):
+    """18a: the six example configs as they stand, on the card and on the
+    CPU: finite losses and trees, the final eval beside the CPU's, the
+    seconds; each tree within its bound (see INMESH_EXAMPLES).  Returns the
+    runs' records."""
+    import copy
+
+    import torch
+
+    out = {}
+    for name in INMESH_EXAMPLES:
+        config = _example_config(name)
+        api, final, seconds, cpu_api, cpu_init, cpu_final, cpu_seconds = _card_and_cpu(
+            ft, config, name)
+        trees, cpu_trees = _structural_trees(api), _structural_trees(cpu_api)
+        checks, bad = {}, {}
+        for group, (tree, opt) in trees.items():
+            if not all(bool(torch.isfinite(v).all()) for v in tree.values()):
+                raise AssertionError(f"{name}: {group} is not finite")
+            check = {"optimizer": opt, "max_diff": _max_param_diff(tree, cpu_trees[group][0])}
+            if opt == "adam":
+                check["atol"] = (STRUCTURAL_ADAM_ATOL_OVER_LR * float(api.args.learning_rate)
+                                 * _adam_steps(api))
+                check["update_rel_err"] = _update_rel_err(tree, cpu_trees[group][0],
+                                                          cpu_init[group])
+                check["update_rtol"] = IOT_UPDATE_RTOL
+            else:
+                check["atol"] = STRUCTURAL_CPU_ATOL
+            checks[group] = check
+        if name == "xla_fedgkt_cifar10_cnn" and any(
+                c["max_diff"] > c["atol"] for c in checks.values()):
+            cpu = copy.deepcopy(config)
+            cpu["device_args"] = {"device_type": "cpu"}
+            moved_runner, moved = _graph_runner(ft, cpu)
+            _perturb_gkt(moved, STRUCTURAL_CHAOS_EPS)
+            moved_runner.run()
+            for group, (tree, _) in _structural_trees(moved).items():
+                spread = _max_param_diff(tree, cpu_trees[group][0])
+                checks[group].update(spread=spread, atol=STRUCTURAL_CHAOS_RATIO * spread)
+        for group, c in checks.items():
+            if c["max_diff"] > c["atol"] or c.get("update_rel_err", 0.0) > c.get(
+                    "update_rtol", math.inf):
+                bad[group] = c
+        losses = getattr(api, "round_losses", None)
+        if losses is not None and (not losses or not _losses_finite(api)):
+            raise AssertionError(f"{name}: losses {losses}")
+        if not all(math.isfinite(v) for v in final.values() if isinstance(v, float)):
+            raise AssertionError(f"{name}: {final}")
+        log(f"  {name} ({type(api).__name__}, {api.args.client_num_in_total} clients, "
+            f"{api.args.client_num_per_round} a round, {api.args.comm_round} rounds): {final} in "
+            f"{seconds:.3f} s" + (f" (rounds {[round(x, 4) for x in api.round_times]} s, last "
+                                   f"loss {losses[-1]})" if losses else "")
+            + f"; CPU {cpu_final} in {cpu_seconds:.3f} s; card vs CPU "
+            + ", ".join(f"{g} {c['max_diff']:.3e} (atol {c['atol']:.1e}"
+                        + (f", {STRUCTURAL_CHAOS_RATIO:g}x a perturbed CPU run's "
+                           f"{c['spread']:.3e}" if "spread" in c else "")
+                        + (f"; update {c['update_rel_err']:.3e} of the CPU's (rtol "
+                           f"{c['update_rtol']:g})" if "update_rel_err" in c else "")
+                        + f", {c['optimizer']})" for g, c in checks.items()))
+        if bad:
+            raise AssertionError(f"{name}: card vs CPU outside the bounds: {bad}")
+        out[name] = {"api": type(api).__name__, "final": final, "cpu_final": cpu_final,
+                     "seconds": seconds, "cpu_seconds": cpu_seconds,
+                     "round_seconds": list(getattr(api, "round_times", [])),
+                     "round_losses": list(losses or []), "checks": checks}
+    return out
+
+
+def _rounding_witness(ft, config, eps: float, seed: int):
+    """``config`` on the CPU with every weight times 1 + eps N(0, 1) after
+    each optimizer step (a CPU generator seeded ``seed``): its api."""
+    import copy
+
+    import torch
+    from torch.optim.optimizer import register_optimizer_step_post_hook
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def perturb(opt, _args, _kwargs):
+        with torch.no_grad():
+            for group in opt.param_groups:
+                for p in group["params"]:
+                    p.mul_(1 + eps * torch.randn(p.shape, generator=gen))
+
+    cpu = copy.deepcopy(config)
+    cpu["device_args"] = {"device_type": "cpu"}
+    handle = register_optimizer_step_post_hook(perturb)
+    try:
+        runner, api = _graph_runner(ft, cpu)
+        runner.run()
+    finally:
+        handle.remove()
+    return api
+
+
+def _single_tensor_adam_run(ft, config):
+    """``config`` as it stands with ``torch.optim.Adam``'s foreach off, the
+    CPU's default: its api."""
+    import functools
+
+    import torch
+
+    init = torch.optim.Adam.__init__
+    torch.optim.Adam.__init__ = functools.partialmethod(init, foreach=False)
+    try:
+        runner, api = _graph_runner(ft, config)
+        runner.run()
+    finally:
+        torch.optim.Adam.__init__ = init
+    return api
+
+
+def iot_spec_phase(ft):
+    """18b: nbaiot at its spec's size with sp_fedavg_iot_autoencoder's knobs
+    (adam) and again with SGD at IOT_SPEC_LR, on sp and on the packed round,
+    on the card and on the CPU: test_acc and test_anomaly_recall beside the
+    CPU's, the threshold and the error sum of the final model within their
+    bound (IOT_EVAL_RTOL; for adam, past it, STRUCTURAL_CHAOS_RATIO times the
+    rounding witnesses' largest gap, and the card's run with single-tensor
+    adam within IOT_EVAL_RTOL), the seconds.  Returns the records."""
+    import copy
+
+    base = _example_config("sp_fedavg_iot_autoencoder")
+    base["data_args"].update(dataset="nbaiot", synthetic_train_size=0)
+    out = {}
+    for opt, lr in (("adam", base["train_args"]["learning_rate"]), ("sgd", IOT_SPEC_LR)):
+        for label, backend, pack in (("sp", "sp", False), ("packed", "XLA", True)):
+            c = copy.deepcopy(base)
+            c["comm_args"]["backend"] = backend
+            c["train_args"].update(xla_pack=pack, client_optimizer=opt, learning_rate=lr)
+            name = f"nbaiot {opt} on {label}"
+            api, final, seconds, cpu_api, _init, cpu_final, cpu_seconds = _card_and_cpu(
+                ft, c, name)
+            got = _ae_threshold(api, _structural_trees(api)["global"][0])
+            want = _ae_threshold(cpu_api, _structural_trees(cpu_api)["global"][0])
+            rel = {k: abs(got[k] - want[k]) / abs(want[k]) for k in want}
+            bound = {k: IOT_EVAL_RTOL for k in want}
+            spread = {}
+            if opt == "adam":
+                for seed in IOT_WITNESS_SEEDS:
+                    witness = _rounding_witness(ft, c, IOT_WITNESS_EPS, seed)
+                    w = _ae_threshold(witness, _structural_trees(witness)["global"][0])
+                    spread = {k: max(spread.get(k, 0.0), abs(w[k] - want[k]) / abs(want[k]))
+                              for k in want}
+                bound = {k: max(IOT_EVAL_RTOL, STRUCTURAL_CHAOS_RATIO * spread[k])
+                         for k in want}
+            single = {}
+            if opt == "adam" and any(rel[k] > IOT_EVAL_RTOL for k in want):
+                s_api = _single_tensor_adam_run(ft, c)
+                s_eval = _ae_threshold(s_api, _structural_trees(s_api)["global"][0])
+                single = {k: abs(s_eval[k] - want[k]) / abs(want[k]) for k in want}
+            n_train = sum(len(v[1]) for v in (api.train_data_local_dict.values()
+                                              if hasattr(api, "train_data_local_dict")
+                                              else api.local_train_dict.values()))
+            n_test = len((api.test_data_global if hasattr(api, "test_data_global")
+                          else api.test_global)[1])
+            log(f"  {name} ({type(api).__name__}, {n_train} train and {n_test} test rows, "
+                f"115 features, lr {lr:g}): test_acc {final['test_acc']} (CPU "
+                f"{cpu_final['test_acc']}), test_anomaly_recall {final['test_anomaly_recall']} "
+                f"(CPU {cpu_final['test_anomaly_recall']}) in {seconds:.3f} s (CPU "
+                f"{cpu_seconds:.3f} s); "
+                + "; ".join(f"{k} {got[k]:.6f} (CPU {want[k]:.6f}, rel {rel[k]:.3e}, bound "
+                            f"{bound[k]:.3e}"
+                            + (f" = max({IOT_EVAL_RTOL:g}, {STRUCTURAL_CHAOS_RATIO:g} x the "
+                               f"witnesses' {spread[k]:.3e})" if spread else "") + ")"
+                            for k in want)
+                + (f"; the card with single-tensor adam: rel {single} (rtol {IOT_EVAL_RTOL:g})"
+                   if single else ""))
+            if (n_train, n_test) != (8000, 1600) or any(rel[k] > bound[k] for k in want) or any(
+                    v > IOT_EVAL_RTOL for v in single.values()):
+                raise AssertionError(f"{name}: {n_train} and {n_test} rows, {got} against "
+                                     f"{want}, bound {bound}, single-tensor adam {single}")
+            out[f"{opt} {label}"] = {"final": final, "cpu_final": cpu_final, "seconds": seconds,
+                                     "cpu_seconds": cpu_seconds, "eval": got, "cpu_eval": want,
+                                     "rel": rel, "bound": bound, "witness_spread": spread,
+                                     "single_tensor_adam_rel": single}
+    return out
+
+
+def group_inmesh_phase(ft):
+    """18c: the in-mesh hierarchical and Turbo-Aggregate rounds (their example
+    configs with clients of 64 rows) against their sp twins on the card, in
+    turns (XLA, sp, XLA, sp): every tree equal bit for bit, each run's
+    seconds and round seconds.  Returns the records."""
+    import copy
+
+    import torch
+
+    out = {}
+    for name in ("xla_hierarchical_fl_mnist_lr", "xla_turbo_aggregate_mnist_lr"):
+        config = _example_config(name)
+        config["data_args"].update(partition_method="homo",
+                                   synthetic_train_size=64 * config["train_args"][
+                                       "client_num_in_total"])
+        apis, seconds, rounds = {}, {"XLA": [], "sp": []}, {"XLA": [], "sp": []}
+        for backend in ("XLA", "sp", "XLA", "sp"):
+            c = copy.deepcopy(config)
+            c["comm_args"]["backend"] = backend
+            runner, api = _graph_runner(ft, c)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            final = runner.run()
+            torch.cuda.synchronize()
+            seconds[backend].append(time.perf_counter() - t0)
+            rounds[backend].append([round(x, 4) for x in api.round_times])
+            apis.setdefault(backend, (api, final))
+        (mesh, mesh_final), (sp, sp_final) = apis["XLA"], apis["sp"]
+        pairs = [(mesh.w_global, sp.w_global)] + list(zip(getattr(mesh, "group_models", []),
+                                                          getattr(sp, "group_models", [])))
+        worst = max(float((a[k] - b[k]).abs().max()) for a, b in pairs for k in b)
+        log(f"  {name}: {type(mesh).__name__} (padded_n {mesh.padded_n}) {mesh_final} in "
+            f"{[round(x, 3) for x in seconds['XLA']]} s (rounds {rounds['XLA']} s); "
+            f"{type(sp).__name__} {sp_final} in {[round(x, 3) for x in seconds['sp']]} s (rounds "
+            f"{rounds['sp']} s); in-mesh vs sp: max |diff| {worst:.3e} over {len(pairs)} trees "
+            "(bound: equal)")
+        if worst > 0 or mesh_final != sp_final:
+            raise AssertionError(f"{name}: in-mesh vs sp {worst}, {mesh_final} against {sp_final}")
+        out[name] = {"xla_final": mesh_final, "sp_final": sp_final, "seconds": seconds,
+                     "round_seconds": rounds, "max_diff": worst}
+    return out
 
 
 def ptxas_check(build, builds) -> dict:
@@ -3726,13 +4067,36 @@ def main() -> int:
     structural["seconds"] = time.perf_counter() - t17
     log(f"  phase 17 in {structural['seconds']:.1f} s")
 
+    t18 = time.perf_counter()
+    inmesh = {"tf32_flags": flags_found}
+    fa.reset_launches()
+    phase("18a: the IoT example and the in-mesh VFL, split NN, FedGKT, hierarchical and "
+          "Turbo-Aggregate examples (card vs CPU)")
+    log(f"  card: {card}")
+    inmesh["runs"] = inmesh_examples_phase(ft)
+    phase("18b: nbaiot at its spec's size on sp and the packed round (card vs CPU)")
+    inmesh["iot"] = iot_spec_phase(ft)
+    phase("18c: the in-mesh hierarchical and Turbo-Aggregate rounds against their sp twins, "
+          "in turns")
+    inmesh["group"] = group_inmesh_phase(ft)
+    inmesh_launches = dict(fa.LAUNCHES)
+    log(f"  phase 18 launches {inmesh_launches} (predicted: none)")
+    if any(inmesh_launches.values()):
+        raise AssertionError(f"flash kernels launched on phase 18's paths: {inmesh_launches}")
+    if _tf32_flags() != flags_found:
+        raise AssertionError(f"tf32 flags {_tf32_flags()} after phase 18, found {flags_found}")
+    inmesh["launches"] = inmesh_launches
+    inmesh["seconds"] = time.perf_counter() - t18
+    log(f"  phase 18 in {inmesh['seconds']:.1f} s")
+
     phase("9: results")
 
     kernels = kernels_line(rows + fold_rows,
                            (launches, sp_launches, single_launches, zoo_launches, trust_launches,
                             sp_backend_launches, sp_zoo_launches, nlp_launches,
                             *nlp_xla_launches, graph_launches, graph_xla_launches,
-                            graph_mesh_launches, vision_launches, structural_launches))
+                            graph_mesh_launches, vision_launches, structural_launches,
+                            inmesh_launches))
     bench = bench_bf16_summary(rows)
     with open(os.path.join(OUT_DIR, "results.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -3751,6 +4115,7 @@ def main() -> int:
                    "sp_zoo_launches": sp_zoo_launches, "nlp": nlp,
                    "nlp_launches": nlp_launches, "nlp_xla_launches": nlp_xla_launches,
                    "graph": graph, "vision": vision, "structural": structural,
+                   "inmesh": inmesh,
                    "phase_starts": starts, "seconds": time.perf_counter() - t_start}, f,
                   indent=1)
     log(f"== done in {time.perf_counter() - t_start:.1f} s")

@@ -17,8 +17,9 @@ generator, as in the JAX package), the FedNLP family's (``seqcls``,
 tag prediction), the FedGraphNN family's (``graph``, ``linkpred``,
 ``mtl_graph``, ``nodeclf``, ``graphreg``) and the vision tasks'
 (``segmentation``: [H, W] int masks; ``detection``: [5] float labels, class
-then box) are ported: other kinds raise ``NotImplementedError`` naming the
-ROADMAP.md item that ports them.  Images stay NHWC, as in the JAX package;
+then box) and the IoT kind (``recon``: a benign-only train split whose
+targets are its inputs, a test split with 0/1 anomaly flags) are ported:
+every kind of the table.  Images stay NHWC, as in the JAX package;
 the model's entry is the one place their layout changes.
 """
 
@@ -126,22 +127,18 @@ DATASET_SPECS: Dict[str, Dict[str, Any]] = {
 }
 
 
-_PORTED_KINDS = ("nwp", "image", "feature", "seqcls", "seqtag", "span", "s2s", "taglr",
-                 "graph", "linkpred", "mtl_graph", "nodeclf", "graphreg", "segmentation",
-                 "detection")
-
-
-def _check_kind(name: str, spec: Dict[str, Any]) -> None:
-    if spec["kind"] not in _PORTED_KINDS:
-        raise NotImplementedError(
-            f"dataset {name!r} (kind {spec['kind']!r}) is not ported yet: the "
-            f"port has the {'/'.join(_PORTED_KINDS)} data only (ROADMAP.md queue A, item 3: data, the rest)")
-
-
 def _generate(spec: Dict[str, Any], n: int, seed: int, scale_override: int = 0,
-              proto_seed: int = 0):
+              proto_seed: int = 0, is_test: bool = False):
     kind = spec["kind"]
     n = int(scale_override or n)
+    if kind == "recon":
+        # benign-only train split (targets = inputs); the test split carries
+        # injected anomalies with 0/1 flags (the IoT detection setup)
+        x, flags = synthetic.make_iot_traffic(
+            n, int(spec["shape"][0]), seed=seed, proto_seed=proto_seed,
+            anomaly_frac=float(spec.get("anomaly_frac", 0.1)) if is_test else 0.0,
+        )
+        return (x, flags) if is_test else (x, x.copy())
     if kind in ("image", "feature"):
         return synthetic.make_classification(
             n, spec["classes"], tuple(spec["shape"]), seed=seed, proto_seed=proto_seed
@@ -218,7 +215,6 @@ def load_centralized(args) -> Dict[str, Any]:
     if name not in DATASET_SPECS:
         raise ValueError(f"unknown dataset {name!r}; known: {sorted(DATASET_SPECS)}")
     spec = DATASET_SPECS[name]
-    _check_kind(name, spec)
     cache = getattr(args, "data_cache_dir", None)
     seed = int(getattr(args, "random_seed", 0))
     real = loaders.try_load_real(name, cache) if cache else None
@@ -231,7 +227,7 @@ def load_centralized(args) -> Dict[str, Any]:
         x_train, y_train = _generate(spec, spec["train"], seed, scale, proto_seed=seed)
         x_test, y_test = _generate(
             spec, spec["test"], seed + 10_000, scale // 5 if scale else 0,
-            proto_seed=seed,
+            proto_seed=seed, is_test=True,
         )
         args.dataset_is_synthetic = True
         logger.info("generated synthetic %s (no cached files under %r)", name, cache)

@@ -6,8 +6,8 @@ next-word-prediction corpus, the FedNLP task family's corpora (sequence
 classification, tagging, span extraction, seq2seq), the FedGraphNN
 family's graphs (graph classification, link prediction, multi-task, node
 classification, graph regression), each packed ``[n, N, F+N]`` (node
-features ‖ dense adjacency), and the vision tasks' segmentation pairs and
-single-object detection images."""
+features ‖ dense adjacency), the vision tasks' segmentation pairs and
+single-object detection images, and the IoT anomaly-detection traffic."""
 
 from __future__ import annotations
 
@@ -384,3 +384,28 @@ def make_detection(
         x[i, y0:y0 + bh, x0:x0 + bw] = patch
         y[i] = (cls, (x0 + bw / 2) / W, (y0 + bh / 2) / H, bw / W, bh / H)
     return x, y
+
+
+def make_iot_traffic(
+    n: int, feat_dim: int = 24, seed: int = 0, proto_seed: int = None,
+    anomaly_frac: float = 0.0, latent_dim: int = 4,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """IoT network-traffic-shaped anomaly set (N-BaIoT style): benign rows
+    lie on a low-rank manifold (latent z @ W + 0.05 noise) that an
+    autoencoder can compress; anomalies (``anomaly_frac`` of the rows, at
+    indices drawn without replacement) are uniform rows in [-4, 4].  W comes
+    from ``RandomState(proto_seed + 31)`` (``seed`` when None), the rest
+    from ``RandomState(seed)``.  Returns (x [n, F] f32, flags [n] int32 in
+    {0, 1}); train splits use anomaly_frac=0 (benign only)."""
+    rng = np.random.RandomState(seed)
+    prng = np.random.RandomState((seed if proto_seed is None else proto_seed) + 31)
+    w = prng.randn(latent_dim, feat_dim).astype(np.float32)
+    z = rng.randn(n, latent_dim).astype(np.float32)
+    x = z @ w + 0.05 * rng.randn(n, feat_dim).astype(np.float32)
+    flags = np.zeros(n, np.int32)
+    if anomaly_frac > 0:
+        k = max(1, int(anomaly_frac * n))
+        idx = rng.choice(n, size=k, replace=False)
+        x[idx] = rng.uniform(-4.0, 4.0, size=(k, feat_dim)).astype(np.float32)
+        flags[idx] = 1
+    return x, flags

@@ -3,9 +3,8 @@
 masked eval computes token-level metrics for next-word prediction, sequence
 tagging and node classification, and the task-eval branch for tag
 prediction, span extraction, seq2seq, link prediction, multi-task
-prediction, graph regression, segmentation and detection, which evaluates
-through the task trainer's ``test``.  The autoencoder's eval comes with its
-trainer (ROADMAP.md queue A, item 4: model zoo and trainers)."""
+prediction, graph regression, segmentation, detection and anomaly
+detection, which evaluates through the task trainer's ``test``."""
 
 from __future__ import annotations
 
@@ -17,15 +16,16 @@ from ..trainer.trainer_creator import (
 from .default_aggregator import DefaultServerAggregator
 
 _TRAINER_EVAL_DATASETS = (_TAG_DATASETS | _SPAN_DATASETS | _S2S_DATASETS | _LINKPRED_DATASETS
-                          | _MTL_DATASETS | _REG_DATASETS | _SEG_DATASETS | _DET_DATASETS)
-_TASK_EVAL_DATASETS = _AE_DATASETS
+                          | _MTL_DATASETS | _REG_DATASETS | _SEG_DATASETS | _DET_DATASETS
+                          | _AE_DATASETS)
 
 
 class _TrainerEvalAggregator(DefaultServerAggregator):
     """Evaluates through a task trainer's ``test`` (tag BCE metrics, span
     exact match, seq2seq token accuracy and exact match, the labeled-entry
     hits of link and multi-task prediction, regression SSE and hits, pixel
-    accuracy and mIoU, detection class accuracy and box IoU).  The probe
+    accuracy and mIoU, detection class accuracy and box IoU, the anomaly
+    threshold's hits and recall).  The probe
     trainer is built once."""
 
     def __init__(self, model, args, trainer_cls):
@@ -41,8 +41,4 @@ def create_server_aggregator(model, args) -> ServerAggregator:
     dataset = str(getattr(args, "dataset", "")).lower()
     if dataset in _TRAINER_EVAL_DATASETS:
         return _TrainerEvalAggregator(model, args, trainer_class(dataset))
-    if dataset in _TASK_EVAL_DATASETS:
-        raise NotImplementedError(
-            f"the task eval of dataset {dataset!r} is not ported yet "
-            "(ROADMAP.md queue A, item 4: model zoo and trainers)")
     return DefaultServerAggregator(model, args)

@@ -3,9 +3,8 @@ the dataset-family tables, the engine loss key per family, and
 ``create_model_trainer``.  The classification, next-word-prediction /
 sequence-tagging (node classification too: [B, N] node labels), tag-prediction,
 span-extraction, seq2seq, link-prediction, multi-task, regression,
-segmentation (the ``ce`` loss over [B, H, W] masks) and detection trainers
-are ported; the autoencoder's comes with its model (ROADMAP.md queue A,
-item 4: model zoo and trainers).
+segmentation (the ``ce`` loss over [B, H, W] masks), detection and
+anomaly-detection (the autoencoder's) trainers are ported.
 
 Every trainer takes the grad hook it is given: the port's SCAFFOLD and
 FedDyn build their hooked trainer here, so the client loss is the
@@ -48,9 +47,6 @@ def loss_kind_for_dataset(dataset: str) -> str:
     return "ce"
 
 
-_UNPORTED_FAMILIES = ((_AE_DATASETS, "ModelTrainerAE"),)
-
-
 def trainer_class(dataset: str):
     """The ported trainer class of a dataset family (raises for the others)."""
     dataset = dataset.lower()
@@ -90,11 +86,10 @@ def trainer_class(dataset: str):
         from .seg_trainer import ModelTrainerSeg
 
         return ModelTrainerSeg
-    for family, trainer in _UNPORTED_FAMILIES:
-        if dataset in family:
-            raise NotImplementedError(
-                f"the {trainer} trainer of dataset {dataset!r} is not ported yet "
-                "(ROADMAP.md queue A, item 4: model zoo and trainers)")
+    if dataset in _AE_DATASETS:
+        from .ae_trainer import ModelTrainerAE
+
+        return ModelTrainerAE
     from .cls_trainer import ModelTrainerCLS
 
     return ModelTrainerCLS

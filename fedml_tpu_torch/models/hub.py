@@ -12,10 +12,10 @@ generator (``ml.engine.train.init_variables``).  The ``lr`` (the default),
 ``efficientnet``, ``unet``, ``tiny_detector``, ``mlp`` and the ``rnn``
 family) are ported, and so are the structural members' (``gan``: the
 generator at the default latent width, as the JAX hub builds it; ``darts``;
-``gkt_client``, ``gkt_server``).  flax infers a layer's input width at init;
-here the dataset's spec gives it (its sample shape, its vocabulary; the GKT
-server's input is the client net's default width).  The autoencoder keys
-raise ``NotImplementedError`` naming the ROADMAP.md item that ports them.
+``gkt_client``, ``gkt_server``), and the IoT autoencoder (``autoencoder``,
+``ae``, ``anomaly_ae``).  flax infers a layer's input width at init; here the
+dataset's spec gives it (its sample shape, its vocabulary; the GKT server's
+input is the client net's default width).
 """
 
 from __future__ import annotations
@@ -31,8 +31,6 @@ logger = logging.getLogger(__name__)
 
 # the models the JAX hub plumbs compute_dtype into; the transformer is not one
 _RESNETS = {"resnet20", "resnet56", "resnet18", "resnet18_gn"}
-# the JAX hub's keys of the IoT autoencoder (queue A, item 4d)
-_UNPORTED = {"autoencoder", "ae", "anomaly_ae"}
 
 
 def _in_shape(dataset: str) -> tuple:
@@ -204,10 +202,12 @@ def create(args: Any, output_dim: int) -> nn.Module:
             return resnet.ResNet18(num_classes=output_dim, norm="gn", **kw)
         blocks = {"resnet20": 3, "resnet56": 9}[name]
         return resnet.CifarResNet(blocks, num_classes=output_dim, norm=_norm(args), **kw)
-    if name in _UNPORTED:
-        raise NotImplementedError(
-            f"model {name!r} for dataset {dataset!r} is not ported yet "
-            "(ROADMAP.md queue A, item 4: model zoo and trainers, 4d: IoT)")
+    if name in ("autoencoder", "ae", "anomaly_ae"):
+        from ..data.data_loader import DATASET_SPECS
+        from .autoencoder import AutoEncoder
+
+        feat = int(DATASET_SPECS.get(dataset, {}).get("shape", (24,))[0])
+        return AutoEncoder(feat_dim=feat, device="meta")
     raise ValueError(f"unknown model {name!r} for dataset {dataset!r}")
 
 

@@ -3,14 +3,18 @@
 single-process round loop (``simulation/sp``), clients one after another
 through their trainer and the server aggregator's hooks; ``XLA`` (and
 ``MPI`` / ``NCCL``, as in the JAX package) runs the round simulator on one
-card, or, for ``decentralized_fl`` and ``spreadgnn``, the in-mesh gossip
-round (``simulation/xla/decentralized.py``), for ``fedgan`` and ``fednas``
-the in-mesh FedGAN and FedNAS rounds (``simulation/xla/gan_nas.py``).  The
-round simulator refuses the other optimizers that have a program of their
-own in the JAX package (``create_inmesh_algorithm``: ROADMAP.md queue A,
-item 5: the other simulators)."""
+card, or, for the optimizers whose JAX twin is a program of its own, that
+program's port: ``classical_vertical``, ``split_nn`` and ``fedgkt``
+(``simulation/xla/split.py``), ``fedgan`` and ``fednas``
+(``simulation/xla/gan_nas.py``), ``decentralized_fl`` and ``spreadgnn``
+(``simulation/xla/decentralized.py``), ``turbo_aggregate``
+(``simulation/xla/turbo.py``) and ``hierarchicalfl``
+(``simulation/xla/hierarchical.py``).  ``MPI_PROC``, the process-real rank
+plane, is not ported (ROADMAP.md queue A, item 5: the other simulators)."""
 
 from __future__ import annotations
+
+import importlib
 
 from ..constants import (
     FEDML_SIMULATION_TYPE_MPI,
@@ -18,6 +22,21 @@ from ..constants import (
     FEDML_SIMULATION_TYPE_SP,
     FEDML_SIMULATION_TYPE_XLA,
 )
+
+
+# lower-cased optimizer -> (module under simulation/xla, class): the members
+# whose JAX twin is an in-mesh program of its own (JAX's SimulatorXLA)
+_PROGRAMS = {
+    "classical_vertical": ("split", "VFLInMeshAPI"),
+    "split_nn": ("split", "SplitNNInMeshAPI"),
+    "fedgkt": ("split", "GKTInMeshAPI"),
+    "fedgan": ("gan_nas", "GANInMeshAPI"),
+    "fednas": ("gan_nas", "NASInMeshAPI"),
+    "decentralized_fl": ("decentralized", "DecentralizedInMeshAPI"),
+    "spreadgnn": ("decentralized", "SpreadGNNInMeshAPI"),
+    "turbo_aggregate": ("turbo", "TurboAggregateInMeshAPI"),
+    "hierarchicalfl": ("hierarchical", "HierarchicalInMeshAPI"),
+}
 
 
 class SimulatorSingleProcess:
@@ -34,26 +53,15 @@ class SimulatorSingleProcess:
 class SimulatorXLA:
     def __init__(self, args, device, dataset, model):
         opt = str(getattr(args, "federated_optimizer", "FedAvg")).lower()
-        if opt == "decentralized_fl":
-            from .xla.decentralized import DecentralizedInMeshAPI
-
-            self.sim = DecentralizedInMeshAPI(args, device, dataset, model)
-        elif opt == "spreadgnn":
-            from .xla.decentralized import SpreadGNNInMeshAPI
-
-            self.sim = SpreadGNNInMeshAPI(args, device, dataset, model)
-        elif opt == "fedgan":
-            from .xla.gan_nas import GANInMeshAPI
-
-            self.sim = GANInMeshAPI(args, device, dataset, model)
-        elif opt == "fednas":
-            from .xla.gan_nas import NASInMeshAPI
-
-            self.sim = NASInMeshAPI(args, device, dataset, model)
-        else:
+        program = _PROGRAMS.get(opt)
+        if program is None:
             from .xla.fed_sim import XLASimulator
 
             self.sim = XLASimulator(args, dataset, model, device)
+        else:
+            module, cls = program
+            self.sim = getattr(importlib.import_module(f".xla.{module}", __package__), cls)(
+                args, device, dataset, model)
 
     def run(self):
         return self.sim.train()

@@ -50,6 +50,11 @@ flush, as the JAX twin does.  (3) HierarchicalFL runs the
 after-aggregation hooks at each global average only (every
 ``group_comm_round`` rounds).  Turbo-Aggregate's data poisoning runs
 through ``FedAvgAPI``'s round loop, which it keeps.
+
+The in-mesh rounds under ``backend: XLA`` (``simulation/xla``) refuse by
+the same rule: the gossip, FedGAN, FedNAS, vertical FL, split NN and FedGKT
+rounds every hook; the hierarchical and Turbo-Aggregate rounds all but the
+after-aggregation defense and central DP, which their JAX twins run.
 """
 
 from __future__ import annotations

@@ -84,10 +84,10 @@ def active_hooks() -> set:
 
 def own_loop_setup(args, member: str, frequency: bool = True, skip=XLA_ROUND_KNOBS) -> int:
     """The checks of a member that runs a loop of its own (FedSeg, the
-    structural members, the in-mesh FedGAN and FedNAS rounds): the unported
-    knobs refused (less ``skip``), every trust hook switched on refused (the
-    JAX twin skips them all silently; the table is in
-    ``simulation/sp/__init__.py``), and, where the member reads it,
+    structural members, the in-mesh FedGAN, FedNAS, vertical FL, split NN and
+    FedGKT rounds): the unported knobs refused (less ``skip``), every trust
+    hook switched on refused (the JAX twin skips them all silently; the table
+    is in ``simulation/sp/__init__.py``), and, where the member reads it,
     ``frequency_of_the_test`` returned, refused at 0 or below (else 0)."""
     refuse_unported_knobs(args, skip=skip)
     on = active_hooks()
@@ -158,11 +158,7 @@ class FedAvgAPI:
             self.class_num,
         ) = dataset
         refuse_unported_knobs(args, skip=XLA_ROUND_KNOBS)
-        self.freq = int(getattr(args, "frequency_of_the_test", 5))
-        if self.freq <= 0:
-            raise ValueError(
-                f"frequency_of_the_test must be >= 1 for the sp simulator (got {self.freq}): "
-                "the round tests the global model at round_idx % frequency_of_the_test == 0")
+        self.freq = self._frequency(args)
         attacker = FedMLAttacker.get_instance()
         if attacker.is_analysis_attack():
             raise NotImplementedError(ANALYSIS_REFUSAL)
@@ -191,6 +187,19 @@ class FedAvgAPI:
         self.samples_per_round: List[int] = []
         self.population = PopulationManager.from_args(
             self.args, np.arange(int(self.args.client_num_in_total)), rng_style="mt19937")
+
+    def _frequency(self, args) -> int:
+        freq = int(getattr(args, "frequency_of_the_test", 5))
+        if freq <= 0:
+            raise ValueError(
+                f"frequency_of_the_test must be >= 1 for the sp simulator (got {freq}): "
+                "the round tests the global model at round_idx % frequency_of_the_test == 0")
+        return freq
+
+    def _eval_due(self, round_idx: int, comm_round: int) -> bool:
+        """Whether the global model is tested after ``round_idx`` (never when
+        ``freq`` is 0)."""
+        return self.freq > 0 and (round_idx % self.freq == 0 or round_idx == comm_round - 1)
 
     def _setup_clients(self):
         for client_idx in range(int(self.args.client_num_per_round)):
@@ -232,7 +241,7 @@ class FedAvgAPI:
             dt = time.time() - t0
             self.round_times.append(dt)
             self.metrics.log({"round": round_idx, "round_time_s": round(dt, 4)})
-            if round_idx % self.freq == 0 or round_idx == comm_round - 1:
+            if self._eval_due(round_idx, comm_round):
                 last_metrics = self._test_global(round_idx)
         return last_metrics
 

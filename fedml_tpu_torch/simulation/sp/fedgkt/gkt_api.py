@@ -36,7 +36,7 @@ from __future__ import annotations
 
 import logging
 import time
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -55,11 +55,16 @@ logger = logging.getLogger(__name__)
 EVAL_BATCH = 256
 
 
-def _kl(p_logits: torch.Tensor, q_logits: torch.Tensor, temperature: float) -> torch.Tensor:
-    """KL(softmax(p/T) || softmax(q/T)) averaged over the batch, times T²."""
+def _kl(p_logits: torch.Tensor, q_logits: torch.Tensor, temperature: float,
+        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """KL(softmax(p/T) || softmax(q/T)) averaged over the batch (over the
+    rows of ``mask`` when given), times T²."""
     p = F.log_softmax(p_logits / temperature, dim=-1)
     q = F.log_softmax(q_logits / temperature, dim=-1)
-    return torch.mean(torch.sum(torch.exp(p) * (p - q), dim=-1)) * temperature ** 2
+    per = torch.sum(torch.exp(p) * (p - q), dim=-1)
+    if mask is not None:
+        return (per * mask).sum() / mask.sum().clamp_min(1.0) * temperature ** 2
+    return torch.mean(per) * temperature ** 2
 
 
 def _batched(n: int, bs: int):
@@ -69,7 +74,7 @@ def _batched(n: int, bs: int):
 class FedGKTAPI:
     def __init__(self, args, device, dataset, model=None):
         self.args = args
-        self.freq = own_loop_setup(args, "FedGKTAPI")
+        self.freq = own_loop_setup(args, type(self).__name__)
         self.device = torch.device(device)
         (_tn, _ten, _tg, self.test_global, self.local_num, self.local_train, _lt,
          self.class_num) = dataset

@@ -78,6 +78,6 @@ class HierarchicalFLAPI(FedAvgAPI):
                 self.group_models = [self.w_global for _ in range(self.group_num)]
             self._sync()
             self.round_times.append(time.time() - t0)
-            if round_idx % self.freq == 0 or round_idx == comm_round - 1:
+            if self._eval_due(round_idx, comm_round):
                 last = self._test_global(round_idx)
         return last

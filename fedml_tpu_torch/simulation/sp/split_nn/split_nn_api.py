@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import logging
 import time
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -70,7 +70,7 @@ class _Back(nn.Module):
 class SplitNNAPI:
     def __init__(self, args, device, dataset, model=None):
         self.args = args
-        self.freq = own_loop_setup(args, "SplitNNAPI")
+        self.freq = own_loop_setup(args, type(self).__name__)
         self.device = torch.device(device)
         (_, _, _tg, (x_te, y_te), self.local_num, self.local_train, _lt,
          self.class_num) = dataset
@@ -97,14 +97,20 @@ class SplitNNAPI:
     def back_params(self) -> Dict[str, torch.Tensor]:
         return get_variables(self.back)
 
-    def _split_step(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    def _split_step(self, x: torch.Tensor, y: torch.Tensor,
+                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One exchange: the front's forward to the cut layer, the server's
-        loss and gradients, the cut gradient back through the front, then
-        plain SGD on both halves."""
+        loss (the mean CE, over the rows of ``mask`` when given) and
+        gradients, the cut gradient back through the front, then plain SGD on
+        both halves."""
         h = self.front(x)
         cut = h.detach().requires_grad_(True)  # what crosses to the server
         back = list(self.back.parameters())
-        loss = F.cross_entropy(self.back(cut), y)
+        if mask is None:
+            loss = F.cross_entropy(self.back(cut), y)
+        else:
+            per = F.cross_entropy(self.back(cut), y, reduction="none")
+            loss = (per * mask).sum() / mask.sum().clamp_min(1.0)
         *g_back, g_cut = torch.autograd.grad(loss, back + [cut])
         front = list(self.front.parameters())
         g_front = torch.autograd.grad(h, front, grad_outputs=g_cut)

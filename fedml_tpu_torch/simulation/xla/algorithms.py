@@ -613,7 +613,9 @@ def create_inmesh_algorithm(args) -> InMeshAlgorithm:
         return FedBuffInMesh(args)
     cls = _REGISTRY.get(opt)
     if cls is None:
+        # the members with a program of their own never get here:
+        # SimulatorXLA builds it (simulation/simulator.py), as in JAX
         raise NotImplementedError(
-            f"federated_optimizer {opt!r} has no in-mesh strategy in the port yet: its "
-            "own round simulator is ROADMAP.md queue A, item 5: the other simulators")
+            f"federated_optimizer {opt!r} has no in-mesh strategy; use the 'sp' "
+            "backend (its host round loop supports the full zoo)")
     return cls(args)

@@ -22,7 +22,15 @@ FedGAN's latents of a client run        (s, 6011, round, client), on the CPU
 FedGAN's health draw of a round         (s, 6013, round), on the CPU
 DARTS's ``init_alphas``                 (s, 3571), on the CPU
 vertical FL's weights of a party        (s, 8161, party), on the CPU
+the in-mesh vertical FL's weights       (s, 8171), on the CPU
 ======================================  ===================================
+
+Model inits take ``init_variables``' generator seeded with one int.  The
+in-mesh rounds of this slice draw as their ``sp`` twins do: the in-mesh
+FedGKT's edge proto from ``s`` and its server tower from ``s + 1`` (JAX:
+``PRNGKey(s)`` and ``fold_in(PRNGKey(s), 1)``), the in-mesh hierarchical
+and Turbo-Aggregate rounds' model from ``s``, and split NN's front and back
+from 0 and 999.
 
 The same tuple gives the same draws on one device type; a CUDA generator
 draws other numbers than a CPU one.  The streams marked "on the CPU" draw
@@ -42,6 +50,7 @@ GAN_LATENT_SALT = 6011
 GAN_HEALTH_SALT = 6013
 ALPHAS_SALT = 3571
 VFL_WEIGHT_SALT = 8161
+VFL_INMESH_WEIGHT_SALT = 8171
 
 
 def seeded_generator(seed: Sequence[int], device="cpu") -> torch.Generator:

@@ -128,10 +128,17 @@ def test_bf16_storage_gathers_the_fp32_rows_cast_to_bf16():
 
 
 def test_unported_dataset_kind_raises():
-    # the segmentation kind is ported now (tests/test_torch_vision_data.py);
-    # the IoT reconstruction kind is still open
+    # every kind of the table is ported now, the IoT reconstruction kind
+    # last (tests/test_torch_iot.py): iot_anomaly loads with JAX's shapes
+    # and types, its train targets the inputs and its test labels the flags
     config = copy.deepcopy(SLICE_CONFIG)
     config["data_args"]["dataset"] = "iot_anomaly"
-    _, t = _both(config)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fedml_tpu_torch.data.data_loader.load(t)
+    j, t = _both(config)
+    want, _ = fedml_tpu.data.data_loader.load(j)
+    got, classes = fedml_tpu_torch.data.data_loader.load(t)
+    assert classes == 2 and got[0] == want[0] and got[1] == want[1]
+    for (gx, gy), (wx, wy) in ((got[2], want[2]), (got[3], want[3])):
+        assert gx.shape == wx.shape and gx.dtype == wx.dtype == np.float32
+        assert gy.shape == wy.shape and gy.dtype == wy.dtype
+        assert np.array_equal(gx, wx) and np.array_equal(gy, wy)
+    assert got[2][1].shape == got[2][0].shape and got[3][1].dtype == np.int32

@@ -51,6 +51,7 @@ SLICE_MODULES = [
     "fedml_tpu_torch.core.sampling",
     "fedml_tpu_torch.ml.engine.train",
     "fedml_tpu_torch.ml.engine.packed",
+    "fedml_tpu_torch.ml.trainer.ae_trainer",
     "fedml_tpu_torch.ml.trainer.cls_trainer",
     "fedml_tpu_torch.ml.trainer.det_trainer",
     "fedml_tpu_torch.ml.trainer.seg_trainer",
@@ -63,6 +64,7 @@ SLICE_MODULES = [
     "fedml_tpu_torch.ml.trainer.trainer_creator",
     "fedml_tpu_torch.ml.aggregator.aggregator_creator",
     "fedml_tpu_torch.ml.aggregator.default_aggregator",
+    "fedml_tpu_torch.models.autoencoder",
     "fedml_tpu_torch.models.cnn",
     "fedml_tpu_torch.models.darts",
     "fedml_tpu_torch.models.detection",
@@ -112,7 +114,9 @@ SLICE_MODULES = [
     "fedml_tpu_torch.simulation.xla.decentralized",
     "fedml_tpu_torch.simulation.xla.fed_sim",
     "fedml_tpu_torch.simulation.xla.gan_nas",
+    "fedml_tpu_torch.simulation.xla.hierarchical",
     "fedml_tpu_torch.simulation.xla.split",
+    "fedml_tpu_torch.simulation.xla.turbo",
     "fedml_tpu_torch.utils.metrics",
     "fedml_tpu_torch.utils.rng",
 ]
@@ -164,9 +168,8 @@ def test_cuda_entry_refuses_cpu_tensors(entry):
 
 
 def test_unported_model_raises_with_its_roadmap_item():
-    """The hub keys still open (the autoencoder's) and BatchNorm (the
-    ResNets', MobileNet's) raise, naming their item; the vision zoo and the
-    structural members' models build."""
+    """BatchNorm (the ResNets', MobileNet's) raises, naming its item; the
+    vision zoo, the structural members' models and the autoencoder build."""
     from fedml_tpu_torch.models import hub
     from fedml_tpu_torch.models.mobilenet import MobileNetV1, MobileNetV3Small
 
@@ -175,9 +178,7 @@ def test_unported_model_raises_with_its_roadmap_item():
     for cls in (MobileNetV1, MobileNetV3Small):
         with pytest.raises(NotImplementedError, match="'bn' \\(BatchNorm\\).*queue A, item 4: model zoo and trainers, with BatchNorm"):
             cls(10, norm="bn", device="meta")
-    for name in ("autoencoder",):
-        with pytest.raises(NotImplementedError, match=f"model '{name}' .*ROADMAP.md queue A, item 4: model zoo and trainers"):
-            hub.create(types.SimpleNamespace(model=name, dataset="femnist"), 62)
     for name, cls in (("cnn", "CNN_DropOut"), ("gan", "MNISTGenerator"), ("darts", "DARTSNetwork"),
-                      ("gkt_client", "GKTClientNet"), ("gkt_server", "GKTServerNet")):
+                      ("gkt_client", "GKTClientNet"), ("gkt_server", "GKTServerNet"),
+                      ("autoencoder", "AutoEncoder")):
         assert type(hub.create(types.SimpleNamespace(model=name, dataset="femnist"), 62)).__name__ == cls

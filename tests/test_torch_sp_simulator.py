@@ -506,9 +506,8 @@ def test_sp_refusals_name_their_item(knobs, error, match):
 def test_unported_trainer_families_raise_with_item_4(dataset):
     """The FedNLP family's trainers (tag prediction, span extraction,
     seq2seq), the FedGraphNN family's (link prediction, multi-task,
-    regression) and the vision tasks' (detection, segmentation) are ported
-    now: each builds its class.  The autoencoder's still raises, naming
-    item 4."""
+    regression), the vision tasks' (detection, segmentation) and the
+    autoencoder's are ported now: each builds its class."""
     from fedml_tpu_torch.ml.trainer.trainer_creator import create_model_trainer
 
     args = fedml_tpu_torch.Arguments.from_dict(_config(LR_CONFIG))
@@ -516,13 +515,10 @@ def test_unported_trainer_families_raise_with_item_4(dataset):
     ported = {"stackoverflow_lr": "ModelTrainerTAGPred", "squad_span": "ModelTrainerSpan",
               "synthetic_s2s": "ModelTrainerS2S", "ego_linkpred": "ModelTrainerLinkPred",
               "moleculenet_mtl": "ModelTrainerMTL", "freesolv": "ModelTrainerReg",
-              "synthetic_det": "ModelTrainerDET", "synthetic_seg": "ModelTrainerSeg"}
-    if dataset in ported:
-        trainer = create_model_trainer(torch.nn.Linear(2, 2), args)
-        assert type(trainer).__name__ == ported[dataset]
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A, item 4:"):
-        create_model_trainer(None, args)
+              "synthetic_det": "ModelTrainerDET", "synthetic_seg": "ModelTrainerSeg",
+              "nbaiot": "ModelTrainerAE"}
+    trainer = create_model_trainer(torch.nn.Linear(2, 2), args)
+    assert type(trainer).__name__ == ported[dataset]
 
 
 def test_ported_trainer_families():
@@ -544,9 +540,12 @@ def test_ported_trainer_families():
                                        "FedNAS", "turbo_aggregate", "HierarchicalFL"])
 def test_structural_optimizers_on_xla_raise_with_item_5(optimizer):
     """Under ``backend: XLA`` the optimizers whose JAX twin is a program of
-    its own refuse, naming item 5; ``decentralized_fl`` and ``spreadgnn``
-    build theirs (``tests/test_torch_graph_simulation.py``), and so do
-    ``fedgan`` and ``fednas`` (``tests/test_torch_gan_nas_inmesh.py``)."""
+    its own build that program's port, as ``decentralized_fl`` and
+    ``spreadgnn`` do (``tests/test_torch_graph_simulation.py``): ``fedgan``
+    and ``fednas`` (``tests/test_torch_gan_nas_inmesh.py``), the three split
+    rounds (``tests/test_torch_split_inmesh.py``), Turbo-Aggregate and
+    hierarchical FL (``tests/test_torch_group_inmesh.py``).  Only the
+    ``MPI_PROC`` backend still names item 5 (below)."""
     from fedml_tpu_torch.simulation.simulator import create_simulator
 
     config = _config(LR_CONFIG, federated_optimizer=optimizer)
@@ -555,13 +554,12 @@ def test_structural_optimizers_on_xla_raise_with_item_5(optimizer):
                                 should_init_logs=False)
     dataset, classes = fedml_tpu_torch.data.load(args)
     model = fedml_tpu_torch.models.hub.create(args, classes)
-    inmesh = {"FedGAN": "GANInMeshAPI", "FedNAS": "NASInMeshAPI"}
-    if optimizer in inmesh:
-        assert type(create_simulator(args, torch.device("cpu"), dataset, model).sim
-                    ).__name__ == inmesh[optimizer]
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A, item 5:"):
-        create_simulator(args, torch.device("cpu"), dataset, model)
+    inmesh = {"FedGAN": "GANInMeshAPI", "FedNAS": "NASInMeshAPI",
+              "classical_vertical": "VFLInMeshAPI", "split_nn": "SplitNNInMeshAPI",
+              "FedGKT": "GKTInMeshAPI", "turbo_aggregate": "TurboAggregateInMeshAPI",
+              "HierarchicalFL": "HierarchicalInMeshAPI"}
+    assert type(create_simulator(args, torch.device("cpu"), dataset, model).sim
+                ).__name__ == inmesh[optimizer]
 
 
 def test_mpi_proc_backend_raises_with_item_5():

@@ -21,7 +21,7 @@ against their JAX twins.
 * The ``feature`` kind (``synthetic``, ``synthetic_1_1``, ``uci``,
   ``lending_club``) bit for bit with JAX's, and a federated load of
   ``synthetic`` with its partitions; the hub keys and their aliases build
-  their models, the autoencoder's still raise naming item 4d.
+  their models, the autoencoder's too (sized by the spec, as in JAX).
 """
 
 import types
@@ -251,7 +251,15 @@ def test_hub_keys_build_their_models(alias, cls):
 
 @pytest.mark.parametrize("key", ["autoencoder", "ae", "anomaly_ae"])
 def test_autoencoder_keys_still_raise_item_4d(key):
+    """The autoencoder keys build it now (item 4d is done), sized by the
+    dataset's spec as the JAX hub sizes it: 115 features on nbaiot, the
+    default 24 where the spec names none."""
     from fedml_tpu_torch.models import hub
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A, item 4: .*4d: IoT"):
-        hub.create(types.SimpleNamespace(model=key, dataset="nbaiot"), 2)
+    for dataset, feat in (("nbaiot", 115), ("iot_anomaly", 24), ("unknown", 24)):
+        args = types.SimpleNamespace(model=key, dataset=dataset)
+        model = hub.create(args, 2)
+        want = fedml_tpu.models.hub.create(args, 2)
+        assert type(model).__name__ == type(want).__name__ == "AutoEncoder"
+        assert model.enc1.in_features == model.dec2.out_features == want.feat_dim == feat
+        assert all(p.is_meta for p in model.parameters())

@@ -26,7 +26,8 @@ alphas copied as arrays).
 * The refusals: every trust hook on each member when it is built;
   ``frequency_of_the_test: 0`` (a ``ValueError``; FedGAN reads no
   frequency, as in JAX, and runs); ``classical_vertical``, ``split_nn`` and
-  ``fedgkt`` under ``backend: XLA`` still raise naming item 5.  FedGKT keeps
+  ``fedgkt`` under ``backend: XLA`` build their in-mesh rounds
+  (``tests/test_torch_split_inmesh.py``).  FedGKT keeps
   a ``GKTClientNet`` passed in and ignores any other model.
 * The three ``sp`` example configs as they stand run on the port with
   finite values.
@@ -463,8 +464,11 @@ def test_frequency_zero(member):
 
 @pytest.mark.parametrize("member", ["classical_vertical", "split_nn", "FedGKT"])
 def test_split_members_on_xla_still_raise_item_5(member):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A, item 5: the other"):
-        _build(member, backend="XLA")
+    """Item 5's split rounds are ported: ``backend: XLA`` builds the in-mesh
+    twin of each member (``simulation/xla/split.py``)."""
+    want = {"classical_vertical": "VFLInMeshAPI", "split_nn": "SplitNNInMeshAPI",
+            "FedGKT": "GKTInMeshAPI"}
+    assert type(_build(member, backend="XLA").sim).__name__ == want[member]
 
 
 # -- the example configs ---------------------------------------------------------------------

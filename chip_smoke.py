@@ -130,8 +130,8 @@
    full participation, a buffer of the cohort, staleness 0 and the constant
    policy against FedAvgAPI on the card, bit for bit (or within 1e-6, the
    reason logged).  (b) Each member and FedAvg on BENCH_CONFIG on sp (no
-   packing) with a cohort of 4 for 2 rounds (AsyncFedAvg: 8 updates;
-   FedBuff: 4 flushes of 2) on phase 8's dataset, decentralized on 8 nodes
+   packing) with a cohort of 4 for 1 round (AsyncFedAvg: 4 updates;
+   FedBuff: 2 flushes of 2) on phase 8's dataset, decentralized on 8 nodes
    with the data partitioned again at that count and cut to 4,000 images:
    round seconds, finite params, the member's invariant (SCAFFOLD's c =
    (1/N) sum_i c_i, FedDyn's h, FedNova's taus equal to the trainer's steps,
@@ -243,6 +243,20 @@
    Turbo-Aggregate rounds against their sp twins on the card in turns (XLA,
    sp, XLA, sp), on clients of 64 rows: equal bit for bit, each run's
    seconds.
+19. The process-real MPI simulator, the analysis attacks and the centralized
+   baseline (no flash kernel lies on them: the launch counts must read 0).
+   (a) mpi_proc_fedavg_mnist_lr as it stands through run_mpi_simulation at
+   world 2, both rank processes on cuda:0: each rank's rendezvous and round
+   seconds; the same config at world 1 in-process on the card and on the
+   CPU (final params within STRUCTURAL_CPU_ATOL), and the world-2 metrics
+   against the card's world-1 ones within the JAX package's bounds.  (b)
+   xla_invert_gradient_mnist_lr on the padded and the packed round with
+   invert_gradient, dlg and revealing_labels_from_gradients: each attacked
+   run's global model bit for bit a clean run's on the card; against the CPU
+   the same victims, the revealed labels equal, and a reconstruction's
+   matching loss within ANALYSIS_LOSS_RATIO times the gap of a CPU run whose
+   initial weights moved by ANALYSIS_EPS; each analysis's seconds.  (c) The
+   centralized trainer on the mnist lr data, card against CPU.
 
 Any failure raises and the script exits non-zero with no result line.  It
 exits 2 when no CUDA device is visible.  Full details go to
@@ -1590,7 +1604,7 @@ def trust_phase(ft, fa, dataset, classes):
                  "samples_per_round": list(sim.samples_per_round),
                  "peak_memory_bytes": peak, "peak_over_fedavg_bytes": peak - fedavg_peak,
                  "wall_seconds": time.perf_counter() - t0}
-        if sim.needs_stack:
+        if sim.secured:
             entry["security_ms"] = list(sim.security_ms)
             if len(sim.security_ms) != TRUST_ROUNDS:
                 raise AssertionError(f"{name}: the security tail ran {sim.security_ms}")
@@ -2184,7 +2198,7 @@ def sp_backend_transformer_phase(ft, fa):
 # phase 13: the rest of the sp zoo.  13a: the zoo's example configs (and
 # FedBuff and AsyncFedAvg on sp_fedavg_mnist_lr) card against CPU, then
 # FedBuff against FedAvgAPI in FedBuff's equivalence configuration; 13b:
-# each member on BENCH_CONFIG at a cohort of 4 for 2 rounds; 13c: SCAFFOLD
+# each member on BENCH_CONFIG at a cohort of 4 for 1 round; 13c: SCAFFOLD
 # and FedSGD on slice 1's configuration under the flash kernels
 SP_ZOO_EXAMPLES = (
     ("sp_fedopt_mnist_lr", None), ("sp_fedprox_mnist_lr", None), ("sp_fednova_mnist_lr", None),
@@ -2194,10 +2208,12 @@ SP_ZOO_EXAMPLES = (
     ("sp_fedavg_mnist_lr", {"fl_mode": "async"}),
     ("sp_fedavg_mnist_lr", {"federated_optimizer": "Async_FedAvg"}),
 )
-# 13b: BENCH_CONFIG on sp with a cohort of 4, 2 rounds (AsyncFedAvg: 8
-# updates; FedBuff: 4 flushes of 2), only the member's knobs changed; the
-# depth is cut to keep the whole script near half its time limit
+# 13b: BENCH_CONFIG on sp with a cohort of 4, SP_ZOO_ROUNDS rounds
+# (AsyncFedAvg: 4 updates a round; FedBuff: 2 flushes of 2 a round), only the
+# member's knobs changed; the depth is cut to keep the whole script near half
+# its time limit (2 rounds until phase 19 was added)
 SP_ZOO_COHORT = 4
+SP_ZOO_ROUNDS = 1
 SP_ZOO = [
     ("FedAvg", {}),
     ("FedProx", {"federated_optimizer": "FedProx", "proximal_mu": 0.01}),
@@ -2206,9 +2222,9 @@ SP_ZOO = [
     ("FedSGD", {"federated_optimizer": "FedSGD"}),
     ("SCAFFOLD", {"federated_optimizer": "SCAFFOLD"}),
     ("FedDyn", {"federated_optimizer": "FedDyn", "feddyn_alpha": 0.01}),
-    ("AsyncFedAvg", {"federated_optimizer": "Async_FedAvg", "comm_round": 8}),
+    ("AsyncFedAvg", {"federated_optimizer": "Async_FedAvg", "comm_round": 4 * SP_ZOO_ROUNDS}),
     ("FedBuff", {"fl_mode": "async", "async_buffer_size": 2, "async_max_staleness": 2,
-                 "async_staleness_policy": "polynomial", "comm_round": 4}),
+                 "async_staleness_policy": "polynomial", "comm_round": 2 * SP_ZOO_ROUNDS}),
     ("HierarchicalFL", {"federated_optimizer": "HierarchicalFL", "group_num": 2,
                         "group_comm_round": 2}),
     # every node trains every round: 8 nodes, the data partitioned again at
@@ -2345,7 +2361,7 @@ def _sp_zoo_invariant(name, api, steps) -> dict:
 
 def sp_zoo_resnet_phase(ft, fa, dataset, classes):
     """13b: each member on BENCH_CONFIG (ResNet-56) on sp, a cohort of 4 for
-    2 rounds, on phase 8's dataset (decentralized: 8 nodes on its own):
+    SP_ZOO_ROUNDS rounds, on phase 8's dataset (decentralized: 8 nodes on its own):
     round seconds, finite params, the member's invariant, peak memory over
     FedAvg's run on the same cohort, no flash launch."""
     import copy
@@ -2353,7 +2369,8 @@ def sp_zoo_resnet_phase(ft, fa, dataset, classes):
     import torch
 
     base = copy.deepcopy(BENCH_CONFIG)
-    base["train_args"].update(xla_pack=False, client_num_per_round=SP_ZOO_COHORT, comm_round=2)
+    base["train_args"].update(xla_pack=False, client_num_per_round=SP_ZOO_COHORT,
+                              comm_round=SP_ZOO_ROUNDS)
     base["comm_args"]["backend"] = "sp"
     out = {}
     for name, knobs in SP_ZOO:
@@ -3742,6 +3759,261 @@ def group_inmesh_phase(ft):
     return out
 
 
+# phase 19: the process-real MPI simulator, the analysis attacks, the
+# centralized baseline.  19a: mpi_proc_fedavg_mnist_lr as it stands through
+# run_mpi_simulation at MPI_WORLD ranks, every rank on cuda:0, then at world 1
+# in-process on the card and on the CPU (final params within
+# STRUCTURAL_CPU_ATOL); the world-2 metrics against the card's world-1 ones
+# within the JAX package's own bounds (tests/test_mpi_proc.py:46-55: one
+# rounding step of the 4-decimal metrics)
+MPI_EXAMPLE = "mpi_proc_fedavg_mnist_lr"
+MPI_WORLD = 2
+MPI_LOSS_ATOL = 2e-4
+MPI_ACC_ATOL = 1e-3
+# 19b: xla_invert_gradient_mnist_lr on the padded and the packed round with
+# each analysis attack.  The global model of an attacked run equals a clean
+# run's on the same device bit for bit; revealed labels equal the CPU's; a
+# reconstruction's matching loss (the objective it descends) on the card is
+# held to the CPU's within ANALYSIS_LOSS_RATIO times the gap a CPU run opens
+# when its initial global weights move by ANALYSIS_EPS (relative, as a fp32
+# rounding or a few), and never under ANALYSIS_LOSS_RTOL of the CPU's loss
+ANALYSIS_EXAMPLE = "xla_invert_gradient_mnist_lr"
+ANALYSES = ("invert_gradient", "dlg", "revealing_labels_from_gradients")
+ANALYSIS_EPS = 1e-6
+ANALYSIS_LOSS_RATIO = 10.0
+ANALYSIS_LOSS_RTOL = 1e-4
+
+
+def _mpi_rank_run(ft, config):
+    """One rank at world 1 through the entry points (backend MPI_PROC builds
+    it): (final eval, the rank, seconds)."""
+    import copy
+
+    import torch
+
+    args = ft.init(ft.Arguments.from_dict(copy.deepcopy(config)), should_init_logs=False)
+    dataset, classes = ft.data.load(args)
+    runner = ft.FedMLRunner(args, ft.device.get_device(args), dataset,
+                            ft.models.hub.create(args, classes))
+    t0 = time.perf_counter()
+    final = runner.run()
+    torch.cuda.synchronize()
+    return final, runner.runner, time.perf_counter() - t0
+
+
+def mpi_proc_phase(ft):
+    """19a (see MPI_EXAMPLE): each rank's rendezvous and round seconds come
+    from run_mpi_simulation's log records."""
+    import copy
+    import logging
+
+    config = _example_config(MPI_EXAMPLE)
+    timings = []
+
+    class _RankRecords(logging.Handler):
+        def emit(self, record):
+            if record.getMessage().startswith("mpi rank"):
+                timings.append(record.args)
+
+    mpi_log = logging.getLogger("fedml_tpu_torch.simulation.mpi_proc.mpi_sim")
+    handler, level = _RankRecords(), mpi_log.level
+    mpi_log.addHandler(handler)
+    mpi_log.setLevel(logging.INFO)
+    try:
+        t0 = time.perf_counter()
+        final2 = ft.run_mpi_simulation(config, world_size=MPI_WORLD, deadline_s=600)
+        seconds2 = time.perf_counter() - t0
+    finally:
+        mpi_log.removeHandler(handler)
+        mpi_log.setLevel(level)
+    ranks = {int(a[0]): {"rendezvous_s": float(a[2]), "round_s": list(a[3])} for a in timings}
+    final1, card, seconds1 = _mpi_rank_run(ft, config)
+    cpu_config = copy.deepcopy(config)
+    cpu_config["device_args"] = {"device_type": "cpu"}
+    cpu_final, cpu, cpu_seconds = _mpi_rank_run(ft, cpu_config)
+    gap = _max_param_diff(card.trainer.get_model_params(), cpu.trainer.get_model_params())
+    loss_gap = abs(final2["test_loss"] - final1["test_loss"])
+    acc_gap = abs(final2["test_acc"] - final1["test_acc"])
+    log(f"  {MPI_EXAMPLE} at world {MPI_WORLD} through run_mpi_simulation (ranks on "
+        f"{card.device}): {final2} in {seconds2:.3f} s (spawn to result); "
+        + "; ".join(f"rank {r}: rendezvous {t['rendezvous_s']:.3f} s, rounds {t['round_s']} s"
+                    for r, t in sorted(ranks.items())))
+    log(f"  world 1 in-process: card {final1} in {seconds1:.3f} s (rounds "
+        f"{[round(t, 4) for t in card.round_times]} s), CPU {cpu_final} in {cpu_seconds:.3f} s; "
+        f"card vs CPU params {gap:.3e} (atol {STRUCTURAL_CPU_ATOL:g}); world {MPI_WORLD} vs 1 "
+        f"loss {loss_gap:.1e} (atol {MPI_LOSS_ATOL:g}), acc {acc_gap:.1e} (atol "
+        f"{MPI_ACC_ATOL:g})")
+    if sorted(ranks) != list(range(MPI_WORLD)) or not all(
+            len(t["round_s"]) == int(config["train_args"]["comm_round"]) for t in ranks.values()):
+        raise AssertionError(f"19a: rank records {ranks}")
+    if not all(math.isfinite(v) for m in (final1, final2) for v in m.values()):
+        raise AssertionError(f"19a: metrics {final1} {final2}")
+    if gap > STRUCTURAL_CPU_ATOL or loss_gap > MPI_LOSS_ATOL or acc_gap > MPI_ACC_ATOL \
+            or final1["round"] != final2["round"]:
+        raise AssertionError(f"19a outside its bounds: params {gap}, loss {loss_gap}, acc "
+                             f"{acc_gap} ({final1} vs {final2})")
+    return {"world": MPI_WORLD, "final": final2, "seconds": seconds2, "ranks": ranks,
+            "world1_final": final1, "world1_seconds": seconds1,
+            "world1_round_seconds": list(card.round_times), "cpu_final": cpu_final,
+            "cpu_seconds": cpu_seconds, "card_vs_cpu": gap, "loss_gap": loss_gap,
+            "acc_gap": acc_gap}
+
+
+def _analysis_run(ft, config, eps: float = 0.0):
+    """One run of ``config`` through the entry points: (simulator, final eval,
+    seconds, [{prev, row, out, seconds}] of each analysed round, the
+    attacker).  ``eps`` moves the initial global weights by 1 + eps N(0, 1)
+    (a seeded CPU generator)."""
+    import torch
+
+    from fedml_tpu_torch.core.security.fedml_attacker import FedMLAttacker
+
+    runner, sim = _graph_runner(ft, config)
+    if eps:
+        gen = torch.Generator().manual_seed(19)
+        with torch.no_grad():
+            for v in sim.variables.values():
+                v.mul_(1 + eps * torch.randn(v.shape, generator=gen).to(v.device))
+    att, analysed = FedMLAttacker.get_instance(), []
+    if att.is_analysis_attack():
+        analyze = att.analyze_update
+
+        def analyzed(module, variables, row, x_shape, num_classes):
+            sim._sync()
+            t0 = time.perf_counter()
+            out = analyze(module, variables, row, x_shape, num_classes)
+            sim._sync()
+            analysed.append({"prev": variables, "row": row, "out": out,
+                             "seconds": time.perf_counter() - t0})
+            return out
+
+        att.analyze_update = analyzed
+    try:
+        t0 = time.perf_counter()
+        final = runner.run()
+        sim._sync()
+        seconds = time.perf_counter() - t0
+    finally:
+        att.__dict__.pop("analyze_update", None)
+    return sim, final, seconds, analysed, att
+
+
+def _match_loss(ft, sim, attack: str, record) -> float:
+    """The matching loss of an analysed round's reconstruction (the
+    objective its descent minimised), on the run's device."""
+    from fedml_tpu_torch.core.security import attack_funcs as A
+
+    x, y = record["out"]
+    cosine = attack == "invert_gradient"
+    with ft.device.fp32_matmul():
+        return A.update_match_loss(
+            sim.module, record["prev"], record["row"], x, y,
+            lr_client=float(sim.args.learning_rate), match="cosine" if cosine else "l2",
+            tv_weight=float(getattr(sim.args, "invert_tv_weight", 1e-2)) if cosine else 0.0)
+
+
+def analysis_phase(ft):
+    """19b (see ANALYSIS_EXAMPLE): for each round and attack, the attacked
+    run on the card against a clean one (bit for bit) and against the CPU
+    (the revealed labels; the reconstruction's matching loss within its
+    bound), with each analysis's seconds."""
+    import copy
+
+    import torch
+
+    out = {}
+    for kind in ("padded", "packed"):
+        base = _example_config(ANALYSIS_EXAMPLE)
+        base["train_args"]["xla_pack"] = kind == "packed"
+        clean_config = copy.deepcopy(base)
+        clean_config["attack_args"] = {"enable_attack": False}
+        clean, _, clean_seconds, _, _ = _analysis_run(ft, clean_config)
+        for attack in ANALYSES:
+            config = copy.deepcopy(base)
+            config["attack_args"]["attack_type"] = attack
+            sim, final, seconds, analysed, att = _analysis_run(ft, config)
+            labels = att.last_revealed_labels
+            same = all(torch.equal(sim.variables[k], clean.variables[k]) for k in sim.variables)
+            cpu_config = copy.deepcopy(config)
+            cpu_config["device_args"] = {"device_type": "cpu"}
+            cpu, cpu_final, cpu_seconds, cpu_analysed, cpu_att = _analysis_run(ft, cpu_config)
+            rounds = int(config["train_args"]["comm_round"])
+            entry = {"final": final, "cpu_final": cpu_final, "seconds": seconds,
+                     "clean_seconds": clean_seconds, "cpu_seconds": cpu_seconds,
+                     "analysis_seconds": [r["seconds"] for r in analysed],
+                     "cpu_analysis_seconds": [r["seconds"] for r in cpu_analysed],
+                     "victims": list(sim.analysis_victims),
+                     "cpu_victims": list(cpu.analysis_victims),
+                     "bitwise_clean": same, "round_seconds": list(sim.round_times)}
+            bad = [] if same else ["the global model is not a clean run's"]
+            if len(analysed) != rounds or entry["victims"] != entry["cpu_victims"]:
+                bad.append(f"analysed {len(analysed)} rounds, victims {entry['victims']} vs "
+                           f"{entry['cpu_victims']}")
+            if attack == "revealing_labels_from_gradients":
+                cpu_labels = cpu_att.last_revealed_labels
+                entry["present"] = labels[1].cpu().tolist()
+                entry["order_equal"] = labels[0].cpu().tolist() == cpu_labels[0].tolist()
+                if entry["present"] != cpu_labels[1].tolist():
+                    bad.append(f"revealed {entry['present']} vs {cpu_labels[1].tolist()}")
+                detail = (f"present {[i for i, p in enumerate(entry['present']) if p]} (CPU "
+                          f"the same), order equal to the CPU's: {entry['order_equal']}")
+            else:
+                moved, _, _, moved_analysed, _ = _analysis_run(ft, cpu_config, ANALYSIS_EPS)
+                loss = _match_loss(ft, sim, attack, analysed[-1])
+                cpu_loss = _match_loss(ft, cpu, attack, cpu_analysed[-1])
+                spread = abs(_match_loss(ft, moved, attack, moved_analysed[-1]) - cpu_loss)
+                bound = max(ANALYSIS_LOSS_RATIO * spread, ANALYSIS_LOSS_RTOL * abs(cpu_loss))
+                x_gap = float((analysed[-1]["out"][0].cpu() - cpu_analysed[-1]["out"][0])
+                              .abs().max())
+                entry.update(match_loss=loss, cpu_match_loss=cpu_loss, perturbed_spread=spread,
+                             bound=bound, x_gap=x_gap)
+                if not math.isfinite(loss) or abs(loss - cpu_loss) > bound:
+                    bad.append(f"matching loss {loss} vs CPU {cpu_loss} (bound {bound})")
+                detail = (f"matching loss {loss:.6e}, CPU {cpu_loss:.6e}, gap "
+                          f"{abs(loss - cpu_loss):.3e} (bound {bound:.3e}: the perturbed CPU "
+                          f"run's gap {spread:.3e} x {ANALYSIS_LOSS_RATIO:g}, at least "
+                          f"{ANALYSIS_LOSS_RTOL:g} relative); x card vs CPU {x_gap:.3e}")
+            log(f"  {kind} {attack}: {final} in {seconds:.3f} s (clean {clean_seconds:.3f} s, "
+                f"CPU {cpu_seconds:.3f} s); analyses {[round(t, 4) for t in entry['analysis_seconds']]} "
+                f"s (CPU {[round(t, 4) for t in entry['cpu_analysis_seconds']]} s), victims "
+                f"{entry['victims']}; global model bit for bit a clean run's: {same}; {detail}")
+            if bad:
+                raise AssertionError(f"19b {kind} {attack}: {bad}")
+            out[f"{kind} {attack}"] = entry
+    return out
+
+
+def centralized_phase(ft):
+    """19c: CentralizedTrainer on the mnist lr data of MPI_EXAMPLE (comm_round
+    x epochs passes over the pooled set), on the card and on the CPU: final
+    params within STRUCTURAL_CPU_ATOL, the evals beside each other."""
+    import copy
+
+    import torch
+
+    from fedml_tpu_torch.centralized import CentralizedTrainer
+
+    runs = {}
+    for name, device in (("card", None), ("cpu", {"device_type": "cpu"})):
+        config = _example_config(MPI_EXAMPLE)
+        if device is not None:
+            config["device_args"] = device
+        args = ft.init(ft.Arguments.from_dict(copy.deepcopy(config)), should_init_logs=False)
+        trainer = CentralizedTrainer(args)
+        t0 = time.perf_counter()
+        final = trainer.train()
+        torch.cuda.synchronize()
+        runs[name] = (trainer, final, time.perf_counter() - t0)
+    (card, final, seconds), (cpu, cpu_final, cpu_seconds) = runs["card"], runs["cpu"]
+    gap = _max_param_diff(card.variables, cpu.variables)
+    log(f"  centralized lr on {card.device}: {final} in {seconds:.3f} s, CPU {cpu_final} in "
+        f"{cpu_seconds:.3f} s; card vs CPU params {gap:.3e} (atol {STRUCTURAL_CPU_ATOL:g})")
+    if gap > STRUCTURAL_CPU_ATOL or not all(math.isfinite(v) for v in final.values()):
+        raise AssertionError(f"19c: card vs CPU {gap}, {final}")
+    return {"final": final, "cpu_final": cpu_final, "seconds": seconds,
+            "cpu_seconds": cpu_seconds, "card_vs_cpu": gap}
+
+
 def ptxas_check(build, builds) -> dict:
     """Registers and spills of every kernel instantiation from ptxas's log;
     raises if an instantiation of a kernel of NO_SPILL spills."""
@@ -3982,7 +4254,7 @@ def main() -> int:
         "FedBuff against FedAvgAPI in its equivalence configuration")
     sp_zoo["configs"] = sp_zoo_examples_phase(ft, fa)
     phase(f"13b: the sp zoo at the north-star width (ResNet-56, a cohort of "
-        f"{SP_ZOO_COHORT}, 2 rounds)")
+        f"{SP_ZOO_COHORT}, {SP_ZOO_ROUNDS} round)")
     sp_zoo["resnet"] = sp_zoo_resnet_phase(ft, fa, cifar, classes)
     del cifar
     phase("13c: SCAFFOLD and FedSGD on sp under the flash kernels (slice 1's "
@@ -4089,6 +4361,28 @@ def main() -> int:
     inmesh["seconds"] = time.perf_counter() - t18
     log(f"  phase 18 in {inmesh['seconds']:.1f} s")
 
+    t19 = time.perf_counter()
+    mpi_analysis = {"tf32_flags": flags_found}
+    fa.reset_launches()
+    phase(f"19a: {MPI_EXAMPLE} through run_mpi_simulation at world {MPI_WORLD} (every rank "
+          "on cuda:0), then at world 1 on the card and on the CPU")
+    log(f"  card: {card}")
+    mpi_analysis["mpi_proc"] = mpi_proc_phase(ft)
+    phase(f"19b: {ANALYSIS_EXAMPLE} on the padded and packed rounds with each analysis "
+          "attack (against a clean run and the CPU)")
+    mpi_analysis["analysis"] = analysis_phase(ft)
+    phase("19c: the centralized baseline on the mnist lr data (card vs CPU)")
+    mpi_analysis["centralized"] = centralized_phase(ft)
+    mpi_launches = dict(fa.LAUNCHES)
+    log(f"  phase 19 launches {mpi_launches} (predicted: none)")
+    if any(mpi_launches.values()):
+        raise AssertionError(f"flash kernels launched on phase 19's paths: {mpi_launches}")
+    if _tf32_flags() != flags_found:
+        raise AssertionError(f"tf32 flags {_tf32_flags()} after phase 19, found {flags_found}")
+    mpi_analysis["launches"] = mpi_launches
+    mpi_analysis["seconds"] = time.perf_counter() - t19
+    log(f"  phase 19 in {mpi_analysis['seconds']:.1f} s")
+
     phase("9: results")
 
     kernels = kernels_line(rows + fold_rows,
@@ -4096,7 +4390,7 @@ def main() -> int:
                             sp_backend_launches, sp_zoo_launches, nlp_launches,
                             *nlp_xla_launches, graph_launches, graph_xla_launches,
                             graph_mesh_launches, vision_launches, structural_launches,
-                            inmesh_launches))
+                            inmesh_launches, mpi_launches))
     bench = bench_bf16_summary(rows)
     with open(os.path.join(OUT_DIR, "results.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -4115,7 +4409,7 @@ def main() -> int:
                    "sp_zoo_launches": sp_zoo_launches, "nlp": nlp,
                    "nlp_launches": nlp_launches, "nlp_xla_launches": nlp_xla_launches,
                    "graph": graph, "vision": vision, "structural": structural,
-                   "inmesh": inmesh,
+                   "inmesh": inmesh, "mpi_analysis": mpi_analysis,
                    "phase_starts": starts, "seconds": time.perf_counter() - t_start}, f,
                   indent=1)
     log(f"== done in {time.perf_counter() - t_start:.1f} s")

@@ -2,7 +2,8 @@
 
 The JAX package ``fedml_tpu`` is the reference; this package is its port,
 slice by slice (ROADMAP.md), with the same public surface:
-``fedml_tpu_torch.init``, ``run_simulation``, ``FedMLRunner``,
+``fedml_tpu_torch.init``, ``run_simulation``, ``run_mpi_simulation``,
+``FedMLRunner``,
 ``data.load``, ``models.hub.create`` and ``device.get_device``.  It imports
 ``torch`` and never JAX or anything of ``fedml_tpu``.
 """
@@ -75,3 +76,17 @@ def run_simulation(backend: str = "sp"):
     dataset, output_dim = data.data_loader.load(args)
     model = models.hub.create(args, output_dim)
     return FedMLRunner(args, dev, dataset, model).run()
+
+
+def run_mpi_simulation(config, world_size: int, port: int = 0, deadline_s: float = 3600.0,
+                       retries: int = 2):
+    """The ``mpirun -np N`` replacement: spawn ``world_size`` rank processes
+    over the TCP process group and return rank 0's final metrics.  ``config``
+    is the nested args dict (the YAML's shape); every rank runs on the card
+    unless it sets ``device_args.device_type: cpu``.
+
+    Call it under ``if __name__ == "__main__":``: the ranks are ``spawn``ed
+    processes, which import the caller's main module again."""
+    from .simulation.mpi_proc import run_mpi_simulation as _run
+
+    return _run(config, world_size, port=port, deadline_s=deadline_s, retries=retries)

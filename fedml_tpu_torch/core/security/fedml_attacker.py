@@ -10,8 +10,12 @@ package's to the client.  The attacker's own draws come in turn from a
 generator seeded ``random_seed + 2027``; a client's data poisoning draws
 from a generator seeded (``random_seed + 2027``, client), so it does not
 depend on the order in which clients are packed.  The analysis attacks
-(``dlg``, ``invert_gradient``, ``revealing_labels_from_gradients``) are not
-ported (ROADMAP.md queue A, item 8: the trust path, what is left).
+(``dlg``, ``invert_gradient``, ``revealing_labels_from_gradients``) run on
+one intercepted update (``analyze_update``, which the round simulator calls
+every ``dlg_frequency`` rounds) and keep their result on the instance
+(``last_reconstruction``, ``last_revealed_labels``); a reconstruction
+starts from standard-normal x, then y logits, drawn on the CPU from the
+attacker's generator in turn.
 """
 
 from __future__ import annotations
@@ -38,8 +42,6 @@ from .constants import (
 
 _UNSET = object()  # edge-pool cache sentinel (None is a valid cached value)
 ATTACK_SALT = 2027
-ANALYSIS_REFUSAL = ("the analysis attacks (dlg, invert_gradient, revealing_labels_from_gradients) "
-                    "are not ported yet (ROADMAP.md queue A, item 8: the trust path, what is left)")
 
 logger = logging.getLogger(__name__)
 
@@ -79,6 +81,8 @@ class FedMLAttacker:
         self._edge_pool_cache = _UNSET
         self._gen = seeded_generator((ATTACK_SALT,))
         self._seed = ATTACK_SALT
+        self.last_reconstruction = None
+        self.last_revealed_labels = None
 
     def init(self, args: Any) -> None:
         if not getattr(args, "enable_attack", False):
@@ -234,8 +238,36 @@ class FedMLAttacker:
                                    gen=seeded_generator((self._seed, int(client_idx))))
 
     # -- privacy attacks ----------------------------------------------------
-    def reconstruct_data(self, *args, **kwargs):
-        raise NotImplementedError(ANALYSIS_REFUSAL)
+    def reconstruct_data(self, module, variables, client_update, x_shape, num_classes):
+        """DLG (``attack_type: dlg``): reconstruct a representative input batch
+        from one intercepted update; returns ``(x_rec, y_soft_logits)`` and
+        keeps it on the instance."""
+        if self.attack_type != ATTACK_METHOD_DLG:
+            return None
+        self.last_reconstruction = A.dlg_attack(
+            module, variables, client_update, x_shape, num_classes,
+            lr_client=float(getattr(self.args, "learning_rate", 0.1)),
+            steps=int(getattr(self.args, "dlg_steps", 200)),
+            lr_attack=float(getattr(self.args, "dlg_lr", 0.1)), gen=self._gen)
+        return self.last_reconstruction
 
-    def analyze_update(self, *args, **kwargs):
-        raise NotImplementedError(ANALYSIS_REFUSAL)
+    def analyze_update(self, module, variables, client_update, x_shape, num_classes):
+        """The analysis attacks' entry on one intercepted update: dlg (L2
+        gradient matching), invert_gradient (cosine matching and the TV
+        prior), revealing_labels_from_gradients (the head bias's signs).  The
+        result lands on ``last_reconstruction`` or ``last_revealed_labels``."""
+        if self.attack_type == ATTACK_METHOD_DLG:
+            return self.reconstruct_data(module, variables, client_update, x_shape, num_classes)
+        lr = float(getattr(self.args, "learning_rate", 0.1))
+        if self.attack_type == ATTACK_METHOD_INVERT_GRADIENT:
+            self.last_reconstruction = A.invert_gradient_attack(
+                module, variables, client_update, x_shape, num_classes, lr_client=lr,
+                steps=int(getattr(self.args, "dlg_steps", 200)),
+                lr_attack=float(getattr(self.args, "dlg_lr", 0.1)),
+                tv_weight=float(getattr(self.args, "invert_tv_weight", 1e-2)), gen=self._gen)
+            return self.last_reconstruction
+        if self.attack_type == ATTACK_METHOD_REVEALING_LABELS:
+            self.last_revealed_labels = A.reveal_labels_from_update(
+                variables, client_update, num_classes, lr_client=lr)
+            return self.last_revealed_labels
+        return None

@@ -157,9 +157,10 @@ def build_packed_device_fn(
     ``capture_updates`` also writes each client's final fp32 variables into
     row ``slot`` of a ``[slots, D]`` matrix in ``ravel_pytree`` order and its
     step count into ``tau``; ``outs`` is then ``{"algo": outs, "update":
-    matrix, "tau": [slots] numpy}``, and the weighted sum ``acc`` is not
-    kept (None): the security tail aggregates from the matrix.  With neither
-    hook the boundary flush runs as it always has.
+    matrix, "tau": [slots] numpy}``.  The weighted sum ``acc`` is kept either
+    way: the security tail aggregates from the matrix, a round that only
+    reads a row of it (an analysis attack) from ``acc``, as a clean round
+    does.  With neither hook the boundary flush runs as it always has.
 
     ``stream`` ``"while"`` and ``"scan"`` run the same loop here.  In the JAX
     package scan also runs the bucket's tail past ``n_steps``, whose steps
@@ -192,16 +193,14 @@ def build_packed_device_fn(
         params = list(module.parameters())
         params0 = param_list(variables, names)
         opt = make_opt(params)
+        acc = {k: torch.zeros_like(v, dtype=torch.float32) for k, v in variables.items()}
+        acc_list = param_list(acc, names)
         if capture_updates:
-            acc = None
             layout = FlatLayout.of(variables)
             update = torch.zeros((slots, layout.dim), dtype=torch.float32, device=dev)
             views = layout.views(update)  # {name: [slots, ...]}, each row its parameter
             update_rows = [[views[k][s] for k in names] for s in range(slots)]
             taus = np.zeros((slots,), np.float32)
-        else:
-            acc = {k: torch.zeros_like(v, dtype=torch.float32) for k, v in variables.items()}
-            acc_list = param_list(acc, names)
         ext = algo.zero_contrib(variables)
         outs = out_buffer(algo, variables, slots)
         cex_rows, out_rows = split_slots(cex, slots), split_slots(outs, slots)
@@ -245,9 +244,7 @@ def build_packed_device_fn(
                     if capture_updates:
                         torch._foreach_copy_(update_rows[s], [final[k] for k in names])
                         taus[s] = c_steps
-                    else:
-                        torch._foreach_add_(acc_list, [final[k].float() for k in names],
-                                            alpha=w)
+                    torch._foreach_add_(acc_list, [final[k].float() for k in names], alpha=w)
                     contrib, out = algo.client_result(variables, result, w, real, cex_i,
                                                       server_state)
                     ext = tree_add_(ext, contrib)

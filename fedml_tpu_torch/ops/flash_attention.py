@@ -443,11 +443,23 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True):
     return _route(q, flash_bwd_dkv_cuda, flash_bwd_dkv_plain)(q, k, v, do, lse, delta, causal)
 
 
+def _first_order_only(name: str) -> None:
+    """Refuse a backward that is to be differentiated again: autograd runs a
+    backward with grad mode on only under ``create_graph``."""
+    if torch.is_grad_enabled():
+        raise RuntimeError(
+            f"{name} is once-differentiable: its backward's outputs carry no graph, so a "
+            "second derivative (create_graph=True) through it is refused")
+
+
 class FlashAttention(torch.autograd.Function):
     """The ``flash_attention`` custom_vjp of the JAX package: the forward
     saves (q, k, v, O, LSE); the backward rebuilds P blockwise in two kernels
     (dQ, then dK/dV) from delta = rowsum(dO * O), a plain torch op here as it
-    is an XLA op there."""
+    is an XLA op there.  The kernels' outputs carry no graph, so the backward
+    is once-differentiable: asked for a graph of the gradient
+    (``create_graph``), it raises instead of dropping the second
+    derivative's terms."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool = True):
@@ -458,6 +470,7 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        _first_order_only("flash attention")
         q, k, v, o, lse = ctx.saved_tensors
         do = g.to(q.dtype).contiguous()
         delta = (do.float() * o.float()).sum(dim=-1).permute(0, 2, 1).contiguous()
@@ -475,7 +488,9 @@ class FlashShardUpdate(torch.autograd.Function):
     """The ``flash_shard_update`` custom_vjp of the JAX package: the forward
     folds the shard through K4 (its plain twin on the CPU); the backward
     recomputes the fold through :func:`shard_update_reference` and takes its
-    gradients, as the JAX package's vjp does.  Positions get no gradient."""
+    gradients, as the JAX package's vjp does.  Positions get no gradient.
+    That backward keeps no graph of its own, so it is once-differentiable:
+    asked for a graph of the gradient, it raises."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_pos, k_pos, m, l, o, causal: bool = True):
@@ -487,6 +502,7 @@ class FlashShardUpdate(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gm, gl, go):
+        _first_order_only("the flash shard fold")
         q, k, v, q_pos, k_pos, m, l, o = ctx.saved_tensors
         with torch.enable_grad():
             args = [t.detach().requires_grad_() for t in (q, k, v, m, l, o)]

@@ -9,8 +9,9 @@ program's port: ``classical_vertical``, ``split_nn`` and ``fedgkt``
 (``simulation/xla/gan_nas.py``), ``decentralized_fl`` and ``spreadgnn``
 (``simulation/xla/decentralized.py``), ``turbo_aggregate``
 (``simulation/xla/turbo.py``) and ``hierarchicalfl``
-(``simulation/xla/hierarchical.py``).  ``MPI_PROC``, the process-real rank
-plane, is not ported (ROADMAP.md queue A, item 5: the other simulators)."""
+(``simulation/xla/hierarchical.py``).  ``MPI_PROC`` builds one rank of the
+process-real rank plane (``simulation/mpi_proc``); ``run_mpi_simulation``
+spawns the set."""
 
 from __future__ import annotations
 
@@ -71,11 +72,11 @@ def create_simulator(args, device, dataset, model):
     backend = str(getattr(args, "backend", FEDML_SIMULATION_TYPE_SP))
     if backend == FEDML_SIMULATION_TYPE_SP:
         return SimulatorSingleProcess(args, device, dataset, model)
+    if backend == "MPI_PROC":
+        from .mpi_proc import MPIProcessSimulator
+
+        return MPIProcessSimulator(args, dataset, model)
     if backend in (FEDML_SIMULATION_TYPE_XLA, FEDML_SIMULATION_TYPE_MPI,
                    FEDML_SIMULATION_TYPE_NCCL):
         return SimulatorXLA(args, device, dataset, model)
-    if backend == "MPI_PROC":
-        raise NotImplementedError(
-            f"simulation backend {backend!r} is not ported yet "
-            "(ROADMAP.md queue A, item 5: the other simulators)")
     raise ValueError(f"unknown simulation backend {backend!r}")

@@ -43,7 +43,7 @@ import torch
 from ....core.dp.fedml_differential_privacy import FedMLDifferentialPrivacy
 from ....core.population import PopulationManager
 from ....core.security.constants import ATTACK_METHOD_EDGE_CASE_BACKDOOR
-from ....core.security.fedml_attacker import ANALYSIS_REFUSAL, FedMLAttacker
+from ....core.security.fedml_attacker import FedMLAttacker
 from ....core.security.fedml_defender import _BEFORE_DEFENSES, _ON_DEFENSES, FedMLDefender
 from ....device import fp32_matmul
 from ....ml.aggregator.aggregator_creator import create_server_aggregator
@@ -161,7 +161,12 @@ class FedAvgAPI:
         self.freq = self._frequency(args)
         attacker = FedMLAttacker.get_instance()
         if attacker.is_analysis_attack():
-            raise NotImplementedError(ANALYSIS_REFUSAL)
+            # the JAX sp loop never analyses an update: it would run clean
+            # FedAvg silently
+            raise NotImplementedError(
+                f"attack_type {attacker.attack_type!r} is an analysis attack, which runs on "
+                "the round simulator (backend: XLA), as in the JAX package; the sp simulator "
+                "has no hook for it")
         if (attacker.is_attack_enabled() and not attacker.is_model_attack()
                 and not attacker.is_data_poisoning_attack()):
             raise NotImplementedError(

@@ -32,9 +32,14 @@ summing them; the security tail (``_security_round``, one plain function of
 torch ops, the JAX package's ``_build_security_fn``) then runs the stacked
 model attack on the malicious rows, the stacked defense and the algorithm's
 server step.  Data-poisoning attacks stamp each malicious client's shard at
-pack time.  Local DP noises each client's variables after its last step (a
-generator per client); central DP noises the global variables after the
-server step.  Every draw comes from a seeded ``torch.Generator``
+pack time.  An analysis attack (``dlg``, ``invert_gradient``,
+``revealing_labels_from_gradients``) stacks the rows too, but the round
+aggregates as a clean one does: every ``dlg_frequency`` rounds the attacker
+analyses one intercepted row (``_analyze``) against the round's
+pre-aggregation global, and training is left as it was, bit for bit.
+Local DP noises each client's variables after its last step (a generator
+per client); central DP noises the global variables after the server
+step.  Every draw comes from a seeded ``torch.Generator``
 (``utils/rng.py``), not from ``jax.random``.
 
 The cohort of each round is the population manager's ``mt19937`` draw, the
@@ -61,7 +66,7 @@ from ...core.async_fl import VirtualArrivalQueue
 from ...core.dp.fedml_differential_privacy import FedMLDifferentialPrivacy
 from ...core.population import PopulationManager
 from ...core.schedule import RuntimeEstimator, SeqTrainScheduler
-from ...core.security.fedml_attacker import ANALYSIS_REFUSAL, FedMLAttacker
+from ...core.security.fedml_attacker import FedMLAttacker
 from ...core.security.fedml_defender import FedMLDefender
 from ...core.security.stacked import (_wmean, build_stacked_attack, build_stacked_defense,
                                       init_defense_state)
@@ -140,17 +145,20 @@ class XLASimulator:
         refuse_unported_knobs(args)
         attacker = FedMLAttacker.get_instance()
         defender = FedMLDefender.get_instance()
-        if attacker.is_analysis_attack():
-            raise NotImplementedError(ANALYSIS_REFUSAL)
+        self.analysis_attacked = attacker.is_analysis_attack()
         if (attacker.is_attack_enabled() and not attacker.is_model_attack()
-                and not attacker.is_data_poisoning_attack()):
+                and not self.analysis_attacked and not attacker.is_data_poisoning_attack()):
             # fail loud rather than report clean-FedAvg metrics as an attack
             # experiment's result
             raise NotImplementedError(
                 f"attack_type {attacker.attack_type!r} has no XLA-backend hook")
         self.defended = defender.is_defense_enabled()
         self.model_attacked = attacker.is_model_attack()
-        self.needs_stack = self.defended or self.model_attacked
+        # the security tail aggregates under a defense or a model attack; an
+        # analysis attack only reads one row of the stack
+        self.secured = self.defended or self.model_attacked
+        self.needs_stack = self.secured or self.analysis_attacked
+        self.analysis_victims: List[int] = []  # the client analysed, each analysed round
         self.module = model
         self.device = torch.device(device)
 
@@ -185,7 +193,7 @@ class XLASimulator:
             self._local_train = build_local_train(
                 self.module, self.args, self.batch_size, self.padded_n, loss=self.loss_kind,
                 grad_hook=self.algo.grad_hook(), post_train=post_train)
-        if self.needs_stack:
+        if self.secured:
             self._build_security()
         self.runtime_estimator = RuntimeEstimator(1, uniform_devices=True)
         self.scheduler = SeqTrainScheduler(1, estimator=self.runtime_estimator)
@@ -482,15 +490,12 @@ class XLASimulator:
         client extras (``algo.gather_client_extras``).  Returns the mean loss
         tensor."""
         algo = self.algo
+        acc = {k: torch.zeros_like(v, dtype=torch.float32) for k, v in self.variables.items()}
         if self.needs_stack:
-            acc = None
             layout = FlatLayout.of(self.variables)
             update = torch.zeros((len(ids), layout.dim), dtype=torch.float32, device=self.device)
             update_rows = layout.views(update)
             taus = np.zeros((len(ids),), np.float32)
-        else:
-            acc = {k: torch.zeros_like(v, dtype=torch.float32)
-                   for k, v in self.variables.items()}
         ext = algo.zero_contrib(self.variables)
         outs = out_buffer(algo, self.variables, len(ids))
         cex_rows, out_rows = split_slots(cex, len(ids)), split_slots(outs, len(ids))
@@ -512,9 +517,8 @@ class XLASimulator:
                     for k, p in result.variables.items():
                         update_rows[k][s].copy_(p)
                     taus[s] = result.steps
-                else:
-                    for k, p in result.variables.items():
-                        acc[k].add_(p.float(), alpha=w)
+                for k, p in result.variables.items():
+                    acc[k].add_(p.float(), alpha=w)
                 contrib, out = algo.client_result(self.variables, result, w, 1.0, cex_i,
                                                   self.server_state)
                 ext = tree_add_(ext, contrib)
@@ -540,18 +544,46 @@ class XLASimulator:
 
     def _server_step(self, round_idx: int, acc, wsum: float, ext, ids: np.ndarray,
                      counts: np.ndarray, cex, outs) -> None:
-        """The algorithm's server step, or with an attack or a defense on the
-        security tail on the round's stacked rows; then the clients' outputs
-        into the client state."""
-        if self.needs_stack:
+        """The algorithm's server step, or with a model attack or a defense on
+        the security tail on the round's stacked rows; then the analysis
+        attack, if one is on, and the clients' outputs into the client
+        state."""
+        prev_global = self.variables
+        if self.secured:
             self._security_round(round_idx, outs["update"], outs["tau"], ids, counts, cex, ext)
-            outs = outs["algo"]
         else:
             with torch.no_grad():
                 self.variables, self.server_state = self.algo.server_update(
                     acc, wsum, ext, self.variables, self.server_state)
+        if self.needs_stack:
+            if self.analysis_attacked:
+                self._analyze(round_idx, prev_global, outs["update"], ids, counts)
+            outs = outs["algo"]
         with torch.no_grad():
             self.client_state = self.algo.apply_client_outs(self.client_state, ids, outs)
+
+    def _analyze(self, round_idx: int, prev_global, update: torch.Tensor, ids: np.ndarray,
+                 counts: np.ndarray) -> None:
+        """The analysis attack on one intercepted update, every
+        ``dlg_frequency`` rounds: the victim is the first real client of the
+        round's layout in the byzantine set, else the first real client; its
+        row of the update stack is analysed against the round's
+        pre-aggregation global, at input shape ``(dlg_batch_size,) +`` a
+        sample's."""
+        if round_idx % max(1, int(getattr(self.args, "dlg_frequency", 1))) != 0:
+            return
+        real_sel = np.where(counts > 0)[0]
+        if real_sel.size == 0:
+            return
+        attacker = FedMLAttacker.get_instance()
+        bad = set(attacker.get_byzantine_idxs(self.num_clients))
+        victim = ([int(i) for i in real_sel if int(ids[i]) in bad] or [int(real_sel[0])])[0]
+        self.analysis_victims.append(int(ids[victim]))
+        row = FlatLayout.of(prev_global).unravel(update[victim], prev_global)
+        attacker.analyze_update(
+            self.module, prev_global, row,
+            (int(getattr(self.args, "dlg_batch_size", 1)),) + tuple(self.x_all.shape[1:]),
+            self.class_num)
 
     def train(self) -> Dict[str, Any]:
         """The run's rounds, with fp32 products in full fp32 (TF32 off) and
@@ -589,7 +621,7 @@ class XLASimulator:
             if dp.is_global_dp_enabled():
                 self.variables = dp.add_global_noise(self.variables)
             self._sync()
-            if self.needs_stack and self._tail_events is not None:
+            if self.secured and self._tail_events is not None:
                 self.security_ms.append(self._tail_events[0].elapsed_time(self._tail_events[1]))
                 self._tail_events = None
             dt = time.time() - t0

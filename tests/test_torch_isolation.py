@@ -29,9 +29,12 @@ SLICE_MODULES = [
     "fedml_tpu_torch.data.data_loader",
     "fedml_tpu_torch.data.loaders",
     "fedml_tpu_torch.data.synthetic",
+    "fedml_tpu_torch.centralized",
+    "fedml_tpu_torch.centralized.centralized_trainer",
     "fedml_tpu_torch.core.async_fl",
     "fedml_tpu_torch.core.async_fl.buffer",
     "fedml_tpu_torch.core.data.noniid_partition",
+    "fedml_tpu_torch.core.distributed.collective",
     "fedml_tpu_torch.core.distributed.topology.topology_manager",
     "fedml_tpu_torch.core.dp.budget_accountant",
     "fedml_tpu_torch.core.dp.fedml_differential_privacy",
@@ -90,6 +93,8 @@ SLICE_MODULES = [
     "fedml_tpu_torch.parallel.ring_attention",
     "fedml_tpu_torch.parallel.seq_parallel",
     "fedml_tpu_torch.simulation.simulator",
+    "fedml_tpu_torch.simulation.mpi_proc",
+    "fedml_tpu_torch.simulation.mpi_proc.mpi_sim",
     "fedml_tpu_torch.simulation.sp",
     "fedml_tpu_torch.simulation.sp.fedavg.fedavg_api",
     "fedml_tpu_torch.simulation.sp.fedopt.fedopt_api",

@@ -9,8 +9,11 @@
   at one device (jitted, no mesh), from the same transplanted weights and the
   same schedule: ``wsum`` and ``cnt`` are sample counts and must be equal;
   ``lsum`` rtol 1e-6 and ``acc / wsum`` atol 1e-6 (fp32, sums taken in other
-  orders through 28 SGD steps; both read 1.3e-7 or less).  The pregathered stream must give what the
-  per-step gather gives, bit for bit.
+  orders through 28 SGD steps).  The weights are a flax tree of the
+  ResNet-20's shapes (``jax.eval_shape`` of its init) filled from a seeded
+  numpy stream (``_filled``), which spares the JAX side compiling the init.
+  The pregathered stream must give what the per-step gather gives, bit for
+  bit.
 * bench.py's north-star configuration (``_bench_args``: ResNet-56, bf16
   compute, cifar10, Dirichlet 0.5, ``xla_pack``, batch 64, SGD lr 0.001)
   runs through the entry points on the CPU at a reduced size.
@@ -93,6 +96,22 @@ def test_scheduler_and_estimator_are_identical():
             assert test_.predict_marginal(0, 17) == jest.predict_marginal(0, 17)
 
 
+def _filled(shapes, seed=0):
+    """A flax variables tree of ``shapes`` filled from a seeded numpy stream:
+    kernels N(0, 1/fan_in), scales 1 + N(0, 0.01), biases N(0, 0.01)."""
+    rng = np.random.RandomState(seed)
+
+    def fill(path, s):
+        leaf = path[-1].key
+        if leaf == "scale":
+            return (1.0 + 0.1 * rng.randn(*s.shape)).astype(np.float32)
+        if leaf == "bias":
+            return (0.1 * rng.randn(*s.shape)).astype(np.float32)
+        return (rng.randn(*s.shape) / np.sqrt(np.prod(s.shape[:-1]))).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
 @pytest.fixture(scope="module")
 def device_rounds():
     """One packed round on each side; the port's with and without pregather."""
@@ -106,7 +125,7 @@ def device_rounds():
     args = types.SimpleNamespace(client_optimizer="sgd", learning_rate=0.1, weight_decay=0.0,
                                  momentum=0.0, federated_optimizer="FedAvg")
     jmodel = jresnet20(num_classes=10)
-    jvars = jax.jit(jmodel.init)(jax.random.PRNGKey(0), x[:1])
+    jvars = _filled(jax.eval_shape(jmodel.init, jax.random.PRNGKey(0), x[:1]))
     fn = jpacked.build_packed_device_fn(jmodel, args, jalgo(args), BATCH, len(ids))
     acc, wsum, lsum, cnt, _, _ = jax.jit(fn)(
         jvars, (), jnp.asarray(x), jnp.asarray(y),

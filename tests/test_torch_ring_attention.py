@@ -179,8 +179,11 @@ def jax_ring_causal(jax_mesh):
     def ring(q_):
         return jax_ring(q_, k, v, jax_mesh, axis_name="sp", causal=True, block_fn=bf)
 
-    out = jax.jit(ring)(q)
-    dq = jax.jit(jax.grad(lambda q_: jnp.sum(ring(q_) * w)))(q)
+    def out_and_dq(q_):
+        out, pull = jax.vjp(ring, q_)
+        return out, pull(w)[0]
+
+    out, dq = jax.jit(out_and_dq)(q)  # one program: the forward, then its vjp
     return np.asarray(out), np.asarray(dq)
 
 
@@ -222,8 +225,12 @@ CFG = dict(vocab_size=128, d_model=64, n_heads=4, n_layers=2, d_ff=128)
 @pytest.fixture(scope="module")
 def sp_variables():
     """The flax weights of the sp tests (fp32 parameters in either compute
-    dtype)."""
-    return jsp.sp_init(JCfg(max_seq_len=64, **CFG), seed=0)
+    dtype): ``sp_init``'s, its ``model.init`` jitted (the same values without
+    flax's op-by-op init)."""
+    from fedml_tpu.models.transformer import TransformerLM as JLM
+
+    model = JLM(JCfg(max_seq_len=64, **CFG))
+    return jax.jit(model.init)(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))
 
 
 @pytest.fixture(scope="module")

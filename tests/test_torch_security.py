@@ -443,13 +443,23 @@ def test_attacker_malicious_set_and_label_flip_match_jax():
 
 
 def test_analysis_attacks_are_refused():
+    """Item 8's analysis attacks are ported: the attacker analyses an
+    intercepted update (here a ``lr`` model's) instead of refusing, and
+    ``reconstruct_data`` answers for dlg only."""
+    from fedml_tpu_torch.models.linear import LogisticRegression
+
+    module = LogisticRegression(6, 4)
+    gen = torch.Generator().manual_seed(0)
+    variables = {n: torch.randn(p.shape, generator=gen) for n, p in module.named_parameters()}
+    update = {n: v - 0.1 * torch.randn(v.shape, generator=gen) for n, v in variables.items()}
     ta = FedMLAttacker.get_instance()
-    ta.init(_Args(enable_attack=True, attack_type="dlg"))
-    assert ta.is_analysis_attack()
-    with pytest.raises(NotImplementedError, match="queue A, item 8: the trust path, what is left"):
-        ta.analyze_update(None, None, None, (1,), 10)
-    with pytest.raises(NotImplementedError, match="queue A, item 8: the trust path, what is left"):
-        ta.reconstruct_data(None, None, None, (1,), 10)
+    for attack in ("dlg", "invert_gradient", "revealing_labels_from_gradients"):
+        ta.init(_Args(enable_attack=True, attack_type=attack, dlg_steps=2))
+        assert ta.is_analysis_attack()
+        out = ta.analyze_update(module, variables, update, (2, 6), 4)
+        assert out is not None and all(bool(torch.isfinite(t.float()).all()) for t in out)
+        rec = ta.reconstruct_data(module, variables, update, (2, 6), 4)
+        assert (rec is None) == (attack != "dlg")
 
 
 # -- soteria's probe ---------------------------------------------------------------

@@ -387,6 +387,18 @@ def test_ldp_accounts_before_each_round_and_stops_at_its_budget():
      "item 9b:"),
 ])
 def test_still_refused_knobs_raise(knobs, item):
+    """Each knob raises, naming its item; item 8's analysis attacks are ported
+    now: each runs on the packed round and keeps its result."""
+    if item == "item 8:":
+        from fedml_tpu_torch.core.security.fedml_attacker import FedMLAttacker
+
+        sim, _ = _port_run(_config(dict(knobs, dlg_steps=3), "packed"))
+        att = FedMLAttacker.get_instance()
+        result = att.last_revealed_labels if knobs["attack_type"].startswith("revealing") \
+            else att.last_reconstruction
+        assert sim.analysis_attacked and len(sim.analysis_victims) == ROUNDS
+        assert result is not None and all(bool(torch.isfinite(t.float()).all()) for t in result)
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue A, {item}"):
         _port_run(_config(knobs, "packed"))
 

@@ -12,6 +12,11 @@ trains the clients in that order.  On the CPU the JAX simulator attends through
 kernels' plain versions.  Tolerances: global parameters after each round
 atol 5e-5 (fp32, two epochs of SGD at lr 0.1 with sums in other orders);
 eval loss and accuracy, which both packages round to 4 decimals, 2e-4.
+
+The JAX side is made cheap without changing what it computes: its init is
+flax's, jitted (the same values as the op-by-op init), and placed
+replicated on its mesh, as its round's outputs are, so round 1 reuses round
+0's compiled program.
 """
 
 import copy
@@ -23,6 +28,7 @@ import torch
 
 import fedml_tpu
 import fedml_tpu_torch
+from fedml_tpu.simulation.xla import fed_sim as jfed_sim
 from fedml_tpu.models.transformer import TransformerConfig as JCfg, TransformerLM as JLM
 from fedml_tpu_torch.models import convert
 from fedml_tpu_torch.models.transformer import TransformerConfig, TransformerLM
@@ -80,14 +86,34 @@ def _record(sim, variables_of):
     return log
 
 
+def _jitted_init(module, sample, seed=0):
+    """``fed_sim.init_variables``, jitted: the same values, without flax's
+    op-by-op init."""
+    return dict(jax.jit(lambda k, s: module.init(k, s, train=False))(
+        jax.random.PRNGKey(seed), sample))
+
+
+def _place_replicated(jsim):
+    """The JAX simulator's initial state placed replicated on its mesh, as
+    its round's outputs are: round 1 then runs round 0's compiled program."""
+    from jax.sharding import NamedSharding, PartitionSpec
+
+    repl = NamedSharding(jsim.mesh, PartitionSpec())
+    jsim.variables = jax.device_put(jsim.variables, repl)
+    jsim.server_state = jax.device_put(jsim.server_state, repl)
+
+
 @pytest.fixture(scope="module")
 def runs():
     jargs = fedml_tpu.init(fedml_tpu.Arguments.from_dict(copy.deepcopy(CONFIG)),
                            should_init_logs=False)
     jdataset, _ = fedml_tpu.data.data_loader.load(jargs)
-    jrun = fedml_tpu.FedMLRunner(jargs, fedml_tpu.device.get_device(jargs), jdataset,
-                                 JLM(JCfg(**CFG)))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jfed_sim, "init_variables", _jitted_init)
+        jrun = fedml_tpu.FedMLRunner(jargs, fedml_tpu.device.get_device(jargs), jdataset,
+                                     JLM(JCfg(**CFG)))
     jsim = jrun.runner.sim
+    _place_replicated(jsim)
 
     targs = fedml_tpu_torch.init(fedml_tpu_torch.Arguments.from_dict(copy.deepcopy(CONFIG)),
                                  should_init_logs=False)

@@ -482,8 +482,10 @@ def test_other_sp_optimizers_raise_with_their_item(optimizer, item):
     ({"obs_trace": True}, NotImplementedError, "ROADMAP.md queue A, item 9d:"),
     ({"enable_profiler": True}, NotImplementedError, "ROADMAP.md queue A, item 9d:"),
     ({"agg_plane": "compiled"}, NotImplementedError, "ROADMAP.md queue A, item 10:"),
-    ({"enable_attack": True, "attack_type": "dlg"}, NotImplementedError,
-     "ROADMAP.md queue A, item 8:"),
+    # the id of the case that named item 8 before item 8 was ported
+    pytest.param({"enable_attack": True, "attack_type": "dlg"}, NotImplementedError,
+                 "analysis attack, which runs on the round simulator \\(backend: XLA\\)",
+                 id="knobs5-NotImplementedError-ROADMAP.md queue A, item 8:"),
     ({"frequency_of_the_test": 0}, ValueError, "frequency_of_the_test"),
 ])
 def test_sp_refusals_name_their_item(knobs, error, match):
@@ -563,12 +565,18 @@ def test_structural_optimizers_on_xla_raise_with_item_5(optimizer):
 
 
 def test_mpi_proc_backend_raises_with_item_5():
+    """Item 5's ``MPI_PROC`` is ported: ``create_simulator`` builds one rank
+    (world 1, no sockets), as the JAX package's does."""
+    from fedml_tpu_torch.simulation.mpi_proc import MPIProcessSimulator
     from fedml_tpu_torch.simulation.simulator import create_simulator
 
-    args = fedml_tpu_torch.Arguments.from_dict(_config(LR_CONFIG))
+    args = fedml_tpu_torch.init(fedml_tpu_torch.Arguments.from_dict(_config(LR_CONFIG)),
+                                should_init_logs=False)
     args.backend = "MPI_PROC"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A, item 5:"):
-        create_simulator(args, torch.device("cpu"), None, None)
+    dataset, classes = fedml_tpu_torch.data.load(args)
+    model = fedml_tpu_torch.models.hub.create(args, classes)
+    sim = create_simulator(args, torch.device("cpu"), dataset, model)
+    assert isinstance(sim, MPIProcessSimulator) and (sim.rank, sim.world) == (0, 1)
 
 
 # -- (f) the repaired faults ---------------------------------------------------

@@ -59,17 +59,18 @@
    models.hub.create -> FedMLRunner(...).run(): FedAvg of ResNet-56
    (GroupNorm, bf16 compute over fp32 params) on cifar10 (synthetic, 50,000
    NHWC images stored in bf16), 100 Dirichlet(0.5) clients, 32 a round
-   through the packed round, batch 64, SGD lr 0.001.  Cut: 2 rounds instead
-   of 6 (3 before phase 16 was added).  It checks the bf16 storage bit for bit, logs each round's seconds,
+   through the packed round, batch 64, SGD lr 0.001.  Cut: 1 round instead
+   of 6 (3 before phase 16 was added, 2 before phase 20), so its throughput
+   times a cold round.  It checks the bf16 storage bit for bit, logs each round's seconds,
    real steps and bucket, throughput() and the peak memory, requires finite
    losses, and asserts that no flash kernel launched.  Then 8 clients of
-   round 1's cohort run once more under torch.profiler: busy share, the top kernels, the
+   the last round's cohort run once more under torch.profiler: busy share, the top kernels, the
    device time of convolutions, GroupNorm and elementwise kernels, and the
    aten ops a step.  A lone F.group_norm on channels_last input shows
    whether it copies to contiguous; the boundary flush is timed on its own
    with CUDA events.
 9. The kernels line, the card line, and the last line
-   {"ok": true, "device": {...}}, printed after phase 18.
+   {"ok": true, "device": {...}}, printed after phase 20.
 10. The algorithm zoo.  (a) At the north-star width: BENCH_CONFIG with the
    algorithm's knobs changed and its cohort cut to ZOO_COHORT (4) clients
    (ZOO: FedProx, FedOpt/adam, FedNova, SCAFFOLD, FedDyn, AsyncFedAvg,
@@ -257,6 +258,24 @@
    matching loss within ANALYSIS_LOSS_RATIO times the gap of a CPU run whose
    initial weights moved by ANALYSIS_EPS; each analysis's seconds.  (c) The
    centralized trainer on the mnist lr data, card against CPU.
+20. BatchNorm (model_norm bn) and the parsers (no flash kernel lies on them:
+   the launch counts must read 0).  (a) BENCH_CONFIG with model_norm bn
+   through fedml_tpu_torch.init -> data.load -> models.hub.create ->
+   FedMLRunner(...).run(), one round of BN_MAIN_COHORT clients at full width
+   (ResNet-56, 57 BatchNorms, bf16 compute): every running average moved,
+   finite, the variances positive; then 2 clients of BN_REF_ROWS images in
+   fp32 on the card and on the CPU, each against the same round on the CPU
+   in float64 (the card's gap in params, running means and running
+   variances within BN_REF_RATIO times the CPU's); then slice 3's GroupNorm
+   round and this BatchNorm round on one cohort of BN_TIMED_COHORT clients in
+   turns (gn, bn, bn, gn), samples/s beside each other with the card's name
+   and power limit.  (b) run_simulation(backend="sp") from a config file:
+   BENCH_CONFIG with model_norm bn on sp, one round, its eval on the running
+   averages.  (c) The golden mnist idx and uci csv fixtures
+   (tests/fixtures/golden) through data.load into an lr round on the card
+   and on the CPU, with the image parsers' Pillow import made to fail: the
+   hub's lr sized from the files (784, 3 inputs), params within
+   STRUCTURAL_CPU_ATOL.
 
 Any failure raises and the script exits non-zero with no result line.  It
 exits 2 when no CUDA device is visible.  Full details go to
@@ -381,22 +400,22 @@ SP_BATCH, SP_LEN, SP_SHARDS, SP_LR = 8, 1024, 4, 1e-3
 # sp logits (ring, K4) against single-card logits (K1), fp32 with TF32 off:
 # the two sum each row's keys in another order, through 8 layers
 SP_PARITY_ATOL = 1e-3
-# slice 3: bench.py's _bench_args(1) (bench.py:97-128), 2 rounds instead of 6:
-# the third paid for phase 16
+# slice 3: bench.py's _bench_args(1) (bench.py:97-128), 1 round instead of 6:
+# the third paid for phase 16, the second for phase 20
 BENCH_CONFIG = {
     "common_args": {"training_type": "simulation", "random_seed": 0, "run_id": "bench"},
     "data_args": {"dataset": "cifar10", "data_cache_dir": os.path.join(ROOT, "fedml_data"),
                   "partition_method": "hetero", "partition_alpha": 0.5},
     "model_args": {"model": "resnet56", "compute_dtype": "bf16"},
     "train_args": {"federated_optimizer": "FedAvg", "client_num_in_total": 100,
-                   "client_num_per_round": 32, "xla_pack": True, "comm_round": 2, "epochs": 1,
+                   "client_num_per_round": 32, "xla_pack": True, "comm_round": 1, "epochs": 1,
                    "batch_size": 64, "client_optimizer": "sgd", "learning_rate": 0.001},
     "validation_args": {"frequency_of_the_test": 0},
     "device_args": {"device_type": "gpu"},
     "comm_args": {"backend": "XLA"},
 }
-# phase 8: the clients of round 1's cohort whose packed round runs under
-# torch.profiler
+# phase 8: the clients of the last round's cohort whose packed round runs
+# under torch.profiler
 PROFILE_CLIENTS = 8
 # phase 10a: the algorithm zoo on BENCH_CONFIG, the algorithm's knobs
 # changed and the cohort cut to ZOO_COHORT clients (8 until phase 17 was
@@ -1141,18 +1160,19 @@ def resnet_slice_phase(ft, fa):
     log(f"  throughput {json.dumps(tp)}; peak memory {peak / 2**30:.3f} GiB; "
         f"flash launches {launches}")
 
-    sampled = sim._client_sampling(1)
+    last = len(streams) - 1
+    sampled = sim._client_sampling(last)
     ids, real = sim._schedule(sampled)
     counts = np.where(real > 0, sim.client_counts[ids], 0)
-    # the first PROFILE_CLIENTS of round 1's cohort (its shapes ran in the run
-    # above) once more, under the profiler; its events are summed from the
-    # raw kineto records (key_averages() takes minutes over a round's ~10^6)
+    # the first PROFILE_CLIENTS of the last round's cohort (its shapes ran in
+    # the run above) once more, under the profiler; its events are summed from
+    # the raw kineto records (key_averages() takes minutes over a round's ~10^6)
     ids, counts = ids[:PROFILE_CLIENTS], counts[:PROFILE_CLIENTS]
-    steps = int(sim._packed_inputs(ids, counts, 1).n_steps)
+    steps = int(sim._packed_inputs(ids, counts, last).n_steps)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        float(sim._run_packed_round(1, ids, counts))
+        float(sim._run_packed_round(last, ids, counts))
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels: dict = {}  # name -> [device ms, launches]
@@ -1168,12 +1188,9 @@ def resnet_slice_phase(ft, fa):
     families: dict = {}
     for name, (ms, _) in kernels.items():
         families[kernel_family(name)] = families.get(kernel_family(name), 0.0) + ms
-    median_round_ms = 1e3 * tp["median_round_s"]
-    log(f"  {len(ids)} of round 1's clients under the profiler ({steps} steps): wall "
-        f"{wall_ms:.1f} ms, device busy {device_ms:.1f} ms ({100 * device_ms / wall_ms:.1f} %; "
-        f"{100 * device_ms / median_round_ms * streams[1]['steps'] / steps:.1f} % of the "
-        "unprofiled median round, scaled by its steps); by family "
-        + json.dumps({k: round(v, 3) for k, v in sorted(families.items())}))
+    log(f"  {len(ids)} of round {last}'s clients under the profiler ({steps} steps): wall "
+        f"{wall_ms:.1f} ms, device busy {device_ms:.1f} ms ({100 * device_ms / wall_ms:.1f} %); "
+        "by family " + json.dumps({k: round(v, 3) for k, v in sorted(families.items())}))
     top = []
     for name, (ms, calls) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:16]:
         top.append({"name": name, "device_ms": ms, "calls": calls, "family": kernel_family(name)})
@@ -1207,7 +1224,7 @@ def resnet_slice_phase(ft, fa):
 
     flush_ms = time_ms(flush)
     log(f"  one boundary flush ({len(params)} tensors, {n_params:,} params): {flush_ms:.4f} ms; "
-        f"{streams[1]['clients']} a round: {flush_ms * streams[1]['clients']:.3f} ms")
+        f"{streams[-1]['clients']} a round: {flush_ms * streams[-1]['clients']:.3f} ms")
     return {"params": n_params, "data_seconds": data_s, "build_seconds": pack_s,
             "streams": streams, "round_times": list(sim.round_times),
             "round_losses": list(sim.round_losses), "throughput": tp,
@@ -1215,7 +1232,7 @@ def resnet_slice_phase(ft, fa):
             "profile": {"wall_ms": wall_ms, "device_ms": device_ms, "steps": steps,
                         "families_ms": families, "top": top, "ops_per_round": dict(op_table)},
             "group_norm": gn,
-            "flush_ms": flush_ms, "flushes_per_round": streams[1]["clients"]}, (dataset, classes)
+            "flush_ms": flush_ms, "flushes_per_round": streams[-1]["clients"]}, (dataset, classes)
 
 
 def packed_zoo_reference_phase(ft):
@@ -4014,6 +4031,324 @@ def centralized_phase(ft):
             "cpu_seconds": cpu_seconds, "card_vs_cpu": gap}
 
 
+# phase 20: BatchNorm (model_norm: bn) on slice 3's path, and the parsers.
+# 20a: BENCH_CONFIG with model_norm bn, one round through the entry points at
+# full width (ResNet-56, bf16 compute over fp32 params; cut: a cohort of
+# BN_MAIN_COHORT of the 32);
+# then BN_REF_CLIENTS clients of BN_REF_ROWS images (batch 16, lr 0.001) on
+# the card and on the CPU in fp32 (TF32 off), each against the same round on
+# the CPU in float64: the card's largest gap to float64 in the params, the
+# running means and the running variances within BN_REF_RATIO times the
+# CPU's.  The two fp32 runs are not held to each other directly: 57
+# BatchNorm backwards leave whole channels' gradients a few percent of their
+# parts (tests/test_torch_batchnorm.py), so fp32 roundoff moves a full-width
+# tree by far more than the convolutions' sums would (the first call read
+# 2.1e-3 in the params at lr 0.005).  Then GroupNorm's and BatchNorm's rounds
+# on one cohort of BN_TIMED_COHORT clients in turns.
+BN_MAIN_COHORT = 16
+BN_REF_CLIENTS = 2
+BN_REF_ROWS = 32
+BN_REF_RATIO = 10.0
+BN_TIMED_COHORT = 4
+BN_TIMED_ORDER = ("gn", "bn", "bn", "gn")
+# 20b: run_simulation() on sp from a config file: BENCH_CONFIG with model_norm
+# bn, BN_SP_COHORT clients of BN_SP_ROWS images, one round
+BN_SP_COHORT = 4
+BN_SP_ROWS = 3200
+# 20c: the golden fixtures of the mnist idx and uci csv parsers through
+# data.load into an lr round on the card and on the CPU
+PARSER_DATASETS = (("mnist", 784), ("uci", 3))
+
+
+def _bn_config(**train) -> dict:
+    import copy
+
+    config = copy.deepcopy(BENCH_CONFIG)
+    config["model_args"]["model_norm"] = "bn"
+    config["train_args"].update(train)
+    return config
+
+
+def _bn_stats_moved(variables, init) -> int:
+    """The number of BatchNorm running averages that the round moved."""
+    from fedml_tpu_torch.models.convert import is_batch_stat
+
+    return sum(1 for k, v in variables.items()
+               if is_batch_stat(k) and not bool((v.cpu() == init[k].cpu()).all()))
+
+
+BN_REF_RUNS = ("cpu", "card", "float64")
+
+
+def bn_float64_runs(ft, runs=BN_REF_RUNS, start=None) -> dict:
+    """20a's reference: one round of BN_REF_CLIENTS clients of BN_REF_ROWS
+    images (ResNet-56-bn, fp32 compute, batch 16) from one start, for each
+    of ``runs``: ``cpu`` and ``card`` in fp32, ``float64`` on the CPU.
+    {run: (final variables in float64 on the CPU, seconds, loss), "start":
+    the start}."""
+    import copy
+
+    import torch
+
+    from fedml_tpu_torch.models.resnet import resnet56
+
+    config = _bn_config(client_num_in_total=BN_REF_CLIENTS, client_num_per_round=BN_REF_CLIENTS,
+                        batch_size=16)
+    config["model_args"]["compute_dtype"] = "fp32"
+    config["data_args"].update(partition_method="homo",
+                               synthetic_train_size=BN_REF_CLIENTS * BN_REF_ROWS)
+    finals = {}
+    for name in runs:
+        dev_type = "gpu" if name == "card" else "cpu"
+        config["device_args"]["device_type"] = dev_type
+        rargs = ft.init(ft.Arguments.from_dict(copy.deepcopy(config)), should_init_logs=False)
+        rdev = ft.device.get_device(rargs)
+        rdata, rclasses = ft.data.load(rargs)
+        rmodel = (resnet56(rclasses, norm="bn", dtype=torch.float64, device="meta")
+                  if name == "float64" else ft.models.hub.create(rargs, rclasses))
+        rrun = ft.FedMLRunner(rargs, rdev, rdata, rmodel)
+        rsim = rrun.runner.sim
+        if start is None:
+            start = {k: v.clone() for k, v in rsim.variables.items()}
+        if name == "float64":
+            rmodel.double()
+        rsim.variables = {k: v.to(rdev, torch.float64 if name == "float64" else v.dtype)
+                          for k, v in start.items()}
+        t0 = time.perf_counter()
+        rrun.run()
+        if dev_type == "gpu":
+            torch.cuda.synchronize()
+        finals[name] = ({k: v.double().cpu() for k, v in rsim.variables.items()},
+                        time.perf_counter() - t0, rsim.round_losses[0])
+    finals["start"] = start
+    return finals
+
+
+def bn_float64_gaps(finals, card: str = "card"):
+    """The largest gap to the float64 run of ``card``, of the fp32 CPU run,
+    and between the two, in the params, the running means and the running
+    variances; and the card's gap over the CPU's in each."""
+    from fedml_tpu_torch.models.convert import is_batch_stat
+
+    kinds = ("params", "mean", "var")
+    gaps = {run: dict.fromkeys(kinds, 0.0) for run in ("card", "cpu", "card_cpu")}
+    for k, ref in finals["float64"][0].items():
+        kind = k.rsplit(".", 1)[-1] if is_batch_stat(k) else "params"
+        got, cpu = finals[card][0][k], finals["cpu"][0][k]
+        for run, a, b in (("card", got, ref), ("cpu", cpu, ref), ("card_cpu", got, cpu)):
+            gaps[run][kind] = max(gaps[run][kind], (a - b).abs().max().item())
+    ratios = {kind: gaps["card"][kind] / max(gaps["cpu"][kind], 1e-30) for kind in kinds}
+    return gaps, ratios
+
+
+def bn_gaps_text(gaps, ratios) -> str:
+    return "; ".join(f"{kind} card {gaps['card'][kind]:.3e}, CPU {gaps['cpu'][kind]:.3e} (ratio "
+                     f"{ratios[kind]:.2f}), card vs CPU {gaps['card_cpu'][kind]:.3e}"
+                     for kind in ratios)
+
+
+def bn_round_phase(ft, fa, dataset, classes):
+    """20a: the main path with BatchNorm (one round of BN_MAIN_COHORT clients),
+    the card and the CPU against float64, and the two norms' rounds in
+    turns."""
+    import copy
+
+    import torch
+
+    from fedml_tpu_torch.models.convert import is_batch_stat
+
+    # the main path: one round of the full cohort through the entry points
+    fa.reset_launches()
+    args = ft.init(ft.Arguments.from_dict(_bn_config(client_num_per_round=BN_MAIN_COHORT)),
+                   should_init_logs=False)
+    device = ft.device.get_device(args)
+    model = ft.models.hub.create(args, classes)
+    runner = ft.FedMLRunner(args, device, dataset, model)
+    sim = runner.runner.sim
+    init = {k: v.clone() for k, v in sim.variables.items()}
+    n_params = sum(v.numel() for k, v in init.items() if not is_batch_stat(k))
+    n_stats = sum(v.numel() for k, v in init.items() if is_batch_stat(k))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
+    if any(launches.values()):
+        raise AssertionError(f"a flash kernel launched on the bn path: {launches}")
+    moved = _bn_stats_moved(sim.variables, init)
+    finite = all(bool(torch.isfinite(v).all()) for v in sim.variables.values())
+    var_ok = all(bool((v > 0).all()) for k, v in sim.variables.items() if k.endswith(".var"))
+    if (not finite or not var_ok or moved != sum(is_batch_stat(k) for k in init)
+            or not all(math.isfinite(x) for x in sim.round_losses)):
+        raise AssertionError(f"20a: finite {finite}, var > 0 {var_ok}, moved {moved}, "
+                             f"losses {sim.round_losses}")
+    tp = sim.throughput()
+    log(f"  ResNet-56-bn ({n_params:,} params, {n_stats:,} running-average entries, "
+        f"{sim.x_all.dtype} data): round 0 of {sim.samples_per_round[0]} samples in "
+        f"{sim.round_times[0]:.4f} s ({tp['samples_per_sec']:,.1f} samples/s, cold), loss "
+        f"{sim.round_losses[0]:.6f}; run {seconds:.2f} s; all {moved} running averages moved; "
+        f"launches {launches}")
+
+    # the card and the CPU in fp32, each against the CPU in float64
+    finals = bn_float64_runs(ft)
+    gaps, ratios = bn_float64_gaps(finals)
+    moved = _bn_stats_moved(finals["card"][0], finals["start"])
+    log(f"  {BN_REF_CLIENTS} clients of {BN_REF_ROWS} images, fp32 against the CPU in float64: "
+        + bn_gaps_text(gaps, ratios)
+        + f"; losses card {finals['card'][2]:.6f}, CPU {finals['cpu'][2]:.6f}, float64 "
+        f"{finals['float64'][2]:.6f}; card {finals['card'][1]:.2f} s, CPU {finals['cpu'][1]:.2f} s, "
+        f"float64 {finals['float64'][1]:.2f} s; {moved} averages moved")
+    if max(ratios.values()) > BN_REF_RATIO or moved == 0:
+        raise AssertionError(f"20a: card vs float64 {gaps}, ratios {ratios}, moved {moved}")
+    worst = max(ratios.values())
+
+    # the two norms on one cohort in turns: the bn simulator above, warm, and
+    # slice 3's GroupNorm one built on the same data
+    gargs = ft.init(ft.Arguments.from_dict(copy.deepcopy(BENCH_CONFIG)), should_init_logs=False)
+    gsim = ft.FedMLRunner(gargs, device, dataset, ft.models.hub.create(gargs, classes)).runner.sim
+    ids, real = sim._schedule(sim._client_sampling(0))
+    counts = np.where(real > 0, sim.client_counts[ids], 0)
+    ids, counts = ids[:BN_TIMED_COHORT], counts[:BN_TIMED_COHORT]
+    sims = {"bn": sim, "gn": gsim}
+    turns = []
+    with ft.device.fp32_matmul():
+        for kind in ("gn",) + BN_TIMED_ORDER:  # the first gn round warms its simulator
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = float(sims[kind]._run_packed_round(0, ids, counts))
+            torch.cuda.synchronize()
+            turns.append({"kind": kind, "seconds": time.perf_counter() - t0, "loss": loss})
+    turns = turns[1:]
+    samples = int(counts.sum())
+    rates = {k: [samples / t["seconds"] for t in turns if t["kind"] == k] for k in ("gn", "bn")}
+    card = card_line()
+    log(f"  {BN_TIMED_COHORT} clients ({samples} samples) a round in turns on {card}: " + ", ".join(
+        f"{t['kind']} {t['seconds']:.4f} s" for t in turns) + "; samples/s gn "
+        + ", ".join(f"{r:,.1f}" for r in rates["gn"]) + ", bn "
+        + ", ".join(f"{r:,.1f}" for r in rates["bn"])
+        + f"; bn over gn time {statistics.mean(rates['gn']) / statistics.mean(rates['bn']):.3f}")
+    return {"params": n_params, "running_average_entries": n_stats,
+            "round_seconds": sim.round_times[0], "samples_per_sec_cold": tp["samples_per_sec"],
+            "loss": sim.round_losses[0], "launches": launches,
+            "against_float64": {"gaps": gaps, "ratios": ratios, "worst_ratio": worst,
+                                "seconds": {k: finals[k][1] for k in BN_REF_RUNS},
+                                "losses": {k: finals[k][2] for k in BN_REF_RUNS}},
+            "turns": turns, "samples_per_turn": samples, "samples_per_sec": rates, "card": card}
+
+
+def bn_sp_phase(ft, fa):
+    """20b: run_simulation() on sp from a config file: BENCH_CONFIG with
+    model_norm bn, BN_SP_COHORT clients, one round, with its eval (the
+    running averages normalise)."""
+    import yaml
+
+    config = _bn_config(client_num_in_total=BN_SP_COHORT, client_num_per_round=BN_SP_COHORT,
+                        xla_pack=False)
+    config["data_args"]["synthetic_train_size"] = BN_SP_ROWS
+    config["validation_args"]["frequency_of_the_test"] = 1
+    config["comm_args"]["backend"] = "sp"
+    config["common_args"]["run_id"] = "bn_sp"
+    path = os.path.join(OUT_DIR, "bn_sp_config.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(config, f)
+    runners = []
+    runner_cls = ft.FedMLRunner
+
+    class Recorded(runner_cls):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            runners.append(self)
+
+    fa.reset_launches()
+    argv = sys.argv
+    sys.argv = [argv[0], "--cf", path]
+    ft.FedMLRunner = Recorded
+    flags = _tf32_flags()
+    try:
+        t0 = time.perf_counter()
+        final = ft.run_simulation(backend="sp")
+        seconds = time.perf_counter() - t0
+    finally:
+        sys.argv = argv
+        ft.FedMLRunner = runner_cls
+    api = runners[-1].runner.fl_trainer
+    launches = dict(fa.LAUNCHES)
+    from fedml_tpu_torch.models.convert import is_batch_stat
+
+    n_stats = sum(is_batch_stat(k) for k in api.w_global)
+    if (_tf32_flags() != flags or any(launches.values()) or not _finite(api)
+            or str(api.args.backend) != "sp" or n_stats != 2 * 57
+            or not all(math.isfinite(float(v)) for v in final.values())):
+        raise AssertionError(f"20b: {final}, launches {launches}, {n_stats} running averages")
+    log(f"  run_simulation(backend='sp') on {api.device}: {api.args.model} "
+        f"model_norm {api.args.model_norm}, {BN_SP_COHORT} clients of ~"
+        f"{BN_SP_ROWS // BN_SP_COHORT} images, 1 round in {seconds:.2f} s (data and build "
+        f"included); eval on the running averages {final}")
+    return {"final": final, "seconds": seconds, "launches": launches}
+
+
+def parser_phase(ft):
+    """20c: the golden mnist idx and uci csv fixtures through data.load (no
+    Pillow: the image parsers' import is made to fail) into an lr round on
+    the card and on the CPU: the hub's lr sized from the files' samples, the
+    final params within STRUCTURAL_CPU_ATOL."""
+    import torch
+
+    from fedml_tpu_torch.data import loaders
+
+    def no_pillow(where):
+        raise AssertionError(f"20c asked for Pillow at {where}")
+
+    pillow = loaders._pillow
+    loaders._pillow = no_pillow
+    out = {}
+    try:
+        for dataset, width in PARSER_DATASETS:
+            runs = {}
+            for name, dev_type in (("card", "gpu"), ("cpu", "cpu")):
+                config = {
+                    "common_args": {"training_type": "simulation", "random_seed": 0},
+                    "data_args": {"dataset": dataset, "partition_method": "homo",
+                                  "data_cache_dir": os.path.join(ROOT, "tests", "fixtures",
+                                                                 "golden")},
+                    "model_args": {"model": "lr"},
+                    "train_args": {"federated_optimizer": "FedAvg", "client_num_in_total": 2,
+                                   "client_num_per_round": 2, "comm_round": 2, "epochs": 1,
+                                   "batch_size": 4, "client_optimizer": "sgd",
+                                   "learning_rate": 0.1},
+                    "validation_args": {"frequency_of_the_test": 1},
+                    "device_args": {"device_type": dev_type},
+                    "comm_args": {"backend": "XLA"},
+                }
+                args = ft.init(ft.Arguments.from_dict(config), should_init_logs=False)
+                t0 = time.perf_counter()
+                data, classes = ft.data.load(args)
+                load_s = time.perf_counter() - t0
+                model = ft.models.hub.create(args, classes)
+                runner = ft.FedMLRunner(args, ft.device.get_device(args), data, model)
+                final = runner.run()
+                if dev_type == "gpu":
+                    torch.cuda.synchronize()
+                runs[name] = (runner.runner.sim, final, load_s, args, model)
+            sim, final, load_s, args, model = runs["card"]
+            gap = _max_param_diff(sim.variables, runs["cpu"][0].variables)
+            log(f"  {dataset}: {data[0]} train / {data[1]} test rows of "
+                f"{tuple(args.data_input_shape)} parsed in {load_s:.3f} s (synthetic "
+                f"{args.dataset_is_synthetic}); lr of {model.linear.in_features} inputs; card "
+                f"{final} vs CPU {runs['cpu'][1]}; params {gap:.3e} (atol "
+                f"{STRUCTURAL_CPU_ATOL:g})")
+            if (args.dataset_is_synthetic or model.linear.in_features != width
+                    or gap > STRUCTURAL_CPU_ATOL
+                    or not all(math.isfinite(x) for x in sim.round_losses)):
+                raise AssertionError(f"20c {dataset}: {final}, gap {gap}")
+            out[dataset] = {"final": final, "cpu_final": runs["cpu"][1], "card_vs_cpu": gap,
+                            "load_seconds": load_s, "rows": [data[0], data[1]]}
+    finally:
+        loaders._pillow = pillow
+    return out
+
+
 def ptxas_check(build, builds) -> dict:
     """Registers and spills of every kernel instantiation from ptxas's log;
     raises if an instantiation of a kernel of NO_SPILL spills."""
@@ -4215,7 +4550,7 @@ def main() -> int:
     single_launches, single = single_card_phase(ft, fa)
 
     phase(f"8: slice 3 (bench.py's ResNet-56 packed FedAvg round, "
-          f"{BENCH_CONFIG['train_args']['comm_round']} rounds)")
+          f"{BENCH_CONFIG['train_args']['comm_round']} round)")
     resnet_slice, (cifar, classes) = resnet_slice_phase(ft, fa)
 
     phase(f"10a: the algorithm zoo at the north-star width (ResNet-56, a cohort of "
@@ -4256,7 +4591,6 @@ def main() -> int:
     phase(f"13b: the sp zoo at the north-star width (ResNet-56, a cohort of "
         f"{SP_ZOO_COHORT}, {SP_ZOO_ROUNDS} round)")
     sp_zoo["resnet"] = sp_zoo_resnet_phase(ft, fa, cifar, classes)
-    del cifar
     phase("13c: SCAFFOLD and FedSGD on sp under the flash kernels (slice 1's "
         "TransformerLM, 2 rounds each)")
     sp_zoo_launches, sp_zoo["transformer"] = sp_zoo_transformer_phase(ft, fa)
@@ -4383,6 +4717,28 @@ def main() -> int:
     mpi_analysis["seconds"] = time.perf_counter() - t19
     log(f"  phase 19 in {mpi_analysis['seconds']:.1f} s")
 
+    t20 = time.perf_counter()
+    bn = {"tf32_flags": flags_found}
+    phase("20a: BatchNorm (model_norm bn) on slice 3's path: one round through the entry "
+          "points at full width, the card against the CPU, GroupNorm and BatchNorm in turns")
+    log(f"  card: {card}")
+    bn["round"] = bn_round_phase(ft, fa, cifar, classes)
+    del cifar
+    phase("20b: run_simulation on sp with model_norm bn (one round, with its eval)")
+    bn["sp"] = bn_sp_phase(ft, fa)
+    phase("20c: the mnist idx and uci csv parsers through data.load into an lr round "
+          "(card against CPU, no Pillow)")
+    fa.reset_launches()
+    bn["parsers"] = parser_phase(ft)
+    bn_launches = dict(fa.LAUNCHES)
+    if any(bn_launches.values()) or any(bn["round"]["launches"].values()):
+        raise AssertionError(f"flash kernels launched on phase 20's paths: {bn_launches}")
+    if _tf32_flags() != flags_found:
+        raise AssertionError(f"tf32 flags {_tf32_flags()} after phase 20, found {flags_found}")
+    bn["launches"] = bn_launches
+    bn["seconds"] = time.perf_counter() - t20
+    log(f"  phase 20 in {bn['seconds']:.1f} s")
+
     phase("9: results")
 
     kernels = kernels_line(rows + fold_rows,
@@ -4390,7 +4746,8 @@ def main() -> int:
                             sp_backend_launches, sp_zoo_launches, nlp_launches,
                             *nlp_xla_launches, graph_launches, graph_xla_launches,
                             graph_mesh_launches, vision_launches, structural_launches,
-                            inmesh_launches, mpi_launches))
+                            inmesh_launches, mpi_launches, bn["round"]["launches"],
+                            bn["sp"]["launches"], bn_launches))
     bench = bench_bf16_summary(rows)
     with open(os.path.join(OUT_DIR, "results.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -4409,7 +4766,7 @@ def main() -> int:
                    "sp_zoo_launches": sp_zoo_launches, "nlp": nlp,
                    "nlp_launches": nlp_launches, "nlp_xla_launches": nlp_xla_launches,
                    "graph": graph, "vision": vision, "structural": structural,
-                   "inmesh": inmesh, "mpi_analysis": mpi_analysis,
+                   "inmesh": inmesh, "mpi_analysis": mpi_analysis, "batchnorm": bn,
                    "phase_starts": starts, "seconds": time.perf_counter() - t_start}, f,
                   indent=1)
     log(f"== done in {time.perf_counter() - t_start:.1f} s")

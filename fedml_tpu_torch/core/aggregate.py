@@ -65,7 +65,8 @@ def tree_unstack(tree: Tree, n: int) -> List[Tree]:
 
 
 def weighted_mean(updates: Updates) -> Tree:
-    """Sample-weighted average: sum_i (n_i / N) * params_i, in fp32."""
+    """Sample-weighted average: sum_i (n_i / N) * params_i, in fp32, over
+    every entry (BatchNorm's running averages too, as in the JAX package)."""
     total = float(sum(n for n, _ in updates))
     if total <= 0:
         raise ValueError("total sample count must be positive")

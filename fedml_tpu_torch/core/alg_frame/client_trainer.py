@@ -3,8 +3,9 @@
 
 A stateless operator with ``get/set_model_params``, ``train`` and the
 before/after hooks; the after-hook applies local DP noise when it is
-enabled.  Model parameters are the port's ``{name: tensor}`` variables, and
-the concrete trainers (``ml/trainer/``) are thin shells over the engine's
+enabled.  Model parameters are the port's ``{name: tensor}`` variables
+(BatchNorm's running averages among them, flax's ``batch_stats``), and the
+concrete trainers (``ml/trainer/``) are thin shells over the engine's
 local-training function.
 """
 

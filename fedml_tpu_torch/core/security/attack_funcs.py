@@ -25,7 +25,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from ...models.convert import FlatLayout
+from ...models.convert import FlatLayout, is_batch_stat, module_state
 
 Tree = Dict[str, torch.Tensor]
 Updates = List[Tuple[float, Tree]]
@@ -223,14 +223,16 @@ def victim_grad_fn(module: torch.nn.Module, variables: Tree) -> GradFn:
     cross-entropy (fp32 logits) of ``module`` at ``variables`` in each
     parameter, in ``module.named_parameters()`` order, with its graph kept
     (``create_graph``), so a loss of the gradients differentiates in x and
-    y.  The module runs in eval mode through ``functional_call``; its own
-    parameters are not touched."""
+    y.  The module runs in eval mode through ``functional_call``, its
+    BatchNorm normalising with the running averages of ``variables`` (flax's
+    ``train=False``); its own parameters and buffers are not touched."""
     names = [n for n, _ in module.named_parameters()]
+    buffers = {n: variables[n] for n, _ in module_state(module) if is_batch_stat(n)}
 
     def grad_fn(x: torch.Tensor, y_soft: torch.Tensor) -> Sequence[torch.Tensor]:
         params = {n: variables[n].detach().requires_grad_() for n in names}
         with _eval_mode(module):
-            logits = torch.func.functional_call(module, params, (x,)).float()
+            logits = torch.func.functional_call(module, {**params, **buffers}, (x,)).float()
         loss = -(y_soft * F.log_softmax(logits, dim=-1)).sum(dim=-1).mean()
         return torch.autograd.grad(loss, [params[n] for n in names], create_graph=True)
 

@@ -218,9 +218,13 @@ def load_centralized(args) -> Dict[str, Any]:
     cache = getattr(args, "data_cache_dir", None)
     seed = int(getattr(args, "random_seed", 0))
     real = loaders.try_load_real(name, cache) if cache else None
+    # the hub sizes first layers from real files' samples, which need not
+    # have the spec's shape (models/hub.py _in_shape)
+    args.data_input_shape = None
     if real is not None:
         x_train, y_train, x_test, y_test = real
         args.dataset_is_synthetic = False
+        args.data_input_shape = tuple(x_train.shape[1:])
         logger.info("loaded real %s from %s", name, cache)
     else:
         scale = int(getattr(args, "synthetic_train_size", 0))

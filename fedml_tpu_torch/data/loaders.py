@@ -1,36 +1,87 @@
-"""Parsers for locally cached real dataset files (no downloads).
+"""Parsers for locally cached real dataset files (no downloads): a copy of
+``fedml_tpu/data/loaders.py``, numpy only.
 
-The part of ``fedml_tpu/data/loaders.py`` that the ported slices reach: the
-LEAF json layout the next-word-prediction datasets (and femnist and
-stackoverflow_lr) are published in, the CIFAR python pickles, the NUS-WIDE
-multi-label features, the FeTS 2021 NIfTI volumes (read without nibabel:
-the middle axial slice of each subject, resized), and the edge-case example
-pools of the edge-case backdoor.  A dataset the JAX package has no parser for has no real files:
-``try_load_real`` returns None and the caller generates synthetic data, as
-in the JAX package.  The other image, tabular and volume parsers are ported
-with the slices that train on those datasets (ROADMAP.md queue A, item 3:
-data, the rest); their datasets raise while a cache directory exists.
+Every format the JAX package parses: the MNIST idx-ubyte files (plain or
+gzipped), the LEAF json layout (femnist, the next-word-prediction datasets,
+stackoverflow_lr), the CIFAR python pickles, the ImageFolder layout (CINIC-10
+and the ImageNet family), tabular CSVs (UCI, lending_club), the Google
+Landmarks mapping CSVs with their images, the NUS-WIDE multi-label
+features, the FeTS 2021 NIfTI volumes (read without nibabel: the middle
+axial slice of each subject, resized) and the edge-case example pools of the
+edge-case backdoor.  ``try_load_real`` dispatches as the JAX package's does,
+its fallbacks included (mnist: the idx files, then LEAF json; cinic10: the
+image folder, then the CIFAR pickles); a dataset with no parser, or whose
+files are not there, gives None and the caller generates synthetic data.
+
+One divergence, kept on purpose: the image-folder and landmarks parsers
+need Pillow.  Where the JAX package returns None without it, and so trains
+on synthetic data silently, the port raises an ``ImportError`` naming
+Pillow when the cache holds image files.
 """
 
 from __future__ import annotations
 
+import gzip
 import json
 import os
 import pickle
+import struct
 from typing import Optional, Tuple
 
 import numpy as np
 
 Arrays = Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]
 
-LEAF_DATASETS = ("femnist", "shakespeare", "fed_shakespeare", "stackoverflow_nwp",
-                 "stackoverflow_lr")
-CIFAR_DATASETS = ("cifar10", "cifar100", "fed_cifar100")
-NUSWIDE_DATASETS = ("nuswide", "nus_wide")
-FETS_DATASETS = ("fets2021",)
-# the datasets whose JAX parser is not ported yet
-_UNPORTED_PARSERS = ("mnist", "fashionmnist", "cinic10", "uci", "lending_club", "imagenet",
-                     "ilsvrc2012", "tiny_imagenet", "gld23k", "gld160k", "landmarks")
+
+def _pillow(where: str):
+    """PIL's ``Image``, or an ``ImportError`` naming Pillow and the image
+    files at ``where`` that need it."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(
+            f"{where} holds image files, and reading them needs Pillow, which is not "
+            "installed (the JAX package trains on synthetic data here instead)") from e
+    return Image
+
+
+def _read_idx(path: str) -> np.ndarray:
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rb") as f:
+        magic = struct.unpack(">I", f.read(4))[0]
+        ndim = magic & 0xFF
+        dims = [struct.unpack(">I", f.read(4))[0] for _ in range(ndim)]
+        data = np.frombuffer(f.read(), dtype=np.uint8)
+    return data.reshape(dims)
+
+
+def _find(root: str, *names: str) -> Optional[str]:
+    for dirpath, _, files in os.walk(root):
+        for n in names:
+            if n in files:
+                return os.path.join(dirpath, n)
+            for f in files:
+                if f == n + ".gz":
+                    return os.path.join(dirpath, f)
+    return None
+
+
+def load_mnist_idx(root: str) -> Optional[Arrays]:
+    """The MNIST idx-ubyte release (plain or ``.gz``): NHWC float32 in [0, 1]
+    (28x28x1), int32 labels; None unless all four files are there."""
+    paths = [
+        _find(root, "train-images-idx3-ubyte"),
+        _find(root, "train-labels-idx1-ubyte"),
+        _find(root, "t10k-images-idx3-ubyte"),
+        _find(root, "t10k-labels-idx1-ubyte"),
+    ]
+    if any(p is None for p in paths):  # partial cache -> synthetic fallback
+        return None
+    xt = _read_idx(paths[0]).astype(np.float32) / 255.0
+    yt = _read_idx(paths[1]).astype(np.int32)
+    xe = _read_idx(paths[2]).astype(np.float32) / 255.0
+    ye = _read_idx(paths[3]).astype(np.int32)
+    return xt[..., None], yt, xe[..., None], ye
 
 
 def load_leaf_json(root: str) -> Optional[Arrays]:
@@ -95,31 +146,188 @@ def load_cifar_pickle(root: str) -> Optional[Arrays]:
     return xt, yt, xe, ye
 
 
+def load_image_folder(root: str, size: int = 32) -> Optional[Arrays]:
+    """ImageFolder layout (CINIC-10 release format): ``{train,test}/<class>/
+    *.png`` (test may be ``valid`` or ``val``); class = sorted subdirectory
+    index; RGB resized to ``size`` x ``size``, float32 in [0, 1].  Needs
+    Pillow once an image file is found."""
+
+    def _split(split_dir):
+        if not os.path.isdir(split_dir):
+            return None
+        classes = sorted(
+            d for d in os.listdir(split_dir)
+            if os.path.isdir(os.path.join(split_dir, d))
+        )
+        if not classes:
+            return None
+        xs, ys = [], []
+        for ci, cname in enumerate(classes):
+            cdir = os.path.join(split_dir, cname)
+            for f in sorted(os.listdir(cdir)):
+                if not f.lower().endswith((".png", ".jpg", ".jpeg")):
+                    continue
+                img = _pillow(cdir).open(os.path.join(cdir, f)).convert("RGB")
+                if img.size != (size, size):
+                    img = img.resize((size, size))
+                xs.append(np.asarray(img, np.float32) / 255.0)
+                ys.append(ci)
+        if not xs:
+            return None
+        return np.stack(xs), np.asarray(ys, np.int32)
+
+    train = _split(os.path.join(root, "train"))
+    test = (_split(os.path.join(root, "test")) or _split(os.path.join(root, "valid"))
+            or _split(os.path.join(root, "val")))
+    if train is None or test is None:
+        return None
+    return train[0], train[1], test[0], test[1]
+
+
+def load_csv_labeled(root: str) -> Optional[Arrays]:
+    """Tabular CSV parser (UCI / lending_club-style files): ``train.csv``
+    (+ optional ``test.csv``, else a seeded shuffle and an 80/20 split).  The
+    label column is the one named 'label'/'target'/'y' in the header, else
+    the LAST column; features must be numeric."""
+    train_path = _find(root, "train.csv")
+    if train_path is None:
+        return None
+
+    def _parse(path):
+        with open(path) as f:
+            header = f.readline().strip().split(",")
+        names = [h.strip().lower() for h in header]
+        has_header = not all(_is_float(h) for h in names)
+        data = np.genfromtxt(path, delimiter=",", skip_header=1 if has_header else 0,
+                             dtype=np.float64)
+        if data.ndim == 1:
+            data = data[None, :]
+        label_col = len(names) - 1
+        if has_header:
+            for cand in ("label", "target", "y"):
+                if cand in names:
+                    label_col = names.index(cand)
+                    break
+        y = data[:, label_col].astype(np.int32)
+        x = np.delete(data, label_col, axis=1).astype(np.float32)
+        return x, y
+
+    xt, yt = _parse(train_path)
+    test_path = _find(root, "test.csv")
+    if test_path is not None:
+        xe, ye = _parse(test_path)
+    else:
+        # seeded shuffle before the 80/20 split: exported CSVs are often
+        # label-sorted, and an unshuffled tail would be single-class
+        perm = np.random.RandomState(0).permutation(len(yt))
+        xt, yt = xt[perm], yt[perm]
+        cut = max(int(len(yt) * 0.8), 1)
+        xe, ye = xt[cut:], yt[cut:]
+        xt, yt = xt[:cut], yt[:cut]
+        if len(ye) == 0:
+            xe, ye = xt, yt  # degenerate tiny file: eval on train
+    return xt, yt, xe, ye
+
+
+def _is_float(s: str) -> bool:
+    try:
+        float(s)
+        return True
+    except ValueError:
+        return False
+
+
 def try_load_real(name: str, cache_dir: str) -> Optional[Arrays]:
-    """Real files for ``name`` under ``cache_dir`` (or its ``name``
-    subdirectory), else None and the caller falls back to synthetic data."""
+    """Real files for ``name`` under ``cache_dir``'s ``name`` subdirectory,
+    else under ``cache_dir`` itself, by the JAX package's dispatch; None
+    (synthetic data) when neither holds them."""
     if not cache_dir or not os.path.isdir(cache_dir):
         return None
-    if name in LEAF_DATASETS:
-        parse = load_leaf_json
-    elif name in CIFAR_DATASETS:
-        parse = load_cifar_pickle
-    elif name in NUSWIDE_DATASETS:
-        parse = load_nuswide
-    elif name in FETS_DATASETS:
-        parse = load_fets_nifti
-    elif name in _UNPORTED_PARSERS:
-        raise NotImplementedError(
-            f"no parser for cached {name!r} files in the port yet "
-            "(ROADMAP.md queue A, item 3: data, the rest)")
-    else:
-        return None  # no parser in the JAX package either
     for root in (os.path.join(cache_dir, name), cache_dir):
-        if os.path.isdir(root):
-            out = parse(root)
-            if out is not None:
-                return out
+        if not os.path.isdir(root):
+            continue
+        if name in ("mnist", "fashionmnist"):
+            out = load_mnist_idx(root) or load_leaf_json(root)
+        elif name == "femnist":
+            out = load_leaf_json(root)
+        elif name == "cinic10":
+            out = load_image_folder(root) or load_cifar_pickle(root)
+        elif name.startswith("cifar") or name == "fed_cifar100":
+            out = load_cifar_pickle(root)
+        elif name in ("shakespeare", "fed_shakespeare", "stackoverflow_nwp", "stackoverflow_lr"):
+            out = load_leaf_json(root)
+        elif name in ("uci", "lending_club"):
+            out = load_csv_labeled(root)
+        elif name in ("imagenet", "ilsvrc2012", "tiny_imagenet"):
+            out = load_imagenet_folder(root)
+        elif name in ("gld23k", "gld160k", "landmarks"):
+            out = load_landmarks_csv(root)
+        elif name in ("nuswide", "nus_wide"):
+            out = load_nuswide(root)
+        elif name == "fets2021":
+            out = load_fets_nifti(root)
+        else:
+            out = None
+        if out is not None:
+            return out
     return None
+
+
+def load_imagenet_folder(root: str, size: int = 32) -> Optional[Arrays]:
+    """ImageNet/ILSVRC2012 directory layout: ``train/<wnid>/*.JPEG`` +
+    ``val/<wnid>/*.JPEG``, the ImageFolder traversal of CINIC-10 (class
+    index = sorted wnid order), resized to ``size`` (downsampled-ImageNet
+    style)."""
+    return load_image_folder(root, size=size)
+
+
+def load_landmarks_csv(root: str, size: int = 32) -> Optional[Arrays]:
+    """Google Landmarks federated split: mapping CSVs with ``user_id,
+    image_id,class`` columns and an image directory.  Train CSV is the first
+    of ``*train*.csv`` / ``data_user.csv``; test is ``*test*.csv``; images are
+    searched as ``<image_id>.jpg`` under ``images/``, ``train/``, or the root.
+    Needs Pillow once an image file is found."""
+    import csv as _csv
+    import glob as _glob
+
+    def _find_csv(*pats):
+        for p in pats:
+            hits = sorted(_glob.glob(os.path.join(root, p)))
+            if hits:
+                return hits[0]
+        return None
+
+    train_csv = _find_csv("*train*.csv", "data_user.csv")
+    test_csv = _find_csv("*test*.csv")
+    if train_csv is None or test_csv is None:
+        return None
+    img_dirs = [os.path.join(root, d) for d in ("images", "train", "")]
+
+    def _load_split(path):
+        xs, ys = [], []
+        with open(path, newline="") as f:
+            rows = list(_csv.DictReader(f))
+        if not rows or not {"image_id", "class"} <= set(rows[0]):
+            return None
+        for row in rows:
+            fname = row["image_id"] + ".jpg"
+            for d in img_dirs:
+                p = os.path.join(d, fname)
+                if os.path.isfile(p):
+                    img = _pillow(d).open(p).convert("RGB")
+                    if img.size != (size, size):
+                        img = img.resize((size, size))
+                    xs.append(np.asarray(img, np.float32) / 255.0)
+                    ys.append(int(row["class"]))
+                    break
+        if not xs:
+            return None
+        return np.stack(xs), np.asarray(ys, np.int32)
+
+    train, test = _load_split(train_csv), _load_split(test_csv)
+    if train is None or test is None:
+        return None
+    return train[0], train[1], test[0], test[1]
 
 
 def load_nuswide(root: str, top_k: int = 5) -> Optional[Arrays]:

@@ -10,10 +10,11 @@ round lays the round out as ONE stream of batches instead:
 * the stream is walked step by step: an ordinary optimizer step each (with
   the algorithm's grad hook), and at each client BOUNDARY the client's
   parameters are added into the fp32 weighted sum, its contribution into
-  ``ext``, its output into its slot, and the parameters and optimizer are
-  reset to the round start.  On the trust path the boundary first noises the
-  client's parameters (local DP) and, with an attack or a defense on, writes
-  them into the client's row of the round's stack instead of the sum.
+  ``ext``, its output into its slot, and the parameters, the BatchNorm
+  buffers and the optimizer are reset to the round start.  On the trust
+  path the boundary first noises the client's parameters (local DP) and,
+  with an attack or a defense on, writes them into the client's row of the
+  round's stack instead of the sum.
 
 ``PackedSchedule``, ``pack_round`` and ``s_max_for`` are verbatim copies
 (numpy): the shuffles come from ``np.random.default_rng((seed, round, cid,
@@ -38,7 +39,8 @@ from torch import nn
 from ...simulation.xla.algorithms import out_buffer, split_slots, store_out, tree_add_
 from ...models.convert import FlatLayout
 from .train import (LocalTrainResult, build_loss_fn, load_variables, make_optimizer,
-                    param_list, post_train_generator, resolve_grad_hook, seed_dropout)
+                    module_state, param_list, post_train_generator, resolve_grad_hook,
+                    seed_dropout)
 
 Variables = Dict[str, torch.Tensor]
 
@@ -142,6 +144,14 @@ def build_packed_device_fn(
     ``outs`` each slot's ``algo.client_out`` (``{name: [slots, ...]}``, or
     None when the strategy has no output).
 
+    A client's variables are the module's parameters and buffers (the
+    BatchNorm running averages, which each training forward moves): all of
+    them enter the sums and the captured rows, and all are reset to the
+    round start at its boundary.  A step whose batch is all padding takes no
+    step and leaves them as they were (the JAX engine's where-masking); the
+    stream ``pack_round`` lays out has none, each client's last batch holding
+    its remainder.
+
     Per step, the grad hook (``algo.grad_hook()``, or FedProx's from
     ``args.proximal_mu``) rewrites the gradients before the optimizer step;
     its extra (``algo.engine_extra``) is taken once per client, at its first
@@ -174,6 +184,7 @@ def build_packed_device_fn(
     loss_fn = build_loss_fn(module, loss)
     grad_hook = resolve_grad_hook(args, algo.grad_hook())
     names = [name for name, _ in module.named_parameters()]
+    vnames = [name for name, _ in module_state(module)]  # parameters, then buffers
 
     def device_fn(variables: Variables, server_state, x_all: torch.Tensor,
                   y_all: torch.Tensor, sched: PackedSchedule, cex, slots: int,
@@ -191,15 +202,16 @@ def build_packed_device_fn(
         module.train()
         seed_dropout(module, seed_round, dev)
         params = list(module.parameters())
-        params0 = param_list(variables, names)
+        state = [t for _, t in module_state(module)]  # params, then buffers
+        params0, state0 = param_list(variables, names), param_list(variables, vnames)
         opt = make_opt(params)
         acc = {k: torch.zeros_like(v, dtype=torch.float32) for k, v in variables.items()}
-        acc_list = param_list(acc, names)
+        acc_list = param_list(acc, vnames)
         if capture_updates:
             layout = FlatLayout.of(variables)
             update = torch.zeros((slots, layout.dim), dtype=torch.float32, device=dev)
-            views = layout.views(update)  # {name: [slots, ...]}, each row its parameter
-            update_rows = [[views[k][s] for k in names] for s in range(slots)]
+            views = layout.views(update)  # {name: [slots, ...]}, each row its entry
+            update_rows = [[views[k][s] for k in vnames] for s in range(slots)]
             taus = np.zeros((slots,), np.float32)
         ext = algo.zero_contrib(variables)
         outs = out_buffer(algo, variables, slots)
@@ -214,42 +226,44 @@ def build_packed_device_fn(
                 if grad_hook is not None:
                     with torch.no_grad():
                         extra = param_list(algo.engine_extra(cex_i, server_state), names)
-            if pregather:
-                bx, by = bx_stream[step], by_stream[step]
-            else:
-                bx, by = x_all.index_select(0, idx[step]), y_all.index_select(0, idx[step])
-            step_loss = loss_fn(bx, by, mask[step])
-            opt.zero_grad(set_to_none=True)
-            step_loss.backward()
-            if grad_hook is not None:
-                with torch.no_grad():
-                    grad_hook([p.grad for p in params], params, params0, extra)
-            opt.step()
-            lsum.add_(step_loss.detach(), alpha=float(valid[step]))
-            cnt += float(valid[step])
-            c_cnt += float(valid[step])
-            c_steps += float(valid[step] > 0)
+            if valid[step] > 0:
+                if pregather:
+                    bx, by = bx_stream[step], by_stream[step]
+                else:
+                    bx = x_all.index_select(0, idx[step])
+                    by = y_all.index_select(0, idx[step])
+                step_loss = loss_fn(bx, by, mask[step])
+                opt.zero_grad(set_to_none=True)
+                step_loss.backward()
+                if grad_hook is not None:
+                    with torch.no_grad():
+                        grad_hook([p.grad for p in params], params, params0, extra)
+                opt.step()
+                lsum.add_(step_loss.detach(), alpha=float(valid[step]))
+                cnt += float(valid[step])
+                c_cnt += float(valid[step])
+                c_steps += 1.0
             if sched.boundary[step] > 0:
-                # the client's last step: add w * its params and its
-                # contribution, store its output, then reset the params and
-                # the optimizer to the round start
+                # the client's last step: add w * its variables and its
+                # contribution, store its output, then reset the variables
+                # and the optimizer to the round start
                 w = float(sched.weight[step])
                 real = float(w > 0)
-                final = dict(zip(names, params))
+                final = dict(zip(vnames, state))
                 with torch.no_grad():
                     if post_train is not None:
                         final = post_train(final, post_train_generator(
                             (*seed_round, int(ids[s])), dev))
                     result = LocalTrainResult(final, None, c_cnt, c_steps)
                     if capture_updates:
-                        torch._foreach_copy_(update_rows[s], [final[k] for k in names])
+                        torch._foreach_copy_(update_rows[s], [final[k] for k in vnames])
                         taus[s] = c_steps
-                    torch._foreach_add_(acc_list, [final[k].float() for k in names], alpha=w)
+                    torch._foreach_add_(acc_list, [final[k].float() for k in vnames], alpha=w)
                     contrib, out = algo.client_result(variables, result, w, real, cex_i,
                                                       server_state)
                     ext = tree_add_(ext, contrib)
                     store_out(out_rows[s], out)
-                    torch._foreach_copy_(params, params0)
+                    torch._foreach_copy_(state, state0)
                 wsum += w
                 opt = make_opt(params)
                 c_steps = c_cnt = 0.0

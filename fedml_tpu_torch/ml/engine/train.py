@@ -1,16 +1,21 @@
 """Local-training engine of the port: counterpart of
 ``fedml_tpu/ml/engine/train.py``.
 
-Model state is a *variables* dict, parameter name -> tensor, loaded into one
-``nn.Module`` that every client of a round reuses.  Local training runs
-eagerly: per epoch a shuffle, per step a masked batch, loss, backward and an
-optimizer step.  Semantics follow the JAX engine:
+Model state is a *variables* dict, parameter or buffer name -> tensor,
+loaded into one ``nn.Module`` that every client of a round reuses.  The
+buffers are BatchNorm's running averages (flax's ``batch_stats``): a
+training forward moves them, the optimizer never touches them, and they
+leave a client with its parameters.  Local training runs eagerly: per epoch
+a shuffle, per step a masked batch, loss, backward and an optimizer step.
+Semantics follow the JAX engine:
 
 * data are valid-first and padded to ``padded_n`` rows; rows at or past
   ``n_valid`` are masked out of the loss;
-* a batch that is all padding takes no optimizer step at all, so the
-  parameters AND the optimizer state are left as they were (the JAX engine's
-  ``jnp.where(any_valid, ...)``);
+* a batch that is all padding takes no step at all, so the parameters, the
+  optimizer state AND the BatchNorm buffers are left as they were (the JAX
+  engine's ``jnp.where(any_valid, ...)``); any other batch's forward sees
+  every row, padding included, so its BatchNorm statistics are the JAX
+  engine's, which applies the module to the whole padded batch;
 * the loss is a masked mean over tokens, and the run's loss the mean of the
   step losses weighted by each batch's valid examples;
 * a grad hook (FedProx, SCAFFOLD, FedDyn: ``resolve_grad_hook``) rewrites
@@ -36,6 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...models.convert import module_state
 from ...utils.rng import seeded_generator
 
 Variables = Dict[str, torch.Tensor]
@@ -220,14 +226,15 @@ def build_loss_fn(module: nn.Module, loss: str = "ce") -> Callable:
 
 
 def load_variables(module: nn.Module, variables: Variables) -> None:
-    """Copy a variables dict into the module's parameters, in place."""
+    """Copy a variables dict into the module's parameters and buffers, in
+    place."""
     with torch.no_grad():
-        for name, p in module.named_parameters():
-            p.copy_(variables[name])
+        for name, t in module_state(module):
+            t.copy_(variables[name])
 
 
 def get_variables(module: nn.Module) -> Variables:
-    return {name: p.detach().clone() for name, p in module.named_parameters()}
+    return {name: t.detach().clone() for name, t in module_state(module)}
 
 
 def seed_dropout(module: nn.Module, seed: Sequence[int], device) -> None:
@@ -319,8 +326,10 @@ def build_local_train(
 
 
 def make_eval_fn(module: nn.Module) -> Callable:
-    """Masked eval of the module's current parameters: ``(x, y, mask) ->
-    (loss_sum, correct, count)`` as 0-d tensors on the device."""
+    """Masked eval of the module's current parameters, in eval mode (BatchNorm
+    normalises with its running averages, as flax's at ``train=False``):
+    ``(x, y, mask) -> (loss_sum, correct, count)`` as 0-d tensors on the
+    device."""
 
     @torch.no_grad()
     def evaluate(x, y, mask):

@@ -50,6 +50,13 @@ transposed weight.  ``FlatLayout`` lays a variables dict out as one vector
 in the order of ``jax.flatten_util.ravel_pytree`` over the flax tree (keys
 sorted at every level), so a row of the port's client matrix matches the
 JAX package's column for column.
+
+BatchNorm's running averages (``models/resnet.py``'s ``BatchNorm``) are
+buffers ``a.b.mean`` and ``a.b.var``, flax's ``batch_stats/a/b/mean`` and
+``.../var``; they travel in the variables dict beside the parameters.
+``ravel_pytree`` sorts ``batch_stats`` before ``params``, so every buffer's
+columns come before the first parameter's, as in the JAX package, whose
+defenses, security tail and DP ravel the whole variables.
 """
 
 from __future__ import annotations
@@ -73,6 +80,28 @@ def _kernel_to_weight(kernel: np.ndarray, in_dims: int) -> np.ndarray:
 _TRANSPOSED = ("ConvTranspose", "deconv")
 # the encoders' dense heads (models/nlp.py), each with a bias
 ENCODER_HEADS = ("cls_head", "tag_head", "span_head")
+# flax BatchNorm's batch_stats leaves: the port's buffer names end in them
+BATCH_STATS = ("mean", "var")
+
+
+def is_batch_stat(name: str) -> bool:
+    """Whether a variables entry is a BatchNorm running average (flax's
+    ``batch_stats`` collection) rather than a parameter: the one rule, which
+    ``module_state`` holds every module to."""
+    return name.rsplit(".", 1)[-1] in BATCH_STATS
+
+
+def module_state(module: nn.Module) -> List[Tuple[str, torch.Tensor]]:
+    """``(name, tensor)`` of the module's parameters, then its buffers (the
+    BatchNorm running averages): the entries of its variables dict.  Raises
+    if a buffer's name does not read as a batch stat, or a parameter's does,
+    so the name rule and the module's own split cannot drift apart."""
+    params, buffers = list(module.named_parameters()), list(module.named_buffers())
+    stray = ([n for n, _ in params if is_batch_stat(n)]
+             + [n for n, _ in buffers if not is_batch_stat(n)])
+    if stray:
+        raise ValueError(f"entries that is_batch_stat misreads: {stray}")
+    return params + buffers
 
 
 def transformer_state_from_flax(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
@@ -104,9 +133,10 @@ def transformer_state_from_flax(variables: Mapping[str, Any]) -> Dict[str, np.nd
 
 
 def params_state_from_flax(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
-    """{torch parameter name: numpy array} for a flax tree whose module names
-    are the torch ones (every family but the TransformerLM's): each leaf by
-    ``flax_leaf``'s rule."""
+    """{torch parameter or buffer name: numpy array} for a flax tree whose
+    module names are the torch ones (every family but the TransformerLM's):
+    each ``params`` leaf by ``flax_leaf``'s rule, each ``batch_stats`` leaf
+    ``a/b/mean`` to the buffer ``a.b.mean``."""
     params = variables.get("params", variables)
     dense_embed = "gc0" in params  # a GCN
     out: Dict[str, np.ndarray] = {}
@@ -123,7 +153,18 @@ def params_state_from_flax(variables: Mapping[str, Any]) -> Dict[str, np.ndarray
             if fpath != path + (key,):
                 raise KeyError(f"flax leaf {'/'.join(path + (key,))} has no parameter")
             out[name] = arr.transpose(np.argsort(perm)) if arr.ndim else arr
+
+    def walk_stats(tree, path):
+        for key, leaf in tree.items():
+            if isinstance(leaf, Mapping):
+                walk_stats(leaf, path + (key,))
+            elif key in BATCH_STATS:
+                out[".".join(path + (key,))] = np.asarray(leaf)
+            else:
+                raise KeyError(f"batch_stats leaf {'/'.join(path + (key,))} has no buffer")
     walk(params, ())
+    if params is not variables:
+        walk_stats(variables.get("batch_stats", {}), ())
     return out
 
 
@@ -133,16 +174,17 @@ def state_from_flax(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
     params = variables.get("params", variables)
     if "final_norm" in params:
         return transformer_state_from_flax(params)
-    return params_state_from_flax(params)
+    return params_state_from_flax(variables)
 
 
 def variables_from_flax(variables: Mapping[str, Any], module: nn.Module,
                         device: torch.device) -> Dict[str, torch.Tensor]:
-    """The port's variables dict (parameter name -> tensor on ``device``) for
-    ``module`` from a flax tree; raises on any missing or misshapen leaf."""
+    """The port's variables dict (parameter or buffer name -> tensor on
+    ``device``) for ``module`` from a flax tree (``batch_stats`` into the
+    BatchNorm buffers); raises on any missing or misshapen leaf."""
     state = state_from_flax(variables)
     out = {}
-    for name, p in module.named_parameters():
+    for name, p in module_state(module):
         if name not in state:
             raise KeyError(f"flax tree has no leaf for {name}")
         arr = np.array(state.pop(name), copy=True, order="C")
@@ -159,13 +201,16 @@ def flax_leaf(name: str, ndim: int,
     """(flax path under ``params``, permutation of the torch parameter's
     axes into the flax leaf's row-major order) of the parameter ``name``;
     ``dense_embed`` reads an ``embed`` layer as dense (the GCN link
-    predictor's) rather than as an embedding."""
+    predictor's) rather than as an embedding.  A BatchNorm buffer's path is
+    its path in the variables, ``("batch_stats", ..., "mean" | "var")``."""
     if ndim == 0:  # a bare 0-d parameter (the link predictor's score_bias)
         return (name,), ()
     parts = name.split(".")
     if parts[0] == "layers":
         parts = [f"layer{parts[1]}"] + parts[2:]
     module, leaf = tuple(parts[:-1]), parts[-1]
+    if is_batch_stat(name):
+        return ("batch_stats",) + module + (leaf,), tuple(range(ndim))
     if leaf == "bias":
         return module + ("bias",), tuple(range(ndim))
     if leaf != "weight":
@@ -186,8 +231,10 @@ class FlatLayout:
     """A variables dict as one fp32 vector in ``ravel_pytree`` order.
 
     ``entries`` lists, in that order, each parameter's name, flax path, the
-    permutation of its axes, its flax-ordered shape and its column range.
-    Views and copies keep each parameter's torch shape."""
+    permutation of its axes, its flax-ordered shape and its column range:
+    the BatchNorm buffers first (``batch_stats`` sorts before ``params``),
+    then the parameters.  Views and copies keep each parameter's torch
+    shape."""
 
     def __init__(self, shapes: Sequence[Tuple[str, Tuple[int, ...]]]):
         rows = []
@@ -195,7 +242,7 @@ class FlatLayout:
         for name, shape in shapes:
             path, perm = flax_leaf(name, len(shape), dense_embed)
             rows.append((path, name, perm, tuple(shape[p] for p in perm)))
-        rows.sort(key=lambda r: r[0])
+        rows.sort(key=lambda r: (r[0][0] != "batch_stats", r[0]))
         self.entries: List[Tuple[str, Tuple[str, ...], Tuple[int, ...], Tuple[int, ...],
                                  int, int]] = []
         off = 0

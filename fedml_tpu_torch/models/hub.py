@@ -15,7 +15,9 @@ generator at the default latent width, as the JAX hub builds it; ``darts``;
 ``gkt_client``, ``gkt_server``), and the IoT autoencoder (``autoencoder``,
 ``ae``, ``anomaly_ae``).  flax infers a layer's input width at init; here the
 dataset's spec gives it (its sample shape, its vocabulary; the GKT server's
-input is the client net's default width).
+input is the client net's default width), or, once ``data.load`` has read
+real files, their sample shape (``args.data_input_shape``), which a parser
+need not share with the spec (a CSV's feature count).
 """
 
 from __future__ import annotations
@@ -33,10 +35,15 @@ logger = logging.getLogger(__name__)
 _RESNETS = {"resnet20", "resnet56", "resnet18", "resnet18_gn"}
 
 
-def _in_shape(dataset: str) -> tuple:
-    """The shape of one sample of the dataset (flax infers it at init)."""
+def _in_shape(args: Any) -> tuple:
+    """The shape of one sample of the run's data (flax infers it at init):
+    the real files' when ``data.load`` read some, else the dataset's spec."""
     from ..data.data_loader import DATASET_SPECS
 
+    real = getattr(args, "data_input_shape", None)
+    if real is not None:
+        return tuple(real)
+    dataset = str(getattr(args, "dataset", "")).lower()
     return tuple(DATASET_SPECS.get(dataset, {}).get("shape", (32, 32, 3)))
 
 
@@ -48,15 +55,15 @@ def _spec_int(dataset: str, key: str, default: int) -> int:
     return int(DATASET_SPECS.get(dataset, {}).get(key, default))
 
 
-def _in_channels(dataset: str) -> int:
+def _in_channels(args: Any) -> int:
     """Input channels of an image dataset (flax infers them at init)."""
-    shape = _in_shape(dataset)
+    shape = _in_shape(args)
     return int(shape[-1]) if len(shape) == 3 else 1
 
 
-def _image(dataset: str) -> dict:
+def _image(args: Any) -> dict:
     """An image model's input: its spatial size and channels."""
-    return dict(in_hw=_in_shape(dataset)[:2], in_channels=_in_channels(dataset))
+    return dict(in_hw=_in_shape(args)[:2], in_channels=_in_channels(args))
 
 
 def create(args: Any, output_dim: int) -> nn.Module:
@@ -71,7 +78,7 @@ def create(args: Any, output_dim: int) -> nn.Module:
     if name in ("lr", "logistic_regression"):
         from .linear import LogisticRegression
 
-        return LogisticRegression(math.prod(_in_shape(dataset)), output_dim, device="meta")
+        return LogisticRegression(math.prod(_in_shape(args)), output_dim, device="meta")
     if name in ("transformer", "fedtransformer"):
         from .transformer import TransformerConfig, TransformerLM
 
@@ -127,43 +134,43 @@ def create(args: Any, output_dim: int) -> nn.Module:
         from .cnn import CNN_DropOut
 
         return CNN_DropOut(only_digits=(output_dim <= 10), num_classes=output_dim,
-                           device="meta", **_image(dataset))
+                           device="meta", **_image(args))
     if name in ("cnn_web",):
         from .cnn import CNN_WEB
 
-        return CNN_WEB(output_dim=output_dim, device="meta", **_image(dataset))
+        return CNN_WEB(output_dim=output_dim, device="meta", **_image(args))
     if name in ("vgg11", "vgg16"):
         from .vgg import VGG
 
         return VGG(num_classes=output_dim, depth=int(name[3:]),
-                   in_channels=_in_channels(dataset), device="meta")
+                   in_channels=_in_channels(args), device="meta")
     if name in ("mobilenet", "mobilenet_v1"):
         from .mobilenet import MobileNetV1
 
-        return MobileNetV1(num_classes=output_dim, in_channels=_in_channels(dataset),
+        return MobileNetV1(num_classes=output_dim, in_channels=_in_channels(args),
                            device="meta")
     if name in ("mobilenet_v3",):
         from .mobilenet import MobileNetV3Small
 
-        return MobileNetV3Small(num_classes=output_dim, in_channels=_in_channels(dataset),
+        return MobileNetV3Small(num_classes=output_dim, in_channels=_in_channels(args),
                                 device="meta")
     if name in ("efficientnet", "efficientnet_b0"):
         from .efficientnet import EfficientNet
 
-        return EfficientNet(num_classes=output_dim, in_channels=_in_channels(dataset),
+        return EfficientNet(num_classes=output_dim, in_channels=_in_channels(args),
                             device="meta")
     if name in ("unet", "deeplabv3", "deeplabv3_plus"):
         from .unet import UNet
 
-        return UNet(num_classes=output_dim, in_channels=_in_channels(dataset), device="meta")
+        return UNet(num_classes=output_dim, in_channels=_in_channels(args), device="meta")
     if name in ("tiny_detector", "yolo_lite"):
         from .detection import TinyDetector
 
-        return TinyDetector(num_classes=output_dim, device="meta", **_image(dataset))
+        return TinyDetector(num_classes=output_dim, device="meta", **_image(args))
     if name in ("mlp",):
         from .linear import MLP
 
-        return MLP(math.prod(_in_shape(dataset)), output_dim, device="meta")
+        return MLP(math.prod(_in_shape(args)), output_dim, device="meta")
     if name in ("rnn", "rnn_fedavg", "rnn_originalfedavg", "lstm", "lstm_tagpred"):
         from .rnn import RNN_OriginalFedAvg
 
@@ -183,7 +190,7 @@ def create(args: Any, output_dim: int) -> nn.Module:
     if name in ("gkt_client", "resnet8_gkt"):
         from .gkt import GKTClientNet
 
-        return GKTClientNet(num_classes=output_dim, in_channels=_in_channels(dataset),
+        return GKTClientNet(num_classes=output_dim, in_channels=_in_channels(args),
                             device="meta")
     if name in ("gkt_server", "resnet55_gkt"):
         from .gkt import GKTServerNet
@@ -192,12 +199,12 @@ def create(args: Any, output_dim: int) -> nn.Module:
     if name in ("darts", "darts_network"):
         from .darts import DARTSNetwork
 
-        return DARTSNetwork(num_classes=output_dim, in_channels=_in_channels(dataset),
+        return DARTSNetwork(num_classes=output_dim, in_channels=_in_channels(args),
                             device="meta")
     if name in _RESNETS:
         from . import resnet
 
-        kw = dict(dtype=_dtype(args), in_channels=_in_channels(dataset), device="meta")
+        kw = dict(dtype=_dtype(args), in_channels=_in_channels(args), device="meta")
         if name in ("resnet18", "resnet18_gn"):
             return resnet.ResNet18(num_classes=output_dim, norm="gn", **kw)
         blocks = {"resnet20": 3, "resnet56": 9}[name]

@@ -2,7 +2,9 @@
 ``fedml_tpu/models/mobilenet.py`` (``MobileNetV1``, ``MobileNetV3Small``).
 
 GroupNorm of 8-channel groups (flax ``group_size=8``, epsilon 1e-6) after
-every convolution; depthwise convolutions are grouped convolutions, one
+every convolution, or with ``norm="bn"`` flax's BatchNorm in fp32
+(``models/resnet.py``'s ``BatchNorm``; the hub passes no ``norm``, as the
+JAX hub does); depthwise convolutions are grouped convolutions, one
 group a channel (flax ``feature_group_count``).  Every SAME convolution
 pads as XLA does: a stride-2 window over an even side puts the odd pad at
 the end ((0, 1) at k 3, (1, 2) at k 5), where ``nn.Conv2d(padding=k//2)``
@@ -11,9 +13,6 @@ Module names are the flax ones (``block{i}``, ``dw``, ``pw``, ``Conv_0``,
 ``_SEBlock_0``, ...), so ``models/convert.py`` carries the leaves by name.
 ``hard_sigmoid`` and ``hard_swish`` are jax's: relu6(x + 3) / 6 and x times
 it.  NHWC input, NCHW inside.
-
-BatchNorm (``norm="bn"``) is not ported (ROADMAP.md queue A, item 4: model
-zoo and trainers, with BatchNorm).
 """
 
 from __future__ import annotations
@@ -23,22 +22,22 @@ import torch.nn.functional as F
 from torch import nn
 
 from .cnn import to_nchw
-from .resnet import GroupNorm, SameConv, _check_norm, flax_init
+from .resnet import SameConv, _check_norm, flax_init, norm_layer
 
 GROUP_SIZE = 8
 
 
-def _gn(channels: int, device) -> GroupNorm:
-    return GroupNorm(channels, device=device, num_groups=channels // GROUP_SIZE)
+def _norm(norm: str, channels: int, device) -> nn.Module:
+    return norm_layer(norm, channels, device=device, group_size=GROUP_SIZE)
 
 
 class _DWSeparable(nn.Module):
-    def __init__(self, cin: int, filters: int, stride: int, device=None):
+    def __init__(self, cin: int, filters: int, stride: int, norm: str = "gn", device=None):
         super().__init__()
         self.dw = SameConv(cin, cin, 3, stride, device=device, groups=cin)
-        self.dw_norm = _gn(cin, device)
+        self.dw_norm = _norm(norm, cin, device)
         self.pw = SameConv(cin, filters, 1, device=device)
-        self.pw_norm = _gn(filters, device)
+        self.pw_norm = _norm(norm, filters, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.relu(self.dw_norm(self.dw(x)))
@@ -53,12 +52,12 @@ class MobileNetV1(nn.Module):
         w = lambda c: max(8, int(c * width))  # noqa: E731
         self.conv_init = SameConv(in_channels, w(32), 3, 1 if small_images else 2,
                                   device=device)
-        self.norm_init = _gn(w(32), device)
+        self.norm_init = _norm(norm, w(32), device)
         cfg = [(64, 1), (128, 2), (128, 1), (256, 2), (256, 1), (512, 2),
                (512, 1), (512, 1), (512, 1), (512, 1), (512, 1), (1024, 2), (1024, 1)]
         cin = w(32)
         for i, (c, s) in enumerate(cfg):
-            self.add_module(f"block{i}", _DWSeparable(cin, w(c), s, device))
+            self.add_module(f"block{i}", _DWSeparable(cin, w(c), s, norm, device))
             cin = w(c)
         self.n_blocks = len(cfg)
         self.classifier = nn.Linear(cin, num_classes, device=device)
@@ -87,18 +86,18 @@ class _SEBlock(nn.Module):
 
 class _MBV3Block(nn.Module):
     def __init__(self, cin: int, expand: int, filters: int, kernel: int, stride: int,
-                 use_se: bool, act: str, device=None):
+                 use_se: bool, act: str, norm: str = "gn", device=None):
         super().__init__()
         self.act = F.relu if act == "relu" else F.hardswish
         self.Conv_0 = SameConv(cin, expand, 1, device=device)
-        self.expand_norm = _gn(expand, device)
+        self.expand_norm = _norm(norm, expand, device)
         self.Conv_1 = SameConv(expand, expand, kernel, stride, device=device, groups=expand)
-        self.dw_norm = _gn(expand, device)
+        self.dw_norm = _norm(norm, expand, device)
         self.use_se = use_se
         if use_se:
             self._SEBlock_0 = _SEBlock(expand, device=device)
         self.Conv_2 = SameConv(expand, filters, 1, device=device)
-        self.project_norm = _gn(filters, device)
+        self.project_norm = _norm(norm, filters, device)
         self.residual = stride == 1 and cin == filters
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -116,7 +115,7 @@ class MobileNetV3Small(nn.Module):
         super().__init__()
         _check_norm(norm)
         self.Conv_0 = SameConv(in_channels, 16, 3, 1 if small_images else 2, device=device)
-        self.norm_init = _gn(16, device)
+        self.norm_init = _norm(norm, 16, device)
         cfg = [  # expand, filters, kernel, stride, se, act
             (16, 16, 3, 2, True, "relu"),
             (72, 24, 3, 2, False, "relu"),
@@ -132,11 +131,11 @@ class MobileNetV3Small(nn.Module):
         ]
         cin = 16
         for i, (e, f, k, s, se, act) in enumerate(cfg):
-            self.add_module(f"block{i}", _MBV3Block(cin, e, f, k, s, se, act, device))
+            self.add_module(f"block{i}", _MBV3Block(cin, e, f, k, s, se, act, norm, device))
             cin = f
         self.n_blocks = len(cfg)
         self.Conv_1 = SameConv(cin, 576, 1, device=device)
-        self.norm_head = _gn(576, device)
+        self.norm_head = _norm(norm, 576, device)
         self.Dense_0 = nn.Linear(576, 1024, device=device)
         self.classifier = nn.Linear(1024, num_classes, device=device)
 

@@ -1,7 +1,8 @@
 """CIFAR-style ResNets of the port: counterpart of ``fedml_tpu/models/resnet.py``.
 
 ``CifarResNet`` (ResNet-20/56: 3 stages of 16/32/64 filters) and
-``ResNet18``, GroupNorm only.  Each module is built on the device its caller
+``ResNet18``, with GroupNorm (``norm="gn"``) or BatchNorm (``norm="bn"``).
+Each module is built on the device its caller
 names (the hub builds on ``meta``) and filled by ``init_parameters``, as the
 ``TransformerLM`` is.  What each layer does follows the flax modules:
 
@@ -21,16 +22,28 @@ names (the hub builds on ``meta``) and filled by ``init_parameters``, as the
   flax 0.12 takes the variance as E[x²] - E[x]² (``use_fast_variance``),
   torch as the mean squared deviation: the same in exact arithmetic, and in
   fp32 where |mean| is not large against the spread.
+* **BatchNorm** (``BatchNorm``): flax ``nn.BatchNorm(momentum=0.9)``, not
+  torch's ``BatchNorm2d``.  Epsilon 1e-5 (flax's BatchNorm default).  In
+  training the statistics are taken in fp32 over every row of the batch,
+  padding rows included (the JAX engine applies the module to the whole
+  padded batch and masks only the loss), and the variance is the *biased*
+  one (``var_mean``, two passes; flax takes E[x²] - E[x]², a rounding
+  apart); the running averages move as ``ra = 0.9 ra + 0.1 batch`` (torch's
+  ``momentum=0.1``) with that biased variance, where torch's would take the
+  unbiased one.  In eval the running averages normalise.  ``(x - mean) *
+  (rsqrt(var + eps) * scale) + bias``, taken as one pass ``x * m + (bias -
+  mean * m)``, runs in fp32 and the result is cast to the compute dtype, as
+  flax's does.  The
+  running ``mean`` and ``var`` are fp32 buffers named as flax's
+  ``batch_stats`` leaves; there is no ``num_batches_tracked``.
 * **Compute dtype.** Parameters stay fp32.  The input, each convolution
   weight and the classifier's weight and bias are cast to ``dtype`` where
   they are used, so in bf16 the convolutions, the residual adds, the spatial
   mean and the classifier run in bf16; the loss promotes the logits to fp32.
 * **Init.** flax's: convolution and classifier kernels lecun-normal (a
   normal truncated at two standard deviations, std 1/sqrt(fan_in)), zero
-  bias, GroupNorm scale 1 and bias 0.
-
-BatchNorm (``norm="bn"``) is not ported: it needs buffers in the engine
-(ROADMAP.md queue A, item 4: model zoo and trainers, with BatchNorm).
+  bias, norm scales 1 and biases 0, BatchNorm's running mean 0 and
+  variance 1.
 """
 
 from __future__ import annotations
@@ -44,6 +57,8 @@ from torch import nn
 
 GROUP_SIZE = 16
 GN_EPSILON = 1e-6
+BN_EPSILON = 1e-5  # flax nn.BatchNorm's default
+BN_MOMENTUM = 0.9  # flax's: ra = 0.9 ra + 0.1 batch
 _TRUNC_STD = 0.87962566103423978  # std of a unit normal truncated to [-2, 2]
 
 
@@ -96,28 +111,62 @@ class GroupNorm(nn.GroupNorm):
                             self.eps).to(self.compute_dtype)
 
 
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm(use_running_average=not train, momentum=0.9)``
+    over the channels of an NCHW tensor (the module docstring's rules):
+    parameters ``weight`` (flax ``scale``) and ``bias``, buffers ``mean`` and
+    ``var`` (flax ``batch_stats``), the result in ``dtype``."""
+
+    def __init__(self, channels: int, dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(channels, device=device))
+        self.bias = nn.Parameter(torch.empty(channels, device=device))
+        self.register_buffer("mean", torch.zeros(channels, device=device))
+        self.register_buffer("var", torch.ones(channels, device=device))
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(torch.promote_types(x.dtype, torch.float32))  # fp32 at least, as flax
+        if self.training:
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            with torch.no_grad():
+                self.mean.mul_(BN_MOMENTUM).add_(mean, alpha=1.0 - BN_MOMENTUM)
+                self.var.mul_(BN_MOMENTUM).add_(var, alpha=1.0 - BN_MOMENTUM)
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + BN_EPSILON) * self.weight
+        # (x - mean) * mul + bias as one pass over x: x * mul + (bias - mean * mul)
+        shift = self.bias - mean * mul
+        return torch.addcmul(shift[:, None, None], x, mul[:, None, None]).to(self.compute_dtype)
+
+
 def _check_norm(norm: str) -> None:
-    if norm == "bn":
-        raise NotImplementedError(
-            "model_norm 'bn' (BatchNorm) is not ported yet: it needs buffers in the "
-            "engine (ROADMAP.md queue A, item 4: model zoo and trainers, with BatchNorm)")
-    if norm != "gn":
+    if norm not in ("gn", "bn"):
         raise ValueError(f"unknown norm {norm!r}")
+
+
+def norm_layer(norm: str, channels: int, dtype: torch.dtype = torch.float32, device=None, *,
+               group_size: int = GROUP_SIZE) -> nn.Module:
+    """flax's ``_norm``: BatchNorm for ``"bn"``, else GroupNorm of
+    ``group_size``-channel groups."""
+    if norm == "bn":
+        return BatchNorm(channels, dtype, device)
+    return GroupNorm(channels, dtype, device, num_groups=channels // group_size)
 
 
 class BasicBlock(nn.Module):
     def __init__(self, cin: int, filters: int, stride: int = 1,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None, norm: str = "gn"):
         super().__init__()
         self.conv1 = SameConv(cin, filters, 3, stride, dtype, device)
-        self.norm1 = GroupNorm(filters, dtype, device)
+        self.norm1 = norm_layer(norm, filters, dtype, device)
         self.conv2 = SameConv(filters, filters, 3, 1, dtype, device)
-        self.norm2 = GroupNorm(filters, dtype, device)
+        self.norm2 = norm_layer(norm, filters, dtype, device)
         # flax projects when the residual's shape differs from the output's
         self.project = stride != 1 or cin != filters
         if self.project:
             self.proj = SameConv(cin, filters, 1, stride, dtype, device)
-            self.norm_proj = GroupNorm(filters, dtype, device)
+            self.norm_proj = norm_layer(norm, filters, dtype, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.relu(self.norm1(self.conv1(x)))
@@ -138,14 +187,14 @@ class _ResNet(nn.Module):
         self.dtype = dtype
         self.max_pool = max_pool
         self.conv_init = SameConv(in_channels, stem, stem_k, stem_stride, dtype, device)
-        self.norm_init = GroupNorm(stem, dtype, device)
+        self.norm_init = norm_layer(norm, stem, dtype, device)
         self.block_names: List[str] = []
         cin = stem
         for stage, filters in enumerate(stages):
             for block in range(num_blocks):
                 stride = 2 if (stage > 0 and block == 0) else 1
                 name = f"stage{stage}_block{block}"
-                self.add_module(name, BasicBlock(cin, filters, stride, dtype, device))
+                self.add_module(name, BasicBlock(cin, filters, stride, dtype, device, norm))
                 self.block_names.append(name)
                 cin = filters
         self.classifier = nn.Linear(cin, num_classes, device=device)
@@ -181,7 +230,8 @@ def flax_init(root: nn.Module, generator: torch.Generator) -> None:
     ``root.modules()`` order: convolution and dense kernels lecun-normal
     (fan-in: a convolution's weight per output channel, a transposed
     convolution's kh*kw*in, a dense layer's input width), embeddings
-    N(0, 1/dim), every bias zero, norm scales one; a dense layer marked
+    N(0, 1/dim), every bias zero, norm scales one, BatchNorm's running
+    mean zero and variance one; a dense layer marked
     ``orthogonal`` (an LSTM cell's recurrent kernels) takes an orthogonal
     kernel.  Convolution weights end ``channels_last``."""
     with torch.no_grad():
@@ -198,6 +248,10 @@ def flax_init(root: nn.Module, generator: torch.Generator) -> None:
                                       generator=generator)
             elif isinstance(module, nn.GroupNorm):
                 module.weight.fill_(1.0)
+            elif isinstance(module, BatchNorm):
+                module.weight.fill_(1.0)
+                module.mean.zero_()
+                module.var.fill_(1.0)
             else:
                 continue
             if getattr(module, "bias", None) is not None:
@@ -217,7 +271,7 @@ class CifarResNet(_ResNet):
 
 
 class ResNet18(_ResNet):
-    """ImageNet-style ResNet-18 with GroupNorm (the fed_cifar100 model):
+    """ImageNet-style ResNet-18, GroupNorm by default (the fed_cifar100 model):
     ``small_images`` takes a 3x3 stem and no max-pool, else a 7x7 stride-2
     stem and a 3x3 stride-2 max-pool."""
 

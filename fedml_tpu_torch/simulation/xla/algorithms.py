@@ -34,17 +34,18 @@ import torch
 
 from ...core.async_fl.staleness import _check_policy, staleness_weights
 from ...ml.engine.train import GradHook, LocalTrainResult
+from ...models.convert import is_batch_stat
 
 Variables = Dict[str, torch.Tensor]
 
 
 def params_of(variables: Variables) -> Variables:
     """The JAX package's ``variables["params"]``: the entries that the
-    module's ``named_parameters()`` yields.  Today every entry of the port's
-    variables is one (GroupNorm's scale and bias are params in flax too;
-    BatchNorm's buffers wait for ROADMAP.md queue A, item 4: model zoo and trainers), so it is the
-    whole dict.  This is the one place to split buffers out."""
-    return variables
+    module's ``named_parameters()`` yields, without BatchNorm's running
+    averages (flax's ``batch_stats``).  The server optimizers and SCAFFOLD's
+    and FedDyn's corrections act on these alone; the averages are averaged
+    with the sample weights, as every entry is."""
+    return {k: v for k, v in variables.items() if not is_batch_stat(k)}
 
 
 def _f32(tree: Variables, names: List[str]) -> List[torch.Tensor]:

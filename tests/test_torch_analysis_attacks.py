@@ -52,9 +52,9 @@ from fedml_tpu_torch.models import convert
 from fedml_tpu_torch.models.cnn import CNN_DropOut
 from fedml_tpu_torch.models.linear import LogisticRegression
 from fedml_tpu_torch.ops import flash_attention as fa
-from test_torch_packed import _filled
+from test_torch_packed import _filled, _filled_init
 from test_torch_security_simulation import _reset_singletons
-from test_torch_simulation import _jitted_init, _place_replicated
+from test_torch_simulation import _place_replicated
 
 CPU = torch.device("cpu")
 EXAMPLE = "examples/simulation/xla_invert_gradient_mnist_lr/fedml_config.yaml"
@@ -313,7 +313,7 @@ def _jax_round_run(config):
     dataset, classes = fedml_tpu.data.data_loader.load(jargs)
     model = fedml_tpu.models.hub.create(jargs, classes)
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jfed_sim, "init_variables", _jitted_init)
+        mp.setattr(jfed_sim, "init_variables", _filled_init)
         jsim = jfed_sim.XLASimulator(jargs, dataset, model,
                                      mesh=create_fl_mesh(devices=jax.devices()[:1]))
     _place_replicated(jsim)

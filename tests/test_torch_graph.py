@@ -9,7 +9,8 @@
   (numpy on both sides).
 * The five GCN heads of the hub (``gcn``, ``gcn_linkpred``, ``gcn_nodeclf``,
   ``gcn_reg``, ``gcn_mtl``) at the hub's width (hidden 64, 2 layers, 16
-  nodes, 8 features) from the flax init transplanted: outputs within 1e-5
+  nodes, 8 features) from a tree of the flax model's shapes filled from numpy
+  (``test_torch_packed._filled_init``), transplanted: outputs within 1e-5
   on padded graphs, and ``FlatLayout``'s row order equal to
   ``ravel_pytree``'s.
 * The three losses (``linkpred``, ``mtl_bce``: the masked-sentinel BCE;
@@ -34,6 +35,7 @@ import fedml_tpu
 import fedml_tpu_torch
 from fedml_tpu_torch.ml.engine.train import init_variables, load_variables
 from fedml_tpu_torch.models import convert
+from test_torch_packed import _filled_init
 
 CONFIG = {
     "common_args": {"training_type": "simulation", "random_seed": 0},
@@ -143,8 +145,7 @@ def _models(model):
         jmodel = fedml_tpu.models.hub.create(j, classes)
         tmodel = fedml_tpu_torch.models.hub.create(t, classes)
         sample = np.zeros((1, 16, 24), np.float32)
-        jvars = jax.tree_util.tree_map(np.asarray, jax.jit(
-            lambda k, s: jmodel.init(k, s, train=False))(jax.random.PRNGKey(0), sample))
+        jvars = _filled_init(jmodel, sample)
         if "score_bias" in jvars["params"]:  # a nonzero bias, so its leaf is checked
             jvars["params"]["score_bias"] = np.asarray(0.25, np.float32)
         cpu = torch.device("cpu")

@@ -126,10 +126,14 @@ def test_recon_splits_are_bit_for_bit(dataset):
 
 
 def _flax_ae(feat, x):
+    """The flax autoencoder and a tree of its shapes filled from numpy
+    (``test_torch_packed._filled``: flax's eager init dispatches an op a
+    leaf)."""
     from fedml_tpu.models.autoencoder import AutoEncoder as JAE
+    from test_torch_packed import _filled
 
     model = JAE(feat_dim=feat)
-    return model, model.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    return model, _filled(jax.eval_shape(model.init, jax.random.PRNGKey(0), jnp.asarray(x)))
 
 
 def _port_ae(feat, variables):
@@ -152,9 +156,10 @@ def test_autoencoder_forward_and_gradients_match_jax():
         for leaf in ("weight", "bias")]
     assert module.enc2.out_features == 8 and module.dec1.out_features == 32
     np.testing.assert_allclose(module(torch.from_numpy(x)).detach().numpy(),
-                               np.asarray(jmodel.apply(variables, jnp.asarray(x))),
+                               np.asarray(jax.jit(jmodel.apply)(variables, jnp.asarray(x))),
                                rtol=0, atol=AE_ATOL)
-    jgrads = jax.grad(lambda v: jnp.mean(jnp.square(jmodel.apply(v, x) - x)))(variables)
+    jgrads = jax.jit(jax.grad(lambda v: jnp.mean(jnp.square(jmodel.apply(v, x) - x))))(
+        variables)
     loss = torch.mean(torch.square(module(torch.from_numpy(x)) - torch.from_numpy(x)))
     loss.backward()
     want = convert.state_from_flax(jax.tree_util.tree_map(np.asarray, jgrads))

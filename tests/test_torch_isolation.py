@@ -27,6 +27,7 @@ SLICE_MODULES = [
     "fedml_tpu_torch.device",
     "fedml_tpu_torch.runner",
     "fedml_tpu_torch.data.data_loader",
+    "fedml_tpu_torch.data.data_loader_cross_silo",
     "fedml_tpu_torch.data.loaders",
     "fedml_tpu_torch.data.synthetic",
     "fedml_tpu_torch.centralized",
@@ -173,16 +174,22 @@ def test_cuda_entry_refuses_cpu_tensors(entry):
 
 
 def test_unported_model_raises_with_its_roadmap_item():
-    """BatchNorm (the ResNets', MobileNet's) raises, naming its item; the
-    vision zoo, the structural members' models and the autoencoder build."""
-    from fedml_tpu_torch.models import hub
+    """BatchNorm (the ResNets', MobileNet's) builds, its running averages as
+    buffers named by their flax ``batch_stats`` paths; the vision zoo, the
+    structural members' models and the autoencoder build."""
+    from fedml_tpu_torch.models import convert, hub
     from fedml_tpu_torch.models.mobilenet import MobileNetV1, MobileNetV3Small
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A, item 4: model zoo and trainers, with BatchNorm"):
-        hub.create(types.SimpleNamespace(model="resnet56", dataset="cifar10", model_norm="bn"), 10)
+    model = hub.create(types.SimpleNamespace(model="resnet56", dataset="cifar10",
+                                             model_norm="bn"), 10)
+    paths = {convert.flax_leaf(n, b.dim())[0] for n, b in model.named_buffers()}
+    assert len(paths) == 2 * 57  # a mean and a var for each of ResNet-56's 57 norms
+    assert ("batch_stats", "stage2_block8", "norm2", "var") in paths
+    assert all(p[0] == "batch_stats" and p[-1] in ("mean", "var") for p in paths)
     for cls in (MobileNetV1, MobileNetV3Small):
-        with pytest.raises(NotImplementedError, match="'bn' \\(BatchNorm\\).*queue A, item 4: model zoo and trainers, with BatchNorm"):
-            cls(10, norm="bn", device="meta")
+        buffers = dict(cls(10, norm="bn", device="meta").named_buffers())
+        assert "norm_init.mean" in buffers and "norm_init.var" in buffers
+        assert {n.rsplit(".", 1)[-1] for n in buffers} == {"mean", "var"}
     for name, cls in (("cnn", "CNN_DropOut"), ("gan", "MNISTGenerator"), ("darts", "DARTSNetwork"),
                       ("gkt_client", "GKTClientNet"), ("gkt_server", "GKTServerNet"),
                       ("autoencoder", "AutoEncoder")):

@@ -41,8 +41,8 @@ from fedml_tpu_torch.core.distributed.collective import ProcessGroup
 from fedml_tpu_torch.models import convert
 from fedml_tpu_torch.simulation.mpi_proc import MPIProcessSimulator
 from netutil import free_port
+from test_torch_packed import _filled_init
 from test_torch_security_simulation import _reset_singletons
-from test_torch_simulation import _jitted_init
 
 EXAMPLE = "examples/simulation/mpi_proc_fedavg_mnist_lr/fedml_config.yaml"
 
@@ -247,7 +247,7 @@ def test_world_one_rank_matches_jax():
     from fedml_tpu.simulation.mpi_proc import MPIProcessSimulator as JSim
 
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jtrain, "init_variables", _jitted_init)
+        mp.setattr(jtrain, "init_variables", _filled_init)
         jsim = JSim(jargs, jdataset, fedml_tpu.models.create(jargs, classes))
     jinit = jax.tree_util.tree_map(np.asarray, jsim.trainer.get_model_params())
     jlast = jsim.train()

@@ -7,14 +7,15 @@
 * ``try_load_real``: an empty cache directory gives the same synthetic split
   as none for every NLP name (the JAX package has no parser for them, or its
   parser finds no files); ``load_nuswide`` on the golden fixture equals the
-  JAX parser's arrays exactly; a name whose JAX parser is not ported still
-  raises, naming item 3.
+  JAX parser's arrays exactly; mnist, whose parser is ported now, gives None
+  from an empty cache and the JAX parser's arrays from the golden one.
 * The three losses (``bce``, ``span``, ``s2s``) on random logits and labels
   with -1 targets, all -1 rows and all-padding masks: mean, total and count
   within 1e-6 (relative and absolute).
 * The three encoders and the seq2seq TransformerLM (L 24, the port's
   attention as the kernels' plain versions, JAX's as its XLA reference) at
-  their hub widths, from the flax init transplanted: logits within 2e-5, and
+  their hub widths, from a tree of the flax model's shapes filled from numpy
+  (``test_torch_packed._filled_init``), transplanted: logits within 2e-5, and
   ``FlatLayout``'s row order equal to ``ravel_pytree``'s.
 * The task evals of ``ModelTrainerTAGPred``, ``ModelTrainerSpan`` and
   ``ModelTrainerS2S`` (and the server aggregator that evaluates through
@@ -34,6 +35,7 @@ import fedml_tpu
 import fedml_tpu_torch
 from fedml_tpu_torch.ml.engine.train import init_variables, load_variables
 from fedml_tpu_torch.models import convert
+from test_torch_packed import _filled_init
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = {
@@ -131,10 +133,17 @@ def test_empty_cache_dir_falls_back_to_the_synthetic_split(dataset, tmp_path):
 
 
 def test_unported_parser_still_raises_with_item_3(tmp_path):
+    """Every parser is ported now: a cache without mnist's files gives None
+    (synthetic data), as the JAX package's does, and one with them the JAX
+    parser's arrays."""
+    from fedml_tpu.data import loaders as jloaders
     from fedml_tpu_torch.data import loaders
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A, item 3:"):
-        loaders.try_load_real("mnist", str(tmp_path))
+    assert loaders.try_load_real("mnist", str(tmp_path)) is None
+    assert jloaders.try_load_real("mnist", str(tmp_path)) is None
+    root = os.path.join(REPO, "tests", "fixtures", "golden")
+    for a, b in zip(loaders.try_load_real("mnist", root), jloaders.try_load_real("mnist", root)):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
 
 
 def test_nuswide_parser_matches_jax():
@@ -207,8 +216,7 @@ def _build_models(dataset, model):
     tmodel = fedml_tpu_torch.models.hub.create(t, classes)
     length = fedml_tpu_torch.data.data_loader.DATASET_SPECS[dataset]["shape"]
     sample = np.zeros((1,) + tuple(length), np.int32 if model != "lr" else np.float32)
-    jvars = jax.tree_util.tree_map(np.asarray, jax.jit(
-        lambda k, s: jmodel.init(k, s, train=False))(jax.random.PRNGKey(0), sample))
+    jvars = _filled_init(jmodel, sample)
     cpu = torch.device("cpu")
     init_variables(tmodel, cpu)
     tvars = convert.variables_from_flax(jvars, tmodel, cpu)

@@ -1,6 +1,7 @@
 """The FedNLP task family end to end: ``init`` -> ``data.load`` ->
 ``models.hub.create`` -> ``FedMLRunner`` on the port against the JAX
-package on the same configs, from the JAX init transplanted.
+package on the same configs, from one tree of the JAX model's shapes
+filled from numpy (``test_torch_packed._filled_init``), transplanted.
 
 * ``sp`` FedAvg, 4 clients of 16 samples, 2 rounds, one full batch per
   epoch (where the engines' different shuffles cannot matter), SGD: global
@@ -38,6 +39,7 @@ import test_torch_sp_zoo as _zoo
 from fedml_tpu.parallel.mesh import create_fl_mesh
 from fedml_tpu.simulation.xla import fed_sim as jfed_sim
 from fedml_tpu_torch.models import convert
+from test_torch_packed import _filled_init
 
 CONFIG = {
     "common_args": {"training_type": "simulation", "random_seed": 0},
@@ -129,8 +131,9 @@ def test_zoo_member_on_seq2seq_matches_jax(member):
 
 def _xla_runs(config):
     """The JAX XLASimulator on a one-device mesh and the port's, from the
-    same init: (global params after each round, JAX then port; the port's
-    simulator).  The JAX init is placed where the round puts its outputs
+    same init (``test_torch_packed._filled_init``): (global params after
+    each round, JAX then port; the port's simulator).  The JAX init is
+    placed where the round puts its outputs
     (replicated on the mesh), so round 1 reuses round 0's compiled program
     instead of compiling it again for another input placement."""
     jargs = fedml_tpu.init(fedml_tpu.Arguments.from_dict(copy.deepcopy(config)),
@@ -138,10 +141,9 @@ def _xla_runs(config):
     jdataset, classes = fedml_tpu.data.data_loader.load(jargs)
     jmodel = fedml_tpu.models.hub.create(jargs, classes)
     with pytest.MonkeyPatch.context() as mp:
-        # the same init, jitted: flax's op-by-op init costs seconds a layer
-        mp.setattr(jfed_sim, "init_variables", lambda module, sample, seed=0: dict(
-            jax.jit(lambda k, s: module.init(k, s, train=False))(
-                jax.random.PRNGKey(seed), sample)))
+        # a tree of the model's shapes filled from numpy: a jitted flax init
+        # compiles for seconds
+        mp.setattr(jfed_sim, "init_variables", _filled_init)
         jsim = jfed_sim.XLASimulator(jargs, jdataset, jmodel,
                                      mesh=create_fl_mesh(devices=jax.devices()[:1]))
     repl = NamedSharding(jsim.mesh, PartitionSpec())

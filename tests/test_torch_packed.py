@@ -98,18 +98,31 @@ def test_scheduler_and_estimator_are_identical():
 
 def _filled(shapes, seed=0):
     """A flax variables tree of ``shapes`` filled from a seeded numpy stream:
-    kernels N(0, 1/fan_in), scales 1 + N(0, 0.01), biases N(0, 0.01)."""
+    kernels N(0, 1/fan_in), embeddings N(0, 1/dim), scales 1 + N(0, 0.01),
+    biases and BatchNorm running means N(0, 0.01), running variances in
+    [0.5, 1.5)."""
     rng = np.random.RandomState(seed)
 
     def fill(path, s):
         leaf = path[-1].key
         if leaf == "scale":
             return (1.0 + 0.1 * rng.randn(*s.shape)).astype(np.float32)
-        if leaf == "bias":
+        if leaf in ("bias", "mean"):
             return (0.1 * rng.randn(*s.shape)).astype(np.float32)
-        return (rng.randn(*s.shape) / np.sqrt(np.prod(s.shape[:-1]))).astype(np.float32)
+        if leaf == "var":
+            return (0.5 + rng.rand(*s.shape)).astype(np.float32)
+        fan = s.shape[-1] if leaf == "embedding" else np.prod(s.shape[:-1])
+        return (rng.randn(*s.shape) / np.sqrt(fan)).astype(np.float32)
 
     return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def _filled_init(module, sample, seed=0):
+    """In place of the JAX package's ``init_variables``: ``_filled`` over
+    ``jax.eval_shape`` of flax's init, so no init program is compiled (a
+    jitted flax init compiles for 1.5-7 s a model)."""
+    return dict(_filled(jax.eval_shape(
+        lambda: module.init(jax.random.PRNGKey(seed), sample, train=False)), seed))
 
 
 @pytest.fixture(scope="module")

@@ -132,11 +132,18 @@ def test_bf16_gradients_within_bound(model_runs):
     assert rel(port, jax_bf16) <= 0.25
 
 
+_BLOCK = {}
+
+
 def _block_outputs():
-    """A lone stride-2 BasicBlock (16 -> 32 channels, 8x8 -> 4x4), fp32."""
+    """A lone stride-2 BasicBlock (16 -> 32 channels, 8x8 -> 4x4), fp32; the
+    JAX side once a module (a planted test changes only the port)."""
     x = np.random.RandomState(3).randn(2, 8, 8, 16).astype(np.float32)
-    jb = jresnet.BasicBlock(filters=32, stride=2)
-    jvars = jax.jit(jb.init)(jax.random.PRNGKey(0), x)
+    if not _BLOCK:
+        jb = jresnet.BasicBlock(filters=32, stride=2)
+        jvars = _params(jb, x, 3)
+        _BLOCK.update(jvars=jvars, want=np.asarray(jax.jit(jb.apply)(jvars, x)))
+    jvars = _BLOCK["jvars"]
     tb = resnet.BasicBlock(16, 32, 2, device="meta")
     tb.to_empty(device="cpu")
     # a block's leaves are mapped under the name of the block that holds them
@@ -144,7 +151,7 @@ def _block_outputs():
     state = {k[2:]: v for k, v in convert.params_state_from_flax(params).items()}
     load_variables(tb, {k: torch.from_numpy(np.array(v)) for k, v in state.items()})
     out = tb(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
-    return out.detach().numpy(), np.asarray(jb.apply(jvars, x))
+    return out.detach().numpy(), _BLOCK["want"]
 
 
 def test_stride2_block_pads_like_flax():
@@ -254,5 +261,9 @@ def test_hub_builds_resnets_and_refuses_batchnorm():
     args.xla_data_dtype = "fp32"
     assert hub.data_storage_dtype(args, model) is torch.float32
     args.model_norm = "bn"
-    with pytest.raises(NotImplementedError, match="BatchNorm"):
-        hub.create(args, 10)
+    model = hub.create(args, 10)
+    norms = [m for m in model.modules() if isinstance(m, (resnet.BatchNorm, resnet.GroupNorm))]
+    assert len(norms) == 57 and all(isinstance(m, resnet.BatchNorm) for m in norms)
+    leaves = {convert.flax_leaf(n, t.dim())[0] for n, t in model.named_buffers()}
+    assert ("batch_stats", "norm_init", "mean") in leaves and len(leaves) == 114
+    assert all(b.dtype is torch.float32 for b in model.buffers())  # fp32 under bf16

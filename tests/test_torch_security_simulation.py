@@ -46,6 +46,7 @@ from fedml_tpu.parallel.mesh import create_fl_mesh
 from fedml_tpu.simulation.xla import fed_sim as jfed_sim
 from fedml_tpu_torch.core.security import defense_funcs as TF
 from fedml_tpu_torch.models import convert
+from test_torch_simulation import _place_replicated
 
 ATOL = 2e-5
 ROUNDS = 2
@@ -149,6 +150,7 @@ def _run_pair(name, kind):
     jmodel = fedml_tpu.models.hub.create(jargs, classes)
     jsim = jfed_sim.XLASimulator(jargs, jdataset, jmodel,
                                  mesh=create_fl_mesh(devices=jax.devices()[:1]))
+    _place_replicated(jsim)  # round 1 reuses round 0's compiled program
     init = jax.tree_util.tree_map(np.asarray, jsim.variables)
     jstates = []
     jround_end = jsim.algo.host_round_end

@@ -2,7 +2,8 @@
 ``init`` -> ``data.load`` -> ``FedMLRunner``, the port against the JAX
 package's XLASimulator.
 
-Both start from the same global model (the JAX init, transplanted), train 2
+Both start from the same global model (a tree of the JAX model's shapes
+filled from numpy, ``test_torch_packed._filled_init``, transplanted), train 2
 rounds of 4 of 8 clients for 2 epochs with one full batch per epoch (so the
 engines' different shuffles cannot matter), and must pick identical cohorts
 each round, laid out in the same order: the JAX round lays its cohort out
@@ -14,7 +15,7 @@ atol 5e-5 (fp32, two epochs of SGD at lr 0.1 with sums in other orders);
 eval loss and accuracy, which both packages round to 4 decimals, 2e-4.
 
 The JAX side is made cheap without changing what it computes: its init is
-flax's, jitted (the same values as the op-by-op init), and placed
+not compiled, and its state is placed
 replicated on its mesh, as its round's outputs are, so round 1 reuses round
 0's compiled program.
 """
@@ -32,6 +33,7 @@ from fedml_tpu.simulation.xla import fed_sim as jfed_sim
 from fedml_tpu.models.transformer import TransformerConfig as JCfg, TransformerLM as JLM
 from fedml_tpu_torch.models import convert
 from fedml_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+from test_torch_packed import _filled_init
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -86,11 +88,6 @@ def _record(sim, variables_of):
     return log
 
 
-def _jitted_init(module, sample, seed=0):
-    """``fed_sim.init_variables``, jitted: the same values, without flax's
-    op-by-op init."""
-    return dict(jax.jit(lambda k, s: module.init(k, s, train=False))(
-        jax.random.PRNGKey(seed), sample))
 
 
 def _place_replicated(jsim):
@@ -109,7 +106,7 @@ def runs():
                            should_init_logs=False)
     jdataset, _ = fedml_tpu.data.data_loader.load(jargs)
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jfed_sim, "init_variables", _jitted_init)
+        mp.setattr(jfed_sim, "init_variables", _filled_init)
         jrun = fedml_tpu.FedMLRunner(jargs, fedml_tpu.device.get_device(jargs), jdataset,
                                      JLM(JCfg(**CFG)))
     jsim = jrun.runner.sim

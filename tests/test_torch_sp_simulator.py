@@ -4,7 +4,8 @@ and the ``ServerAggregator`` hooks) through ``init`` -> ``data.load`` ->
 ``models.hub.create`` -> ``FedMLRunner``, against the JAX package's
 ``FedAvgAPI`` on the same configs.
 
-Both sides start from the JAX init, transplanted.  Each client takes one
+Both sides start from one tree of the JAX model's shapes filled from numpy
+(``_cheap_jax_host``), transplanted.  Each client takes one
 full batch per epoch (``batch_size`` at least the largest client's count,
 so the bucket is one batch), where the engines' different shuffles cannot
 matter.  Tolerances, global params after each round: ``lr`` on synthetic
@@ -191,11 +192,44 @@ def _jax_train_key(trainer, padded_n, batch_size):
                                                   "weight_decay", "momentum", "proximal_mu")))
 
 
+def _jitted_weighted_mean(updates):
+    """The JAX package's ``weighted_mean`` (sum_i (n_i / N) * tree_i, the
+    weights host floats, the sum in client order) as one jitted program: the
+    eager one dispatches an op a leaf and client, seconds a round for a deep
+    model.  XLA may fuse a product into its add, a rounding apart."""
+    total = float(sum(n for n, _ in updates))
+    if total <= 0:
+        raise ValueError("total sample count must be positive")
+    return _JAX_FNS.setdefault("mean", jax.jit(lambda trees, ws: jax.tree_util.tree_map(
+        lambda *xs: sum(x * w for x, w in zip(xs, ws)), *trees)))(
+        [p for _, p in updates], [n / total for n, _ in updates])
+
+
+# the JAX modules that call weighted_mean by their own name
+_JAX_MEAN_USERS = ("fedml_tpu.core.aggregate", "fedml_tpu.simulation.sp.fedopt.fedopt_api",
+                   "fedml_tpu.simulation.sp.fedsgd.fedsgd_api",
+                   "fedml_tpu.simulation.sp.feddyn.feddyn_api",
+                   "fedml_tpu.simulation.sp.hierarchical_fl.hier_api")
+
+
+def _cheap_jax_host(mp):
+    """The JAX sp path made cheap without changing what it computes: its init
+    a tree of the model's shapes filled from numpy (``test_torch_packed.
+    _filled_init``), its weighted mean jitted."""
+    import importlib
+
+    from fedml_tpu.simulation.sp.fedavg import fedavg_api as jfedavg_api
+    from test_torch_packed import _filled_init
+
+    mp.setattr(jfedavg_api, "init_variables", _filled_init)
+    for name in _JAX_MEAN_USERS:
+        mp.setattr(importlib.import_module(name), "weighted_mean", _jitted_weighted_mean)
+
+
 def _jax_run(config, model=None):
     """The JAX FedAvgAPI's run: (log, final eval, init variables, API)."""
     from fedml_tpu.ml.aggregator import default_aggregator as jdefault_aggregator
     from fedml_tpu.ml.trainer.cls_trainer import ModelTrainerCLS as JTrainer
-    from fedml_tpu.simulation.sp.fedavg import fedavg_api as jfedavg_api
 
     fn_for, make_eval_fn = JTrainer._fn_for, jdefault_aggregator.make_eval_fn
 
@@ -214,10 +248,7 @@ def _jax_run(config, model=None):
     dataset, classes = fedml_tpu.data.data_loader.load(args)
     model = model if model is not None else fedml_tpu.models.hub.create(args, classes)
     with pytest.MonkeyPatch.context() as mp:
-        # the same init, jitted: flax's op-by-op init costs seconds a layer
-        mp.setattr(jfedavg_api, "init_variables", lambda module, sample, seed=0: dict(
-            _JAX_FNS.setdefault(("init", repr(module)), jax.jit(
-                lambda k, s: module.init(k, s, train=False)))(jax.random.PRNGKey(seed), sample)))
+        _cheap_jax_host(mp)
         mp.setattr(jdefault_aggregator, "make_eval_fn", shared_eval_fn)
         mp.setattr(JTrainer, "_fn_for", shared_fn_for)
         runner = fedml_tpu.FedMLRunner(args, fedml_tpu.device.get_device(args), dataset, model)

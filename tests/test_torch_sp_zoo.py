@@ -4,7 +4,9 @@ decentralized, Turbo-Aggregate) through ``init`` -> ``data.load`` ->
 ``models.hub.create`` -> ``FedMLRunner``, against their JAX twins on the
 same configs.
 
-Both sides start from the JAX init, transplanted, and take one full batch
+Both sides start from one tree of the JAX model's shapes filled from numpy
+(``test_torch_sp_simulator._cheap_jax_host``), transplanted, and take one
+full batch
 per epoch (``lr`` on synthetic mnist, 8 clients, 4 a round, ``batch_size``
 64), where the engines' different shuffles cannot matter.  Every global
 model a member sets (each round, update or flush) must agree with the JAX
@@ -125,7 +127,6 @@ def jax_run(config, model=None, before=None):
     from fedml_tpu.core.security.fedml_attacker import FedMLAttacker
     from fedml_tpu.ml.aggregator import default_aggregator as jdefault_aggregator
     from fedml_tpu.ml.trainer.cls_trainer import ModelTrainerCLS as JTrainer
-    from fedml_tpu.simulation.sp.fedavg import fedavg_api as jfedavg_api
 
     fn_for, make_eval_fn = JTrainer._fn_for, jdefault_aggregator.make_eval_fn
     fns = _sp._JAX_FNS
@@ -153,9 +154,7 @@ def jax_run(config, model=None, before=None):
     dataset, classes = fedml_tpu.data.data_loader.load(args)
     model = model if model is not None else fedml_tpu.models.hub.create(args, classes)
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jfedavg_api, "init_variables", lambda module, sample, seed=0: dict(
-            fns.setdefault(("init", repr(module)), jax.jit(
-                lambda k, s: module.init(k, s, train=False)))(jax.random.PRNGKey(seed), sample)))
+        _sp._cheap_jax_host(mp)
         mp.setattr(jdefault_aggregator, "make_eval_fn",
                    lambda module: fns.setdefault(("eval", repr(module)), make_eval_fn(module)))
         mp.setattr(JTrainer, "_fn_for", shared_fn_for)

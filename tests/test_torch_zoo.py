@@ -49,6 +49,7 @@ from fedml_tpu_torch.core.async_fl import staleness as tstaleness
 from fedml_tpu_torch.models import convert
 from fedml_tpu_torch.simulation.sp.fedopt.fedopt_api import make_server_optimizer
 from fedml_tpu_torch.simulation.xla import algorithms as talgorithms
+from test_torch_simulation import _place_replicated
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -168,6 +169,7 @@ def _run_pair(member, kind):
     jmodel = fedml_tpu.models.hub.create(jargs, classes)
     jsim = jfed_sim.XLASimulator(jargs, jdataset, jmodel,
                                  mesh=create_fl_mesh(devices=jax.devices()[:1]))
+    _place_replicated(jsim)  # round 1 reuses round 0's compiled program
     _record(jsim, jlog, lambda s: (
         _port_tree(jax.tree_util.tree_map(np.asarray, s.variables)["params"]),
         _jax_server_state(member, s.server_state),

@@ -74,7 +74,8 @@
 10. The algorithm zoo.  (a) At the north-star width: BENCH_CONFIG with the
    algorithm's knobs changed and its cohort cut to ZOO_COHORT (4) clients
    (ZOO: FedProx, FedOpt/adam, FedNova, SCAFFOLD, FedDyn, AsyncFedAvg,
-   FedBuff with a buffer of 4), 2 rounds each, through the entry points,
+   FedBuff with a buffer of 4), 1 round each (2 before phase 21), through
+   the entry points,
    on one cifar10 dataset made once: round seconds, throughput(), losses,
    finite params, the server state's norm,
    SCAFFOLD's and FedDyn's mean invariant (c = mean_i c_i, h = mean_i h_i),
@@ -83,7 +84,7 @@
    the aten ops a step of FedAvg, FedProx, SCAFFOLD and FedDyn under
    torch.profiler over a 2-client stream.  No flash kernel launches on this
    path.  (b) The grad hooks under the flash kernels: SCAFFOLD and FedDyn,
-   2 rounds each, on slice 1's configuration (hub transformer, fp32), with
+   ZOO_ROUNDS rounds each, on slice 1's configuration (hub transformer, fp32), with
    the counts set to 0 before and read after: K1-K3 must have launched.
 11. The trust path.  (a) At the north-star width (BENCH_CONFIG,
    byzantine_client_num 10, on phase 8's dataset), 7 runs of 1 round
@@ -375,6 +376,9 @@ CASES = [
     # L 24 (src 12 + tgt 12), under one 64-row q tile and one key tile
     ("s2s_train", 16, 24, 4, 32, "float32", True, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
     ("s2s_eval", 102, 24, 4, 32, "float32", True, ("flash_fwd",)),
+    # phase 21a's chunked slice 1: 5 clients' batches of 32 in one call
+    ("chunk_train", 160, 80, 8, 32, "float32", True,
+     ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
 ]
 # K4 at the sp slice's fold: (name, B, Lq, Lk, H, D, dtype, causal, q shard,
 # k shard, padded key tail, key positions permuted).  With shards of Lq keys,
@@ -419,8 +423,9 @@ BENCH_CONFIG = {
 PROFILE_CLIENTS = 8
 # phase 10a: the algorithm zoo on BENCH_CONFIG, the algorithm's knobs
 # changed and the cohort cut to ZOO_COHORT clients (8 until phase 17 was
-# added), 2 rounds each
-ZOO_ROUNDS = 2
+# added), ZOO_ROUNDS rounds each (2 until phase 21 was added; 10b's
+# SCAFFOLD and FedDyn on slice 1 run as many)
+ZOO_ROUNDS = 1
 ZOO_COHORT = 4
 ZOO = [
     ("FedProx", {"federated_optimizer": "FedProx", "proximal_mu": 0.01}),
@@ -1349,7 +1354,7 @@ def _aten_ops_per_step(sim, ids, counts) -> dict:
 
 def zoo_phase(ft, fa, dataset, classes):
     """Phase 10a: every zoo member at the north-star width, a cohort of
-    ZOO_COHORT, 2 rounds each through the entry points, on phase 8's
+    ZOO_COHORT, ZOO_ROUNDS rounds each through the entry points, on phase 8's
     dataset; FedAvg's round and SCAFFOLD's alternated on one cohort; the aten
     ops a step of the hooked members."""
     import copy
@@ -1440,7 +1445,7 @@ def zoo_phase(ft, fa, dataset, classes):
 
 
 def zoo_hooks_phase(ft, fa):
-    """Phase 10b: SCAFFOLD and FedDyn, 2 rounds each, on slice 1's
+    """Phase 10b: SCAFFOLD and FedDyn, ZOO_ROUNDS rounds each, on slice 1's
     configuration: the grad hooks run inside steps that launch K1-K3 (fp32).
     The counts are set to 0 before and read after both runs."""
     import copy
@@ -4034,7 +4039,7 @@ def centralized_phase(ft):
 # phase 20: BatchNorm (model_norm: bn) on slice 3's path, and the parsers.
 # 20a: BENCH_CONFIG with model_norm bn, one round through the entry points at
 # full width (ResNet-56, bf16 compute over fp32 params; cut: a cohort of
-# BN_MAIN_COHORT of the 32);
+# BN_MAIN_COHORT of the 32, 16 until phase 21 was added);
 # then BN_REF_CLIENTS clients of BN_REF_ROWS images (batch 16, lr 0.001) on
 # the card and on the CPU in fp32 (TF32 off), each against the same round on
 # the CPU in float64: the card's largest gap to float64 in the params, the
@@ -4045,7 +4050,7 @@ def centralized_phase(ft):
 # tree by far more than the convolutions' sums would (the first call read
 # 2.1e-3 in the params at lr 0.005).  Then GroupNorm's and BatchNorm's rounds
 # on one cohort of BN_TIMED_COHORT clients in turns.
-BN_MAIN_COHORT = 16
+BN_MAIN_COHORT = 8
 BN_REF_CLIENTS = 2
 BN_REF_ROWS = 32
 BN_REF_RATIO = 10.0
@@ -4346,6 +4351,295 @@ def parser_phase(ft):
                             "load_seconds": load_s, "rows": [data[0], data[1]]}
     finally:
         loaders._pillow = pillow
+    return out
+
+
+# phase 21: the population knobs and the convergence gates.
+# 21a: slice 1 at its full hub width, its padded round with xla_client_chunk
+# CHUNK_SLICE_K (the cohort of 10 five at a time) and unchunked, in turns
+# after a warm round of each.  The partition is homo (400 sequences a client,
+# padded to 416: no batch is all padding), so every client takes every step
+# and the chunked round's K1-K3 launches are the unchunked ones / k exactly
+# (under hetero a chunk runs the union of its clients' steps).
+CHUNK_SLICE_K = 5
+# the rounds in turns after the warm ones; the second of each runs under
+# torch.profiler for the card's busy share
+CHUNK_ORDER = ("chunk", "plain", "chunk", "plain")
+# the warm rounds' globals, chunked against unchunked from one start: the
+# flash kernels compute each row as they do at batch B, the vmapped linear
+# layers are batched products whose sums cuBLAS may order otherwise.  The
+# CPU witness of this round at this width (chunk_witness.py: the plain
+# versions) read 1.192e-7; the bound is 10x that.
+CHUNK_SLICE_ATOL = 10 * 1.192e-7
+# 21b: ResNet-56 at _bench_args width (GroupNorm, bf16 over fp32) on the
+# padded round, a cohort of CHUNK_RESNET_COHORT clients of one batch each
+# (homo, CHUNK_RESNET_ROWS images a client), chunk CHUNK_RESNET_K and 1 in
+# turns; then model_norm bn, one round of each from one start: each running
+# average leaf within CHUNK_BN_RTOL of its largest entry.  The convolutions
+# compute in bf16 (grouped under vmap, dense unchunked) and may round an
+# output one bf16 step (2^-8) apart; a batch statistic of such outputs moves
+# by about a step at most, and enters the average at weight 0.1, so one
+# step of the average is generous for roundoff, where a client's statistics
+# swapped or pooled across the chunk move leaves by tens of percent.  The
+# CPU witness of that round at 2 clients (chunk_witness.py) read 0.
+CHUNK_RESNET_COHORT = 8
+CHUNK_RESNET_K = 4
+CHUNK_RESNET_ROWS = 64
+CHUNK_BN_RTOL = 2.0 ** -8
+# 21c: the policies on lr mnist, POLICY_ROUNDS rounds on the card and on the
+# CPU; every round's observe_round is fed POLICY_SECONDS, so the stratified
+# policy reads the same latencies on both devices
+POLICY_ROUNDS = 3
+POLICY_SECONDS = (0.5, 0.2, 0.9)
+POLICY_RUNS = (
+    ("sp", {"selection_policy": "importance", "importance_staleness": 0.5}),
+    ("sp", {"selection_policy": "stratified", "population_strata": 3}),
+    ("XLA", {"selection_policy": "importance", "importance_staleness": 0.5}),
+    ("XLA", {"selection_policy": "stratified", "population_strata": 3}),
+    ("XLA", {"population_stacked": True}),
+)
+
+
+def gate_config(backend, *, dataset="mnist", model="lr", clients=(50, 10), rounds=20,
+                batch=10, lr=0.03, train_size=2500, **train_extra) -> dict:
+    """tests/test_parity.py's ``_cfg`` (the synthetic gates' shapes) on the card."""
+    return {
+        "common_args": {"training_type": "simulation", "random_seed": 0,
+                        "run_id": f"parity-{backend}-{dataset}-{model}"},
+        "data_args": {"dataset": dataset, "data_cache_dir": "", "partition_method": "hetero",
+                      "partition_alpha": 0.5, "synthetic_train_size": train_size},
+        "model_args": {"model": model},
+        "train_args": {"federated_optimizer": "FedAvg", "client_num_in_total": clients[0],
+                       "client_num_per_round": clients[1], "comm_round": rounds, "epochs": 1,
+                       "batch_size": batch, "client_optimizer": "sgd", "learning_rate": lr,
+                       **train_extra},
+        "validation_args": {"frequency_of_the_test": max(rounds // 2, 1)},
+        "device_args": {"device_type": "gpu"},
+        "comm_args": {"backend": backend},
+    }
+
+
+# 21d: tests/test_parity.py's TestSyntheticConvergenceGates: (name, config,
+# the final test_acc's bound, whether it may equal the bound)
+GATES = (
+    ("mnist_lr_sp", gate_config("sp"), 0.90, True),
+    ("mnist_lr_xla", gate_config("XLA"), 0.90, True),
+    ("cifar_resnet20_trajectory", gate_config("sp", dataset="cifar10", model="resnet20",
+                                              clients=(4, 4), rounds=4, batch=32, lr=0.2,
+                                              train_size=512, epochs=3), 0.15, False),
+    ("fed_shakespeare_rnn_shape", gate_config("sp", dataset="shakespeare", model="rnn",
+                                              clients=(10, 5), rounds=4, batch=8, lr=0.3,
+                                              train_size=400), 0.0, False),
+)
+
+
+def _chunk_runners(ft, config, chunk: int) -> dict:
+    """{"chunk": runner with xla_client_chunk ``chunk``, "plain": runner
+    without} through the entry points, on one dataset loaded once."""
+    import copy
+
+    runners, data = {}, None
+    for label, k in (("chunk", chunk), ("plain", 0)):
+        c = copy.deepcopy(config)
+        c["train_args"]["xla_client_chunk"] = k
+        args = ft.init(ft.Arguments.from_dict(c), should_init_logs=False)
+        if data is None:
+            data = ft.data.load(args)
+        model = ft.models.hub.create(args, data[1])
+        runners[label] = ft.FedMLRunner(args, ft.device.get_device(args), data[0], model)
+    return runners
+
+
+def _timed_round(fa, sim, profiled: bool = False) -> dict:
+    """One round of ``sim`` (round 0's cohort: comm_round 1): its seconds,
+    the launches it made and, ``profiled``, the card's busy share of its
+    wall time under torch.profiler tracing the card alone (host ops
+    untraced: tracing a round's 10^5 host ops would slow the round), summed
+    from the raw trace (``key_averages`` took 17 s over an unchunked round's
+    kernels)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fa.reset_launches()
+    torch.cuda.synchronize()
+    with contextlib.ExitStack() as stack:
+        prof = stack.enter_context(profile(
+            activities=[ProfilerActivity.CUDA])) if profiled else None
+        t0 = time.perf_counter()
+        sim.train()
+        torch.cuda.synchronize()
+        out = {"seconds": time.perf_counter() - t0, "launches": dict(fa.LAUNCHES)}
+    if profiled:
+        t1 = time.perf_counter()
+        out["device_ms"] = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+                               if e.device_type() == torch.autograd.DeviceType.CUDA
+                               and "#" not in e.name()) / 1e6
+        out["busy"] = out["device_ms"] / (out["seconds"] * 1e3)
+        out["summary_s"] = time.perf_counter() - t1
+    return out
+
+
+def _chunk_turns(ft, fa, runners, card, name) -> dict:
+    """A warm round of each, the globals' gap after them, then the rounds in
+    turns (CHUNK_ORDER), the second of each under the profiler."""
+    import torch
+
+    sims = {label: r.runner.sim for label, r in runners.items()}
+    start = {k: v.clone() for k, v in sims["plain"].variables.items()}
+    if _max_param_diff(sims["chunk"].variables, start) != 0.0:
+        raise AssertionError(f"{name}: the two runs start from other weights")
+    warm = {label: _timed_round(fa, sim) for label, sim in sims.items()}
+    gap = _max_param_diff(sims["chunk"].variables, sims["plain"].variables)
+    for sim in sims.values():
+        sim.variables = {k: v.clone() for k, v in sims["plain"].variables.items()}
+    turns = [dict(_timed_round(fa, sims[label], profiled=i >= 2), run=label)
+             for i, label in enumerate(CHUNK_ORDER)]
+    for label in ("chunk", "plain"):
+        timed, profiled = (t for t in turns if t["run"] == label)
+        log(f"  {name} {label:5s} (xla_client_chunk "
+            f"{sims[label]._resolve_chunk(sims[label].clients_per_round)}): warm "
+            f"{warm[label]['seconds']:.3f} s, round {timed['seconds']:.4f} s; under the "
+            f"profiler {profiled['seconds']:.4f} s, busy {100 * profiled['busy']:.1f} % "
+            f"({profiled['device_ms']:.1f} ms; summarised in {profiled['summary_s']:.1f} s) "
+            f"({card})")
+    if not all(math.isfinite(x) for sim in sims.values() for x in sim.round_losses):
+        raise AssertionError(f"{name}: losses {[s.round_losses for s in sims.values()]}")
+    torch.cuda.empty_cache()
+    return {"warm": warm, "global_gap": gap, "turns": turns}
+
+
+def chunk_slice_phase(ft, fa, card):
+    """21a: slice 1's padded round with and without xla_client_chunk."""
+    import copy
+
+    config = copy.deepcopy(SLICE_CONFIG)
+    config["data_args"]["partition_method"] = "homo"
+    config["train_args"]["comm_round"] = 1
+    config["validation_args"]["frequency_of_the_test"] = 0
+    out = _chunk_turns(ft, fa, _chunk_runners(ft, config, CHUNK_SLICE_K), card, "21a")
+    log(f"  21a warm globals, chunked vs unchunked: {out['global_gap']:.3e} (atol "
+        f"{CHUNK_SLICE_ATOL:.3e})")
+    if out["global_gap"] > CHUNK_SLICE_ATOL:
+        raise AssertionError(f"21a: chunked global {out['global_gap']} off the unchunked one")
+    rounds = [(r["run"], r["launches"]) for r in out["turns"]] + [
+        (label, r["launches"]) for label, r in out["warm"].items()]
+    plain = [l for lab, l in rounds if lab == "plain"]
+    for lab, launches in rounds:
+        for name in SLICE1_KERNELS:
+            want = plain[0][name] // (CHUNK_SLICE_K if lab == "chunk" else 1)
+            if launches[name] != want or want <= 0 or plain[0][name] % CHUNK_SLICE_K:
+                raise AssertionError(f"21a {lab} round launched {launches}, unchunked "
+                                     f"{plain[0]}")
+        if any(launches[n] for n in launches if n not in SLICE1_KERNELS):
+            raise AssertionError(f"21a: a kernel off slice 1's path launched: {launches}")
+    log(f"  21a launches a round: chunked {out['turns'][0]['launches']}, unchunked "
+        f"{out['turns'][1]['launches']} (unchunked / {CHUNK_SLICE_K} exactly)")
+    total = dict.fromkeys(fa.LAUNCHES, 0)
+    for _, launches in rounds:
+        for n, c in launches.items():
+            total[n] += c
+    return out, total
+
+
+def chunk_resnet_phase(ft, fa, card):
+    """21b: ResNet-56 at bench width on the padded round, chunked and not;
+    then BatchNorm's running averages after one chunked round."""
+    import copy
+
+    from fedml_tpu_torch.models.convert import is_batch_stat
+
+    config = copy.deepcopy(BENCH_CONFIG)
+    config["data_args"].update(partition_method="homo",
+                               synthetic_train_size=100 * CHUNK_RESNET_ROWS)
+    config["train_args"].update(xla_pack=False, client_num_per_round=CHUNK_RESNET_COHORT)
+    fa.reset_launches()
+    out = _chunk_turns(ft, fa, _chunk_runners(ft, config, CHUNK_RESNET_K), card, "21b")
+    log(f"  21b warm globals, chunked vs unchunked: {out['global_gap']:.3e}")
+    config["model_args"]["model_norm"] = "bn"
+    runners = _chunk_runners(ft, config, CHUNK_RESNET_K)
+    sims = {label: r.runner.sim for label, r in runners.items()}
+    start = {k: v.clone() for k, v in sims["plain"].variables.items()}
+    for label, sim in sims.items():
+        sim.variables = {k: v.clone() for k, v in start.items()}
+        _timed_round(fa, sim)
+    stats = [k for k in start if is_batch_stat(k)]
+    moved = _bn_stats_moved(sims["chunk"].variables, start)
+    chunked, plain = sims["chunk"].variables, sims["plain"].variables
+    rel = max((chunked[k] - plain[k]).abs().max().item() / plain[k].abs().max().item()
+              for k in stats)
+    gap = max((chunked[k] - plain[k]).abs().max().item() for k in stats)
+    pgap = _max_param_diff({k: v for k, v in chunked.items() if k not in stats},
+                           {k: v for k, v in plain.items() if k not in stats})
+    log(f"  21b model_norm bn: {moved} of {len(stats)} running averages moved; chunked vs "
+        f"unchunked running averages {gap:.3e}, of a leaf's largest entry {rel:.3e} (rtol "
+        f"{CHUNK_BN_RTOL:.3e}); params {pgap:.3e}")
+    if rel > CHUNK_BN_RTOL or moved != len(stats):
+        raise AssertionError(f"21b: running averages {rel}, moved {moved} of {len(stats)}")
+    if any(fa.LAUNCHES.values()):
+        raise AssertionError(f"21b: flash kernels launched on the ResNet path: {fa.LAUNCHES}")
+    out["bn"] = {"running_average_gap": gap, "running_average_rel": rel, "params_gap": pgap,
+                 "moved": moved}
+    return out
+
+
+def policy_phase(ft, card):
+    """21c: the stratified and importance policies on both simulators and
+    population_stacked on the round simulator, card against CPU: the same
+    cohorts every round."""
+    import copy
+
+    out = {}
+    for backend, knobs in POLICY_RUNS:
+        cohorts = {}
+        for dev_type in ("gpu", "cpu"):
+            config = gate_config(backend, rounds=POLICY_ROUNDS, train_size=1000)
+            config["train_args"].update(knobs)
+            config["device_args"]["device_type"] = dev_type
+            args = ft.init(ft.Arguments.from_dict(copy.deepcopy(config)),
+                           should_init_logs=False)
+            data, classes = ft.data.load(args)
+            runner = ft.FedMLRunner(args, ft.device.get_device(args), data,
+                                    ft.models.hub.create(args, classes))
+            sim = runner.runner.sim if backend == "XLA" else runner.runner.fl_trainer
+            drawn, observe = [], sim.population.observe_round
+
+            def observed(round_idx, ids, seconds=None, _o=observe, _d=drawn, **kw):
+                _d.append([int(c) for c in ids])
+                return _o(round_idx, ids, seconds=POLICY_SECONDS[round_idx], **kw)
+
+            sim.population.observe_round = observed
+            final = runner.run()
+            cohorts[dev_type] = (drawn, final, sim.population.history[-1])
+        name = f"{backend} " + " ".join(f"{k}={v}" for k, v in knobs.items())
+        log(f"  {name}: cohorts {cohorts['gpu'][0]}; card {cohorts['gpu'][1]}, CPU "
+            f"{cohorts['cpu'][1]}; last record {cohorts['gpu'][2]} ({card})")
+        if (cohorts["gpu"][0] != cohorts["cpu"][0] or len(cohorts["gpu"][0]) != POLICY_ROUNDS
+                or cohorts["gpu"][2] != cohorts["cpu"][2]):
+            raise AssertionError(f"21c {name}: card {cohorts['gpu'][0]}, CPU "
+                                 f"{cohorts['cpu'][0]}")
+        out[name] = {"cohorts": cohorts["gpu"][0], "final": cohorts["gpu"][1],
+                     "cpu_final": cohorts["cpu"][1]}
+    return out
+
+
+def gate_phase(ft, card):
+    """21d: the four synthetic convergence gates on the card."""
+    import copy
+
+    out = {}
+    for name, config, bound, inclusive in GATES:
+        args = ft.init(ft.Arguments.from_dict(copy.deepcopy(config)), should_init_logs=False)
+        data, classes = ft.data.load(args)
+        t0 = time.perf_counter()
+        final = ft.FedMLRunner(args, ft.device.get_device(args), data,
+                               ft.models.hub.create(args, classes)).run()
+        secs = time.perf_counter() - t0
+        ok = final["test_acc"] >= bound if inclusive else final["test_acc"] > bound
+        log(f"  {name}: {final} in {secs:.1f} s (test_acc {'>=' if inclusive else '>'} "
+            f"{bound}) ({card})")
+        if not ok:
+            raise AssertionError(f"21d {name}: {final}")
+        out[name] = {"final": final, "seconds": secs, "bound": bound}
     return out
 
 
@@ -4739,6 +5033,29 @@ def main() -> int:
     bn["seconds"] = time.perf_counter() - t20
     log(f"  phase 20 in {bn['seconds']:.1f} s")
 
+    t21 = time.perf_counter()
+    population = {"tf32_flags": flags_found}
+    phase(f"21a: slice 1's padded round with xla_client_chunk {CHUNK_SLICE_K} and unchunked, "
+          "in turns (full hub width, homo)")
+    log(f"  card: {card}")
+    population["chunk_slice"], chunk_launches = chunk_slice_phase(ft, fa, card)
+    phase(f"21b: ResNet-56 at bench width on the padded round, a cohort of "
+          f"{CHUNK_RESNET_COHORT} with xla_client_chunk {CHUNK_RESNET_K} and unchunked, in "
+          "turns; then model_norm bn")
+    population["chunk_resnet"] = chunk_resnet_phase(ft, fa, card)
+    phase("21c: the stratified and importance policies (sp, XLA) and population_stacked "
+          "(XLA) on lr mnist, card against CPU")
+    fa.reset_launches()
+    population["policies"] = policy_phase(ft, card)
+    phase("21d: the synthetic convergence gates of tests/test_parity.py")
+    population["gates"] = gate_phase(ft, card)
+    if any(fa.LAUNCHES.values()):
+        raise AssertionError(f"flash kernels launched on 21c-d's paths: {fa.LAUNCHES}")
+    if _tf32_flags() != flags_found:
+        raise AssertionError(f"tf32 flags {_tf32_flags()} after phase 21, found {flags_found}")
+    population["seconds"] = time.perf_counter() - t21
+    log(f"  phase 21 in {population['seconds']:.1f} s")
+
     phase("9: results")
 
     kernels = kernels_line(rows + fold_rows,
@@ -4747,7 +5064,7 @@ def main() -> int:
                             *nlp_xla_launches, graph_launches, graph_xla_launches,
                             graph_mesh_launches, vision_launches, structural_launches,
                             inmesh_launches, mpi_launches, bn["round"]["launches"],
-                            bn["sp"]["launches"], bn_launches))
+                            bn["sp"]["launches"], bn_launches, chunk_launches))
     bench = bench_bf16_summary(rows)
     with open(os.path.join(OUT_DIR, "results.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -4767,6 +5084,7 @@ def main() -> int:
                    "nlp_launches": nlp_launches, "nlp_xla_launches": nlp_xla_launches,
                    "graph": graph, "vision": vision, "structural": structural,
                    "inmesh": inmesh, "mpi_analysis": mpi_analysis, "batchnorm": bn,
+                   "population": population,
                    "phase_starts": starts, "seconds": time.perf_counter() - t_start}, f,
                   indent=1)
     log(f"== done in {time.perf_counter() - t_start:.1f} s")

@@ -24,6 +24,11 @@ Semantics follow the JAX engine:
   ``tx.update``; torch's coupled weight decay is then added inside the step,
   as optax's ``add_decayed_weights`` is after the hook.
 
+``build_chunked_local_train`` is the same run for k clients at once (the
+JAX round's ``jax.vmap`` over clients, ``xla_client_chunk``): their variables
+stacked ``[k, ...]`` under ``torch.func.vmap``, each client with its own
+shuffles, step count, masks and Dropout uniforms.
+
 The shuffle uses a ``torch.Generator`` seeded from (seed..., epoch); its
 permutations are not ``jax.random``'s, so tests compare the two engines
 where the shuffle cannot matter (one full batch per epoch).  Dropout masks
@@ -321,6 +326,258 @@ def build_local_train(
                 final = post_train(final, post_train_generator(seed, x.device))
         return LocalTrainResult(final, loss_sum / max(seen, 1.0), seen, steps,
                                 opt.state_dict()["state"])
+
+    return train
+
+
+class _StackedOptimizer:
+    """``make_optimizer``'s update over stacked ``[k, ...]`` leaves, one
+    client a row, with a ``[k]`` step count: a row steps only where its
+    client's batch holds a valid row (``live``), as the JAX engine's
+    ``jnp.where(any_valid, new, old)`` on params and optimizer state, which
+    ``torch.optim``'s one scalar ``step`` cannot do for one client of k.  The
+    arithmetic is ``torch.optim``'s single-tensor SGD (momentum, coupled
+    weight decay), Adam and AdamW, op for op."""
+
+    def __init__(self, args, params: Tensors):
+        self.name = str(getattr(args, "client_optimizer", "sgd")).lower()
+        if self.name not in ("sgd", "adam", "adamw"):
+            raise ValueError(f"unknown client_optimizer {self.name!r}")
+        self.lr = float(getattr(args, "learning_rate", 0.01))
+        self.wd = float(getattr(args, "weight_decay", 0.0))
+        self.momentum = max(float(getattr(args, "momentum", 0.0)), 0.0)
+        k = params[0].shape[0]
+        self.steps = [0] * k
+        self.slots: Dict[str, Tensors] = {}
+        if self.name == "sgd" and self.momentum > 0:
+            self.slots["momentum_buffer"] = [torch.zeros_like(p) for p in params]
+        elif self.name != "sgd":
+            self.slots["exp_avg"] = [torch.zeros_like(p) for p in params]
+            self.slots["exp_avg_sq"] = [torch.zeros_like(p) for p in params]
+
+    @staticmethod
+    def _rows(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+        """A ``[k]`` tensor as ``[k, 1, ...]``, broadcasting over ``like``'s rows."""
+        return t.reshape((-1,) + (1,) * (like.dim() - 1))
+
+    @torch.no_grad()
+    def step(self, params: Tensors, grads: Tensors, live: Sequence[bool]) -> None:
+        self.steps = [s + int(on) for s, on in zip(self.steps, live)]
+        dev = params[0].device
+        on = torch.tensor(list(live), device=dev)
+        lr, wd, b1, b2, eps = self.lr, self.wd, 0.9, 0.999, 1e-8
+        if self.name != "sgd":
+            # each client's bias corrections, as torch.optim's python floats
+            # (a step of 0 is masked out below); torch rounds such a scalar
+            # operand to the parameter's type
+            steps = [max(s, 1) for s in self.steps]
+            neg_step = torch.tensor([-lr / (1 - b1 ** s) for s in steps], device=dev)
+            bc2_sqrt = torch.tensor([(1 - b2 ** s) ** 0.5 for s in steps], device=dev)
+        for i, (p, g) in enumerate(zip(params, grads)):
+            keep = self._rows(on, p)
+            if self.name == "sgd":
+                d = g.add(p, alpha=wd) if wd != 0 else g
+                if self.momentum > 0:
+                    buf = self.slots["momentum_buffer"][i]
+                    # a zero buffer times momentum plus d is d exactly:
+                    # torch's first-step clone
+                    buf.copy_(torch.where(keep, buf.mul(self.momentum).add_(d), buf))
+                    d = buf
+                p.copy_(torch.where(keep, p.add(d, alpha=-lr), p))
+                continue
+            if self.name == "adamw":
+                new_p = p.mul(1 - lr * wd)
+            else:
+                new_p = p.clone()
+                if wd != 0:
+                    g = g.add(p, alpha=wd)
+            m, v = self.slots["exp_avg"][i], self.slots["exp_avg_sq"][i]
+            m.copy_(torch.where(keep, m.lerp(g, 1 - b1), m))
+            v.copy_(torch.where(keep, v.mul(b2).addcmul_(g, g, value=1 - b2), v))
+            denom = (v.sqrt() / self._rows(bc2_sqrt.to(p.dtype), p)).add_(eps)
+            p.copy_(torch.where(keep, torch.addcdiv(new_p, m * self._rows(
+                neg_step.to(p.dtype), p), denom), p))
+
+    def client_state(self, c: int) -> dict:
+        """Client ``c``'s state in ``torch.optim``'s ``state_dict()["state"]``
+        form (empty when it never stepped, as torch's)."""
+        if self.steps[c] == 0 or (self.name == "sgd" and not self.slots):
+            return {}
+        out = {}
+        for i in range(len(next(iter(self.slots.values())))):
+            row = {name: t[i][c].clone() for name, t in self.slots.items()}
+            if self.name != "sgd":
+                row["step"] = torch.tensor(float(self.steps[c]))
+            out[i] = row
+        return out
+
+
+def _has_lstm(module: nn.Module) -> bool:
+    from ...models.rnn import LSTMCell
+
+    return any(isinstance(m, LSTMCell) for m in module.modules())
+
+
+def build_chunked_local_train(
+    module: nn.Module,
+    args,
+    batch_size: int,
+    padded_n: int,
+    epochs: Optional[int] = None,
+    loss: str = "ce",
+    grad_hook: Optional[GradHook] = None,
+    post_train: Optional[PostTrain] = None,
+) -> Callable[..., List[LocalTrainResult]]:
+    """The padded round's local training of k clients at once, the
+    counterpart of the JAX round's ``jax.vmap(one_client)`` over
+    ``build_local_train`` (``xla_client_chunk``).
+
+    Returned fn: ``(variables, x [k, padded_n, ...], y [k, padded_n, ...],
+    n_valid (k ints), seeds (k tuples), extras (k dicts, or None)) -> k
+    LocalTrainResults``, each what :func:`build_local_train` returns for
+    that client alone.  The k clients' variables are stacked ``[k, ...]``
+    leaves (BatchNorm's running averages as batched buffers); each step's
+    forward is ``torch.func.functional_call`` under ``torch.func.vmap``, and
+    one ``backward()`` of the summed per-client masked losses gives each
+    client its own gradient.  Each client keeps its own shuffles (seed...,
+    epoch) and its own step count: a step runs when any client of the chunk
+    has a valid row, and a client whose batch is all padding keeps its
+    params, optimizer state and running averages (``_StackedOptimizer``,
+    ``torch.where``).  Grad hooks see the stacked leaves, the round-start
+    anchor broadcast over the k rows.  Dropout masks are drawn from each
+    client's own generator outside the vmapped call.  The rnn family is
+    refused: torch has no batching rule for ``aten::lstm``."""
+    if padded_n < batch_size:
+        raise ValueError(f"padded_n ({padded_n}) must be >= batch_size ({batch_size})")
+    if _has_lstm(module):
+        raise NotImplementedError(
+            "the rnn family under xla_client_chunk > 1 is not ported yet: torch has no "
+            "batching rule for aten::lstm (ROADMAP.md queue A, item 6c's rest: the rnn "
+            "family under xla_client_chunk)")
+    if loss not in LOSS_FNS:
+        build_loss_fn(module, loss)  # raises, naming the item
+    loss_kind = LOSS_FNS[loss]
+    epochs = int(epochs if epochs is not None else getattr(args, "epochs", 1))
+    steps_per_epoch = max(1, -(-padded_n // batch_size))
+    grad_hook = resolve_grad_hook(args, grad_hook)
+    state = module_state(module)
+    names = [name for name, _ in module.named_parameters()]
+    bnames = [name for name, _ in state[len(names):]]
+    from ...models.cnn import Dropout
+
+    drops = [m for m in module.modules() if isinstance(m, Dropout) and m.rate > 0.0]
+    draw_shapes: Dict[tuple, List[tuple]] = {}  # a batch's shape -> each Dropout's input's
+
+    def client_loss(p, b, us, bx, by, bmask):
+        for m, u in zip(drops, us):
+            m.chunk_u = u
+        try:
+            logits = torch.func.functional_call(module, {**p, **b}, (bx,))
+        finally:
+            for m in drops:
+                m.chunk_u = None
+        return loss_kind(logits, by, bmask)[0]
+
+    vloss = torch.func.vmap(client_loss)
+
+    def dropout_shapes(p, b, bx) -> List[tuple]:
+        """Each Dropout's input shape at a batch of ``bx``'s shape, from one
+        client's forward in eval mode (the layers' pre-hooks read it); the
+        first probe puts ``drops`` in call order, the order of the draws."""
+        key = tuple(bx.shape)
+        if key not in draw_shapes:
+            seen: Dict[int, tuple] = {}
+            hooks = [m.register_forward_pre_hook(
+                lambda m, inp: seen.__setitem__(id(m), tuple(inp[0].shape))) for m in drops]
+            module.eval()
+            try:
+                with torch.no_grad():
+                    torch.func.functional_call(
+                        module, {**{n: t[0] for n, t in p.items()},
+                                 **{n: t[0] for n, t in b.items()}}, (bx,))
+            finally:
+                module.train()
+                for h in hooks:
+                    h.remove()
+            order = list(seen)
+            drops.sort(key=lambda m: order.index(id(m)))
+            draw_shapes[key] = [seen[id(m)] for m in drops]
+        return draw_shapes[key]
+
+    def train(variables: Variables, x: torch.Tensor, y: torch.Tensor,
+              n_valid: Sequence[int], seeds: Sequence[Sequence[int]],
+              extras: Optional[Sequence[Optional[Variables]]] = None) -> List[LocalTrainResult]:
+        k, dev = int(x.shape[0]), x.device
+        module.train()
+        params = {n: variables[n].detach().unsqueeze(0).repeat(
+            (k,) + (1,) * variables[n].dim()).requires_grad_() for n in names}
+        buffers = {n: variables[n].detach().unsqueeze(0).repeat(
+            (k,) + (1,) * variables[n].dim()) for n in bnames}
+        plist = [params[n] for n in names]
+        anchor = [variables[n].detach().unsqueeze(0).expand_as(params[n]) for n in names]
+        extra_l = None
+        if extras is not None and extras[0] is not None:
+            extra_l = [torch.stack([e[n] for e in extras]) for n in names]
+        opt = _StackedOptimizer(args, plist)
+        n_valid_t = torch.tensor([int(n) for n in n_valid])
+        gens = [seeded_generator((*s, DROPOUT_SALT), dev) for s in seeds] if drops else []
+        x_flat = x.reshape((k * padded_n,) + tuple(x.shape[2:]))
+        y_flat = y.reshape((k * padded_n,) + tuple(y.shape[2:]))
+        offsets = torch.arange(k)[:, None] * padded_n
+        loss_sum = torch.zeros((k,), dtype=torch.float32, device=dev)
+        seen = torch.zeros((k,), dtype=torch.float64)
+        for e in range(epochs):
+            perms = torch.stack([torch.randperm(padded_n, generator=shuffle_generator((*s, e)))
+                                 for s in seeds])
+            for i in range(steps_per_epoch):
+                # the JAX engine's dynamic_slice clamps the last window in range
+                start = min(i * batch_size, padded_n - batch_size)
+                idx = perms[:, start:start + batch_size]
+                valid = idx < n_valid_t[:, None]  # host copy: no device sync
+                n_b = valid.sum(dim=1)
+                live = (n_b > 0).tolist()
+                if not any(live):
+                    continue  # all padding for every client: no step at all
+                rows = (idx + offsets).reshape(-1).to(dev)
+                bx = x_flat.index_select(0, rows).reshape((k, batch_size) + tuple(x.shape[2:]))
+                by = y_flat.index_select(0, rows).reshape((k, batch_size) + tuple(y.shape[2:]))
+                bmask = valid.to(device=dev, dtype=torch.float32, non_blocking=True)
+                us = []
+                if drops:
+                    for shape in dropout_shapes(params, buffers, bx[0]):
+                        us.append(torch.stack([
+                            torch.rand(shape, generator=g, device=dev, dtype=torch.float32)
+                            if on else torch.zeros(shape, device=dev)
+                            for g, on in zip(gens, live)]))
+                before = ({n: t.clone() for n, t in buffers.items()}
+                          if buffers and not all(live) else None)
+                losses = vloss(params, buffers, us, bx, by, bmask)
+                for p in plist:
+                    p.grad = None
+                losses.sum().backward()
+                grads = [p.grad for p in plist]
+                if grad_hook is not None:
+                    with torch.no_grad():
+                        grad_hook(grads, plist, anchor, extra_l)
+                opt.step(plist, grads, live)
+                if before is not None:
+                    on = torch.tensor(live, device=dev)
+                    for n, t in buffers.items():
+                        t.copy_(torch.where(on.reshape((-1,) + (1,) * (t.dim() - 1)), t,
+                                            before[n]))
+                loss_sum += losses.detach() * n_b.to(device=dev, dtype=torch.float32)
+                seen += n_b
+        results = []
+        for c in range(k):
+            final = {n: params[n][c].detach() for n in names}
+            final.update({n: buffers[n][c] for n in bnames})
+            if post_train is not None:
+                with torch.no_grad():
+                    final = post_train(final, post_train_generator(seeds[c], dev))
+            s_c = float(seen[c])
+            results.append(LocalTrainResult(final, loss_sum[c] / max(s_c, 1.0), s_c,
+                                            float(opt.steps[c]), opt.client_state(c)))
+        return results
 
     return train
 

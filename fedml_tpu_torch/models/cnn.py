@@ -16,7 +16,11 @@ probability 1 - rate and scaled by 1 / (1 - rate).  Its masks come from the
 ``torch.Generator`` in ``generator``, which the engine seeds for each
 client run (``ml.engine.train.seed_dropout``); the JAX engine draws its
 masks from ``jax.random``, which torch cannot reproduce (ROADMAP.md C,
-"Random draws").  In eval mode it is the identity.
+"Random draws").  In eval mode it is the identity.  Under the chunked
+round's ``torch.func.vmap``, which refuses a generator draw, the engine
+draws each client's uniforms from that client's generator outside the
+vmapped call and hands them in through ``chunk_u``
+(``ml.engine.train.build_chunked_local_train``).
 """
 
 from __future__ import annotations
@@ -35,12 +39,16 @@ class Dropout(nn.Module):
         super().__init__()
         self.rate = float(rate)
         self.generator: Optional[torch.Generator] = None  # None: torch's global stream
+        self.chunk_u: Optional[torch.Tensor] = None  # a chunked step's uniforms
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
         keep = 1.0 - self.rate
-        u = torch.rand(x.shape, generator=self.generator, device=x.device, dtype=torch.float32)
+        u = self.chunk_u
+        if u is None:
+            u = torch.rand(x.shape, generator=self.generator, device=x.device,
+                           dtype=torch.float32)
         return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

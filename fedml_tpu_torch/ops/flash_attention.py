@@ -454,22 +454,33 @@ def _first_order_only(name: str) -> None:
 
 class FlashAttention(torch.autograd.Function):
     """The ``flash_attention`` custom_vjp of the JAX package: the forward
-    saves (q, k, v, O, LSE); the backward rebuilds P blockwise in two kernels
-    (dQ, then dK/dV) from delta = rowsum(dO * O), a plain torch op here as it
-    is an XLA op there.  The kernels' outputs carry no graph, so the backward
-    is once-differentiable: asked for a graph of the gradient
-    (``create_graph``), it raises instead of dropping the second
-    derivative's terms."""
+    returns (O, LSE) and saves (q, k, v, O, LSE); the backward rebuilds P
+    blockwise in two kernels (dQ, then dK/dV) from delta = rowsum(dO * O), a
+    plain torch op here as it is an XLA op there.  The kernels' outputs carry
+    no graph, so the backward is once-differentiable: asked for a graph of
+    the gradient (``create_graph``), it raises instead of dropping the second
+    derivative's terms.
+
+    Under ``torch.func.vmap`` (the chunked round, ``xla_client_chunk``) the
+    ``vmap`` rule folds the mapped dim into the batch, as JAX batches a
+    ``pallas_call``: q/k/v ``[k, B, L, H, D]`` become one contiguous
+    ``[k*B, L, H, D]`` call, so each kernel launches once for the k clients,
+    and the inner call's autograd node runs K2 and K3 once at ``k*B`` too."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool = True):
-        o, lse = flash_forward(q, k, v, causal)
+    def forward(q, k, v, causal: bool = True):
+        return flash_forward(q, k, v, causal)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal = inputs
+        o, lse = output
         ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mark_non_differentiable(lse)
         ctx.causal = causal
-        return o
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, g, _g_lse):
         _first_order_only("flash attention")
         q, k, v, o, lse = ctx.saved_tensors
         do = g.to(q.dtype).contiguous()
@@ -478,10 +489,23 @@ class FlashAttention(torch.autograd.Function):
         dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, ctx.causal)
         return dq, dk, dv, None
 
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal: bool = True):
+        n = info.batch_size
+
+        def fold(t, d):
+            t = t.unsqueeze(0).expand(n, *t.shape) if d is None else t.movedim(d, 0)
+            return t.reshape((n * t.shape[1],) + tuple(t.shape[2:])).contiguous()
+
+        q, k, v = (fold(t, d) for t, d in zip((q, k, v), in_dims[:3]))
+        o, lse = FlashAttention.apply(q, k, v, causal)
+        return (o.reshape((n, -1) + tuple(o.shape[1:])),
+                lse.reshape((n, -1) + tuple(lse.shape[1:]))), (0, 0)
+
 
 def flash_attention(q, k, v, causal: bool = True):
     """Differentiable flash attention, q/k/v [B, L, H, D] -> [B, L, H, D]."""
-    return FlashAttention.apply(q, k, v, causal)
+    return FlashAttention.apply(q, k, v, causal)[0]
 
 
 class FlashShardUpdate(torch.autograd.Function):

@@ -39,7 +39,7 @@ from ...ml.aggregator.aggregator_creator import create_server_aggregator
 from ...ml.engine.train import init_variables
 from ...ml.trainer.trainer_creator import create_model_trainer
 from ...utils.metrics import MetricsLogger
-from ..xla.fed_sim import XLA_ROUND_KNOBS, refuse_unported_knobs
+from ..xla.fed_sim import refuse_unported_knobs
 
 logger = logging.getLogger(__name__)
 
@@ -77,7 +77,7 @@ class MPIProcessSimulator:
                 or FedMLDefender.get_instance().is_defense_enabled()):
             raise NotImplementedError(
                 "backend MPI_PROC has no attack/defense hooks; use 'sp' or 'XLA'")
-        refuse_unported_knobs(args, skip=XLA_ROUND_KNOBS)
+        refuse_unported_knobs(args)
         self.device = get_device(args)
         addr = (str(getattr(args, "pg_master_address", "127.0.0.1")),
                 int(getattr(args, "pg_master_port", 29600)))

@@ -1,8 +1,8 @@
 """Single-process FedAvg simulator of the port (counterpart of
 ``fedml_tpu/simulation/sp/fedavg/fedavg_api.py``: ``Client``, ``FedAvgAPI``).
 
-Each round draws its cohort through the population manager (the uniform
-``mt19937`` schedule, the JAX package's clients), re-binds
+Each round draws its cohort through the population manager (the policy of
+``selection_policy``, the JAX package's clients), re-binds
 ``client_num_per_round`` client slots to the sampled clients' data, and
 trains them one after another through the one client trainer
 (``ml/trainer``: the engine's local training on the client's data, moved to
@@ -25,10 +25,13 @@ the trust hooks names it in ``SKIPPED_HOOKS`` and is refused at construction
 when that hook is on (``active_hooks``; the table is in
 ``simulation/sp/__init__.py``).
 
-Not ported: checkpointing, the obs spans and telemetry, and the population's
-round accounting (ROADMAP.md queue A, items 9b, 9d and 9c); their knobs
-raise.  ``frequency_of_the_test: 0``, which the JAX round divides by, is
-refused when the object is built.
+After each round of the base loop the manager records it
+(``observe_round``, with the round's wall seconds), as in the JAX package;
+the members that run a loop of their own skip it there too.
+
+Not ported: checkpointing, and the obs spans and telemetry (ROADMAP.md queue
+A, items 9b and 9d); their knobs raise.  ``frequency_of_the_test: 0``,
+which the JAX round divides by, is refused when the object is built.
 """
 
 from __future__ import annotations
@@ -51,7 +54,7 @@ from ....ml.engine.train import init_variables, load_variables
 from ....ml.trainer.cls_trainer import to_device
 from ....ml.trainer.trainer_creator import create_model_trainer
 from ....utils.metrics import MetricsLogger
-from ...xla.fed_sim import XLA_ROUND_KNOBS, refuse_unported_knobs
+from ...xla.fed_sim import refuse_unported_knobs
 
 logger = logging.getLogger(__name__)
 
@@ -82,14 +85,14 @@ def active_hooks() -> set:
     return on
 
 
-def own_loop_setup(args, member: str, frequency: bool = True, skip=XLA_ROUND_KNOBS) -> int:
+def own_loop_setup(args, member: str, frequency: bool = True) -> int:
     """The checks of a member that runs a loop of its own (FedSeg, the
     structural members, the in-mesh FedGAN, FedNAS, vertical FL, split NN and
-    FedGKT rounds): the unported knobs refused (less ``skip``), every trust
+    FedGKT rounds): the unported knobs refused, every trust
     hook switched on refused (the JAX twin skips them all silently; the table
     is in ``simulation/sp/__init__.py``), and, where the member reads it,
     ``frequency_of_the_test`` returned, refused at 0 or below (else 0)."""
-    refuse_unported_knobs(args, skip=skip)
+    refuse_unported_knobs(args)
     on = active_hooks()
     attacker = FedMLAttacker.get_instance()
     if attacker.is_attack_enabled():
@@ -157,7 +160,7 @@ class FedAvgAPI:
             self.test_data_local_dict,
             self.class_num,
         ) = dataset
-        refuse_unported_knobs(args, skip=XLA_ROUND_KNOBS)
+        refuse_unported_knobs(args)
         self.freq = self._frequency(args)
         attacker = FedMLAttacker.get_instance()
         if attacker.is_analysis_attack():
@@ -190,8 +193,13 @@ class FedAvgAPI:
         self.metrics = MetricsLogger(args)
         self.round_times: List[float] = []
         self.samples_per_round: List[int] = []
+        n_total = int(self.args.client_num_in_total)
+        try:
+            samples = [int(self.train_data_local_num_dict[i]) for i in range(n_total)]
+        except (KeyError, IndexError, TypeError):
+            samples = None
         self.population = PopulationManager.from_args(
-            self.args, np.arange(int(self.args.client_num_in_total)), rng_style="mt19937")
+            self.args, np.arange(n_total), num_samples=samples, rng_style="mt19937")
 
     def _frequency(self, args) -> int:
         freq = int(getattr(args, "frequency_of_the_test", 5))
@@ -246,6 +254,8 @@ class FedAvgAPI:
             dt = time.time() - t0
             self.round_times.append(dt)
             self.metrics.log({"round": round_idx, "round_time_s": round(dt, 4)})
+            # population accounting (synchronous round: invited == reported)
+            self.population.observe_round(round_idx, client_indexes, seconds=dt)
             if self._eval_due(round_idx, comm_round):
                 last_metrics = self._test_global(round_idx)
         return last_metrics

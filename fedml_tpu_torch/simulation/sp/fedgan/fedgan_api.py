@@ -44,7 +44,6 @@ from ....ml.trainer.cls_trainer import to_device
 from ....models.gan import MNISTDiscriminator, MNISTGenerator
 from ....utils.metrics import MetricsLogger
 from ....utils.rng import GAN_HEALTH_SALT, GAN_LATENT_SALT, seeded_generator
-from ...xla.fed_sim import XLA_ROUND_KNOBS
 from ..fedavg.fedavg_api import own_loop_setup
 
 logger = logging.getLogger(__name__)
@@ -130,11 +129,9 @@ def build_pair(args, device: torch.device):
 
 
 class FedGanAPI:
-    _skip_knobs = XLA_ROUND_KNOBS  # the unported knobs not refused
-
     def __init__(self, args, device, dataset, model=None, latents=None):
         self.args = args
-        own_loop_setup(args, type(self).__name__, frequency=False, skip=self._skip_knobs)
+        own_loop_setup(args, type(self).__name__, frequency=False)
         self.device = torch.device(device)
         (_, _, _tg, _teg, self.local_num, self.local_train, _lt, _cn) = dataset
         self.G, self.D, self.g_params, self.d_params, self.latent = build_pair(args, self.device)

@@ -42,9 +42,19 @@ per client); central DP noises the global variables after the server
 step.  Every draw comes from a seeded ``torch.Generator``
 (``utils/rng.py``), not from ``jax.random``.
 
-The cohort of each round is the population manager's ``mt19937`` draw, the
-same clients as the JAX package picks.  With ``fl_mode: async`` each round is
-one buffer flush instead: a virtual arrival queue, seeded from
+With ``xla_client_chunk: k`` the padded round trains its slots k at a time
+(``ml.engine.train.build_chunked_local_train``: ``torch.func.vmap`` over k
+parameter sets, the JAX round's ``jax.vmap(one_client)``; the flash kernels
+then launch once a chunk at ``k*B``); the packed round does not read the
+knob, as in the JAX package.
+
+The cohort of each round is the population manager's draw (``uniform``,
+``stratified`` or ``importance``, ``selection_policy``), the same clients as
+the JAX package picks for the same registry state, or with
+``population_stacked`` the row of the whole run's one stacked draw; after
+each round the manager records it (``observe_round``, with the round's wall
+seconds, which the stratified policy reads).  With ``fl_mode: async`` each
+round is one buffer flush instead: a virtual arrival queue, seeded from
 ``random_seed``, decides the flush's clients and their staleness, over the
 cohort drawn once at construction, as in the JAX package.  Knobs of
 subsystems the port does not have yet raise ``NotImplementedError`` when set;
@@ -64,7 +74,7 @@ import torch
 
 from ...core.async_fl import VirtualArrivalQueue
 from ...core.dp.fedml_differential_privacy import FedMLDifferentialPrivacy
-from ...core.population import PopulationManager
+from ...core.population import PopulationManager, stacked_cohorts
 from ...core.schedule import RuntimeEstimator, SeqTrainScheduler
 from ...core.security.fedml_attacker import FedMLAttacker
 from ...core.security.fedml_defender import FedMLDefender
@@ -73,7 +83,7 @@ from ...core.security.stacked import (_wmean, build_stacked_attack, build_stacke
 from ...device import fp32_matmul
 from ...ml.aggregator.aggregator_creator import create_server_aggregator
 from ...ml.engine.packed import PackedSchedule, build_packed_device_fn, pack_round, s_max_for
-from ...ml.engine.train import build_local_train, init_variables
+from ...ml.engine.train import build_chunked_local_train, build_local_train, init_variables
 from ...ml.trainer.trainer_creator import _TAG_DATASETS, loss_kind_for_dataset
 from ...models.convert import FlatLayout
 from ...models.hub import data_storage_dtype
@@ -97,8 +107,6 @@ def _compiled(a, k) -> bool:
 
 # (knob, is it switched on?, the ROADMAP.md item that ports it)
 _UNPORTED_KNOBS = (
-    ("xla_client_chunk", _is_set, "queue A, item 6c: xla_client_chunk"),
-    ("population_stacked", _is_set, "queue A, item 6b: population_stacked"),
     ("server_state", lambda a, k: str(getattr(a, k, "replicated") or "replicated").lower()
      != "replicated", "queue A, item 10: server planes"),
     ("agg_plane", lambda a, k: str(getattr(a, k, "host") or "host").lower() != "host",
@@ -112,13 +120,11 @@ _UNPORTED_KNOBS = (
     ("obs_health", _is_set, "queue A, item 9d: the rest of the message plane (obs)"),
     ("enable_profiler", _is_set, "queue A, item 9d: the rest of the message plane (obs)"),
 )
-# knobs of the round simulator alone: the sp simulator never reads them
-XLA_ROUND_KNOBS = ("xla_client_chunk", "population_stacked")
 
 
-def refuse_unported_knobs(args, skip=()) -> None:
+def refuse_unported_knobs(args) -> None:
     for key, on, item in _UNPORTED_KNOBS:
-        if key not in skip and on(args, key):
+        if on(args, key):
             raise NotImplementedError(
                 f"{key}={getattr(args, key)!r} is not ported to the torch simulator yet "
                 f"(ROADMAP.md {item})")
@@ -193,13 +199,27 @@ class XLASimulator:
             self._local_train = build_local_train(
                 self.module, self.args, self.batch_size, self.padded_n, loss=self.loss_kind,
                 grad_hook=self.algo.grad_hook(), post_train=post_train)
+            self._chunk_train = None
+            self._chunk_warned: set = set()
+            if int(getattr(args, "xla_client_chunk", 0) or 0) > 1:
+                self._chunk_train = build_chunked_local_train(
+                    self.module, self.args, self.batch_size, self.padded_n,
+                    loss=self.loss_kind, grad_hook=self.algo.grad_hook(), post_train=post_train)
         if self.secured:
             self._build_security()
         self.runtime_estimator = RuntimeEstimator(1, uniform_devices=True)
         self.scheduler = SeqTrainScheduler(1, estimator=self.runtime_estimator)
         self._seen_buckets: set = set()
         self.population = PopulationManager.from_args(
-            self.args, np.arange(self.num_clients), rng_style="mt19937")
+            self.args, np.arange(self.num_clients), num_samples=self.client_counts,
+            rng_style="mt19937")
+        # population_stacked: the whole run's cohorts in one vectorized draw,
+        # a different schedule from the per-round seeded one
+        self._stacked_schedule = None
+        if bool(getattr(args, "population_stacked", False)):
+            self._stacked_schedule = stacked_cohorts(
+                self.num_clients, self.clients_per_round, int(getattr(args, "comm_round", 1)),
+                seed=self.seed)
         self.async_mode = str(getattr(args, "fl_mode", "sync") or "sync").lower() == "async"
         if self.async_mode:
             self._async_init()
@@ -262,7 +282,23 @@ class XLASimulator:
                     tuple(self.x_all.shape), self.x_all.dtype, self.device)
 
     def _client_sampling(self, round_idx: int) -> np.ndarray:
+        if self._stacked_schedule is not None:
+            return self._stacked_schedule[round_idx % len(self._stacked_schedule)]
         return np.asarray(self.population.select(round_idx, self.clients_per_round), np.int64)
+
+    def _resolve_chunk(self, slots: int) -> int:
+        """Clients trained together (``xla_client_chunk``): the largest
+        divisor of the round's slot count at most the request, with the JAX
+        package's warning when it differs from the request; 1 when unset."""
+        req = int(getattr(self.args, "xla_client_chunk", 0) or 0)
+        if req <= 1:
+            return 1
+        k = max(d for d in range(1, min(req, slots) + 1) if slots % d == 0)
+        if k != req and (req, slots) not in self._chunk_warned:
+            self._chunk_warned.add((req, slots))
+            logger.warning("xla_client_chunk=%d does not divide clients/device=%d; using %d",
+                           req, slots, k)
+        return k
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -484,11 +520,11 @@ class XLASimulator:
     # the round
     # ------------------------------------------------------------------
     def _run_round(self, round_idx: int, ids: np.ndarray, counts: np.ndarray, cex=None):
-        """Train the scheduled clients, in order, from the current global
-        variables, apply the server step (or the security tail) and fold the
-        clients' outputs into the client state.  ``cex`` is the round's
-        client extras (``algo.gather_client_extras``).  Returns the mean loss
-        tensor."""
+        """Train the scheduled clients, in order (k at a time under
+        ``xla_client_chunk``), from the current global variables, apply the
+        server step (or the security tail) and fold the clients' outputs into
+        the client state.  ``cex`` is the round's client extras
+        (``algo.gather_client_extras``).  Returns the mean loss tensor."""
         algo = self.algo
         acc = {k: torch.zeros_like(v, dtype=torch.float32) for k, v in self.variables.items()}
         if self.needs_stack:
@@ -501,35 +537,56 @@ class XLASimulator:
         cex_rows, out_rows = split_slots(cex, len(ids)), split_slots(outs, len(ids))
         wsum = 0.0
         lsum = torch.zeros((), dtype=torch.float32, device=self.device)
-        for s, (cid, n_i) in enumerate(zip(ids.tolist(), counts.tolist())):
-            if n_i <= 0:
-                continue  # contributes nothing, as a weight-0 slot in the mesh round
-            cex_i = cex_rows[s]
-            rows = self.client_idx[cid]
-            with torch.no_grad():
-                extra = algo.engine_extra(cex_i, self.server_state)
-            result = self._local_train(self.variables, self.x_all.index_select(0, rows),
-                                       self.y_all.index_select(0, rows), n_i,
-                                       seed=(self.seed, round_idx, cid), extra=extra)
-            w = float(n_i)
-            with torch.no_grad():
-                if self.needs_stack:
-                    for k, p in result.variables.items():
-                        update_rows[k][s].copy_(p)
-                    taus[s] = result.steps
-                for k, p in result.variables.items():
-                    acc[k].add_(p.float(), alpha=w)
-                contrib, out = algo.client_result(self.variables, result, w, 1.0, cex_i,
-                                                  self.server_state)
-                ext = tree_add_(ext, contrib)
-                store_out(out_rows[s], out)
-            wsum += w
-            lsum += result.loss * w
+        k = self._resolve_chunk(len(ids))
+        for first in range(0, len(ids), k):
+            chunk = range(first, first + k)
+            if all(counts[s] <= 0 for s in chunk):
+                continue  # contributes nothing, as weight-0 slots in the mesh round
+            for s, result in zip(chunk, self._train_slots(round_idx, chunk, ids, counts,
+                                                          cex_rows)):
+                n_i = int(counts[s])
+                if n_i <= 0:
+                    continue
+                w = float(n_i)
+                with torch.no_grad():
+                    if self.needs_stack:
+                        for name, p in result.variables.items():
+                            update_rows[name][s].copy_(p)
+                        taus[s] = result.steps
+                    for name, p in result.variables.items():
+                        acc[name].add_(p.float(), alpha=w)
+                    contrib, out = algo.client_result(self.variables, result, w, 1.0,
+                                                      cex_rows[s], self.server_state)
+                    ext = tree_add_(ext, contrib)
+                    store_out(out_rows[s], out)
+                wsum += w
+                lsum += result.loss * w
         mean_loss = lsum / max(wsum, 1e-9)
         if self.needs_stack:
             outs = {"algo": outs, "update": update, "tau": taus}
         self._server_step(round_idx, acc, wsum, ext, ids, counts, cex, outs)
         return mean_loss
+
+    def _train_slots(self, round_idx: int, chunk: range, ids: np.ndarray, counts: np.ndarray,
+                     cex_rows: list) -> list:
+        """The local training of one chunk of schedule slots: one client
+        through the engine, or k through its chunked form (clients with no
+        sample ride along masked, as weight-0 slots do in the mesh round)."""
+        with torch.no_grad():
+            extras = [self.algo.engine_extra(cex_rows[s], self.server_state) for s in chunk]
+        seeds = [(self.seed, round_idx, int(ids[s])) for s in chunk]
+        if len(chunk) == 1:
+            rows = self.client_idx[int(ids[chunk[0]])]
+            return [self._local_train(self.variables, self.x_all.index_select(0, rows),
+                                      self.y_all.index_select(0, rows), int(counts[chunk[0]]),
+                                      seed=seeds[0], extra=extras[0])]
+        rows = self.client_idx.index_select(
+            0, torch.as_tensor(ids[chunk.start:chunk.stop], device=self.device)).reshape(-1)
+        shape = (len(chunk), self.padded_n)
+        x = self.x_all.index_select(0, rows).reshape(shape + tuple(self.x_all.shape[1:]))
+        y = self.y_all.index_select(0, rows).reshape(shape + tuple(self.y_all.shape[1:]))
+        return self._chunk_train(self.variables, x, y, [int(counts[s]) for s in chunk], seeds,
+                                 extras)
 
     def _run_packed_round(self, round_idx: int, ids: np.ndarray, counts: np.ndarray, cex=None):
         """The packed stream of the scheduled clients, then the server step
@@ -638,6 +695,8 @@ class XLASimulator:
             self.round_losses.append(float(mean_loss))
             self.metrics.log({"round": round_idx, "round_time_s": round(dt, 4),
                               "train_loss": self.round_losses[-1]})
+            # population accounting: everyone sampled was invited and reported
+            self.population.observe_round(round_idx, sampled, seconds=dt)
             if freq > 0 and (round_idx % freq == 0 or round_idx == comm_round - 1):
                 last = self._test_global(round_idx)
         return last

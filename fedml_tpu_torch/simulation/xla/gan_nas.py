@@ -66,8 +66,6 @@ def _scheduled(args, round_idx: int, local_num) -> List[Tuple[int, int, int]]:
 
 
 class GANInMeshAPI(FedGanAPI):
-    _skip_knobs = ()
-
     def __init__(self, args, device, dataset, model=None, latents=None):
         super().__init__(args, device, dataset, model, latents)
         x_all, _y, self.idx, _counts, self.padded_n = _pad_clients(
@@ -85,7 +83,7 @@ class GANInMeshAPI(FedGanAPI):
 
 class NASInMeshAPI(FedNASAPI):
     def _checks(self, args) -> int:
-        own_loop_setup(args, type(self).__name__, frequency=False, skip=())
+        own_loop_setup(args, type(self).__name__, frequency=False)
         return int(getattr(args, "frequency_of_the_test", 5))  # <= 0: no eval
 
     def _round_clients(self, round_idx: int) -> List[Tuple[int, float]]:

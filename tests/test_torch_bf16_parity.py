@@ -78,7 +78,8 @@ def test_bf16_gradients_match_pallas(case):
     def loss_j(q, k, v):
         return jnp.sum(jax_flash(q, k, v, causal, 16, 16, True).astype(jnp.float32) * w)
 
-    grads_j = jax.grad(loss_j, argnums=(0, 1, 2))(_to_jax(q), _to_jax(k), _to_jax(v))
+    # jitted as a whole: bit for bit the eager interpreter's gradients here
+    grads_j = jax.jit(jax.grad(loss_j, argnums=(0, 1, 2)))(_to_jax(q), _to_jax(k), _to_jax(v))
     qt, kt, vt = (_to_torch(a).requires_grad_() for a in (q, k, v))
     (fa.flash_attention(qt, kt, vt, causal).float() * torch.from_numpy(w)).sum().backward()
     for name, gt, gj in zip("qkv", (qt.grad, kt.grad, vt.grad), grads_j):

@@ -41,6 +41,11 @@ SLICE_MODULES = [
     "fedml_tpu_torch.core.dp.fedml_differential_privacy",
     "fedml_tpu_torch.core.dp.mechanisms",
     "fedml_tpu_torch.core.population",
+    "fedml_tpu_torch.core.population.manager",
+    "fedml_tpu_torch.core.population.pacer",
+    "fedml_tpu_torch.core.population.policies",
+    "fedml_tpu_torch.core.population.registry",
+    "fedml_tpu_torch.core.population.stacked",
     "fedml_tpu_torch.core.schedule",
     "fedml_tpu_torch.core.security.attack_funcs",
     "fedml_tpu_torch.core.security.constants",

@@ -210,7 +210,7 @@ def _both_defenses(defense, extra, rows):
     for call in range(2):
         key = jax.random.PRNGKey(call)
         draw = _jax_draw(defense, key)
-        jout = jfn(jstack, jw, JGLOBAL, key, jstate)
+        jout = jax.jit(jfn)(jstack, jw, JGLOBAL, key, jstate)  # one program, as in the round
         tout = tfn(tstack, tw, TGLOBAL, None, tstate,
                    noise=None if draw is None else torch.from_numpy(np.array(draw)))
         jstate, tstate = jout[-1], tout[-1]
@@ -268,7 +268,7 @@ def test_stacked_attack_matches_jax(attack, extra):
     mal = np.zeros(N, np.float32)
     mal[[1, 4]] = 1.0
     key = jax.random.PRNGKey(3)
-    jout = JS.build_stacked_attack(_Args(**extra), attack)(
+    jout = jax.jit(JS.build_stacked_attack(_Args(**extra), attack))(
         jmat, jw, jnp.asarray(_jflat(JGLOBAL)), jnp.asarray(mal), key)
     tfn = TS.build_stacked_attack(_Args(**extra), attack)
     noise = None
@@ -400,8 +400,10 @@ def test_data_attacks_match_jax_given_its_choices():
     np.testing.assert_array_equal(TA.flip_labels(torch.from_numpy(y), 1, 7).numpy(),
                                   np.asarray(JA.flip_labels(jnp.asarray(y), 1, 7)))
     key = jax.random.PRNGKey(5)
-    jx, jy = JA.poison_backdoor(jnp.asarray(x), jnp.asarray(y), 3, 0.3, key)
-    idx = jax.random.permutation(key, 20)[:6]  # the JAX choice
+    # the JAX side jitted: one program a call (bit for bit the eager result)
+    jx, jy = jax.jit(lambda x, y, k: JA.poison_backdoor(x, y, 3, 0.3, k))(
+        jnp.asarray(x), jnp.asarray(y), key)
+    idx = jax.jit(lambda k: jax.random.permutation(k, 20)[:6])(key)  # the JAX choice
     tx, ty = TA.poison_backdoor(torch.from_numpy(x), torch.from_numpy(y), 3, 0.3,
                                 idx=torch.from_numpy(np.array(idx)))
     np.testing.assert_array_equal(tx.numpy(), np.asarray(jx))
@@ -412,7 +414,8 @@ def test_data_attacks_match_jax_given_its_choices():
     logits = rng.normal(0, 2, (20, 10)).astype(np.float32)
     ex, ey = TA.poison_edge_cases(torch.from_numpy(x), torch.from_numpy(y),
                                   torch.from_numpy(logits), 9, 0.25)
-    jex, jey = JA.poison_edge_cases(jnp.asarray(x), jnp.asarray(y), jnp.asarray(logits), 9, 0.25)
+    jex, jey = jax.jit(lambda x, y, lg: JA.poison_edge_cases(x, y, lg, 9, 0.25))(
+        jnp.asarray(x), jnp.asarray(y), jnp.asarray(logits))
     np.testing.assert_array_equal(ey.numpy(), np.asarray(jey))
     pool = rng.rand(5, 8, 8, 3).astype(np.float32)
     src, pos = np.array([4, 0, 4]), np.array([2, 11, 7])
@@ -475,7 +478,8 @@ def test_soteria_probe_scores_match_jax():
     def tfeat(x):
         return torch.tanh(x @ torch.from_numpy(w)) + 0.1
 
-    want = np.array(JF.soteria_scores(jfeat, jnp.asarray(xs)))
+    # jitted: one program (bit for bit the eager scores, a tenth of the time)
+    want = np.array(jax.jit(lambda x: JF.soteria_scores(jfeat, x))(jnp.asarray(xs)))
     got = TF.soteria_scores(tfeat, torch.from_numpy(xs)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5)
     np.testing.assert_array_equal(TF.soteria_mask(torch.from_numpy(want), 40.0).numpy(),

@@ -181,8 +181,7 @@ def test_throughput_reports_tokens(runs):
 
 
 def test_unported_knobs_raise():
-    for knob, value in (("xla_client_chunk", 4), ("population_stacked", True),
-                        ("dp_plane", "compiled"), ("agg_plane", "compiled"),
+    for knob, value in (("dp_plane", "compiled"), ("agg_plane", "compiled"),
                         ("server_state", "sharded"),
                         ("checkpoint_dir", "ckpt"), ("obs_trace", True)):
         config = copy.deepcopy(CONFIG)

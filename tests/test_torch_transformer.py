@@ -60,7 +60,7 @@ def pair():
 def test_logits_match(pair):
     jmodel, variables, tmodel, tokens, _ = pair
     flash = JLM(JCfg(**CFG), attention_fn=_jax_attn)
-    ref = np.asarray(flash.apply(variables, jnp.asarray(tokens)))
+    ref = np.asarray(jax.jit(flash.apply)(variables, jnp.asarray(tokens)))
     out = tmodel(torch.from_numpy(tokens)).detach().numpy()
     np.testing.assert_allclose(out, ref, atol=3e-4)
 
